@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of mggan_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``mggan_tpu`` stays the reference; this package mirrors its
+module layout and names so each counterpart is easy to find. It imports
+``torch`` and never ``jax`` or ``mggan_tpu``. Its Pallas kernels become
+hand-written CUDA C++ kernels under ``csrc/``, built at first use
+(``ops/kernels/build.py``).
+
+Ported so far: k=20 PM-categorical sampling (``eval/predict.py``'s
+``sampling`` strategy) and the ``ServingModel`` front-end on top of it, with
+the fused-selection decoder as the CUDA kernel ``csrc/decode_select.cu``.
+"""

@@ -1,0 +1,184 @@
+"""Multi-generator G: encoder + scene/social context + PM-net + decoders.
+
+Counterpart of ``mggan_tpu/models/generator.py`` for the continuous
+multi-generator with sways social attention (the serving flagship).
+Parameters are nested dicts of tensors in the JAX layout; the G decoders
+are one tree with a leading generator axis.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from mggan_tpu_torch.models import common
+from mggan_tpu_torch.models.common import GeneratorOutput
+from mggan_tpu_torch.ops import social as social_ops
+from mggan_tpu_torch.ops.cnn import scene_cnn_apply, scene_cnn_init
+from mggan_tpu_torch.ops.kernels import decoder as decoder_kernel
+from mggan_tpu_torch.ops.linear import linear_init, mlp_apply, mlp_init
+
+
+@dataclass(frozen=True)
+class GeneratorSpec:
+    """Static architecture hyper-parameters (subset of Config)."""
+
+    z_size: int
+    encoder_h_dim: int
+    decoder_h_dim: int
+    social_feat_size: int  # 0 disables the social module
+    num_gens: int
+    pred_len: int
+    embedding_dim: int
+    inp_format: str
+    pool_type: str
+    scene_dim: int  # 0 disables the scene CNN
+    use_pinet: bool
+
+    @property
+    def social_out_dim(self) -> int:
+        return self.encoder_h_dim if self.social_feat_size > 0 else 0
+
+    @property
+    def enc_total(self) -> int:
+        return self.encoder_h_dim + self.scene_dim + self.social_out_dim
+
+
+def init(spec: GeneratorSpec, generator: torch.Generator):
+    """Build ``(params, state)`` from ``generator``'s draws, on its device.
+    ``state`` holds the scene CNN's BatchNorm running statistics."""
+    if spec.social_feat_size > 0 and spec.pool_type != "sways":
+        raise NotImplementedError("only sways social pooling is ported")
+    gen = generator
+    params = {
+        "encoder": common.trajectory_encoder_init(
+            gen, common.input_size(spec.inp_format), spec.encoder_h_dim,
+            spec.embedding_dim,
+        )
+    }
+    state = {}
+    if spec.scene_dim > 0:
+        params["scene"], state["scene"] = scene_cnn_init(gen, channels_cnn=16)
+    if spec.social_feat_size > 0:
+        params["social"] = {
+            "embed": mlp_init(gen, [3, 32, 64, spec.social_feat_size]),
+            "w": linear_init(gen, spec.encoder_h_dim, spec.social_feat_size),
+        }
+    params["decoders"] = common.stacked_decoders_init(
+        gen, spec.num_gens, spec.embedding_dim, spec.decoder_h_dim,
+        spec.inp_format, spec.social_out_dim,
+    )
+    params["enc_to_dec"] = mlp_init(gen, [spec.enc_total + spec.z_size, spec.decoder_h_dim])
+    h = spec.encoder_h_dim
+    params["net_chooser"] = mlp_init(gen, [spec.enc_total, h // 2, h // 2, spec.num_gens])
+    params["net_prior"] = torch.zeros((1, spec.num_gens), device=gen.device)
+    return params, state
+
+
+def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
+           patches):
+    """Shared context encoding (standard.py:140-155), eval mode.
+
+    Returns ``(enc_h (S, P, E_total), social_feats (S, P, F), state)``.
+    """
+    enc_h = common.trajectory_encoder_apply(
+        params["encoder"], common.get_input(in_xy, in_dxdy, spec.inp_format)
+    )
+    feats = [enc_h]
+    if spec.scene_dim > 0 and patches is not None:
+        s, p = patches.shape[:2]
+        scene_enc = scene_cnn_apply(
+            params["scene"], state["scene"],
+            patches.reshape((s * p,) + tuple(patches.shape[2:])),
+        )
+        feats.append(scene_enc.reshape(s, p, -1))
+    if spec.social_feat_size > 0:
+        social_feats = social_ops.social_attention_apply(
+            params["social"], in_xy[..., -1, :], in_dxdy[..., -1, :], enc_h,
+            ped_mask,
+        )
+        feats.append(social_feats)
+    else:
+        social_feats = enc_h.new_zeros(enc_h.shape[:-1] + (0,))
+    return torch.cat(feats, dim=-1), social_feats, state
+
+
+def pm_logits(params, spec: GeneratorSpec, enc_h):
+    """PM-network logits or the (learnable) prior (standard.py:217-225)."""
+    if spec.use_pinet:
+        return mlp_apply(params["net_chooser"], enc_h, activation="relu")
+    prior = params["net_prior"][0]
+    return prior.expand(enc_h.shape[:-1] + (spec.num_gens,))
+
+
+def _decoder_h0(params, enc_h, noise):
+    """``enc_to_dec([enc_h, z])`` for every sample: ``(K*S*P, H)`` rows in
+    ``(k, s, p)``-major order."""
+    k = noise.shape[0]
+    enc_b = enc_h[None].expand((k,) + tuple(enc_h.shape))
+    h0 = mlp_apply(params["enc_to_dec"], torch.cat([enc_b, noise], dim=-1))
+    return h0.reshape(-1, h0.shape[-1])
+
+
+def _broadcast_decoder_inputs(params, last_xy, last_dxdy, enc_h,
+                              social_feats, noise):
+    """Per-agent tensors broadcast over the K samples and flattened to
+    ``(k, s, p)``-major rows (the JAX decode prologue).
+
+    Returns ``(xy_b, dxdy_b, social_b, h0)`` with leading axis K*S*P.
+    """
+    k = noise.shape[0]
+    flat = lambda x: x.reshape(-1, x.shape[-1]).repeat(k, 1)
+    return (flat(last_xy), flat(last_dxdy), flat(social_feats),
+            _decoder_h0(params, enc_h, noise))
+
+
+def _reshape_samples(x, spec, noise):
+    k, s, p, _ = noise.shape
+    return x.reshape(k, s, p, spec.pred_len, 2)
+
+
+def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
+               social_feats, noise):
+    """Every generator on every noise sample (standard.py:227-265).
+
+    Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2).
+    """
+    k, s, p, _ = noise.shape
+    xy_b, dxdy_b, social_b, h0 = _broadcast_decoder_inputs(
+        params, last_xy, last_dxdy, enc_h, social_feats, noise
+    )
+    abs_g, rel_g = common.stacked_decoders_apply(
+        params["decoders"], xy_b, dxdy_b, social_b, h0, spec.pred_len,
+        spec.inp_format,
+    )
+    shape = (spec.num_gens, k, s, p, spec.pred_len, 2)
+    reshape = lambda x: x.reshape(shape).transpose(0, 1)
+    return GeneratorOutput(rel=reshape(rel_g), abs=reshape(abs_g))
+
+
+def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
+                  social_feats, noise, gen_idxs):
+    """Decode only the sampled generator per (sample, agent).
+
+    On CUDA tensors this is the fused-selection kernel, on CPU tensors its
+    plain version (``ops/kernels/decoder.py``). The per-agent inputs go in
+    once; only ``h0`` and the generator index have a row per sample.
+
+    Args:
+        noise: (K, S, P, z); gen_idxs: (S, P, K) int.
+    Returns:
+        GeneratorOutput with abs/rel of shape (K, S, P, pred_len, 2).
+    """
+    flat = lambda x: x.reshape(-1, x.shape[-1]).contiguous()
+    h0 = _decoder_h0(params, enc_h, noise).contiguous()
+    # rows are (k, s, p)-major, the order _decoder_h0 produces
+    idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
+    abs_sel, rel_sel = decoder_kernel.decode_select(
+        params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
+        h0, idx, spec.pred_len, spec.inp_format,
+    )
+    return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
+                           abs=_reshape_samples(abs_sel, spec, noise))
+

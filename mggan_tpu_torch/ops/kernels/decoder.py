@@ -1,0 +1,202 @@
+"""Fused-selection decoder rollout: the port of the TPU kernel K1.
+
+Counterpart of ``mggan_tpu/ops/pallas/decoder.py::pallas_decode_select``
+(kernel ``_fwd_select_kernel``). ``decode_select`` rolls out only each
+row's sampled generator and returns its ``(abs, rel)``:
+
+* on CUDA tensors it launches ``csrc/decode_select.cu`` (built at first use)
+  or raises;
+* on CPU tensors it runs ``decode_select_reference``, the plain PyTorch
+  version: every generator's rollout (``stacked_decoders_apply``) followed
+  by ``gather_samples``.
+
+Row layout: ``h0 (N, H)`` and ``gen_idx (N,)`` have a row per rollout;
+``last_xy``, ``last_dxdy`` and ``social_feats`` have ``M`` rows with
+``N % M == 0``, and rollout ``n`` reads row ``n % M``. The sampling path's
+rows are ``(k, s, p)``-major, so those per-agent inputs are passed once
+rather than once per sample; ``M == N`` is the plain one-row-per-rollout
+case.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from mggan_tpu_torch.models import common
+from mggan_tpu_torch.ops import kernels, sampling
+from mggan_tpu_torch.ops.kernels import build
+
+KERNEL = "decode_select"
+FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
+MAX_SHARED_BYTES = 232448  # per block on the H100, as dynamic shared memory
+
+
+def pack_decoder_params(stacked, inp_format: str):
+    """Fold the stacked decoder params per generator (``_pack_all``'s fold,
+    without its lane-packed block-diagonal layout).
+
+    Returns a dict of per-generator tensors: ``w_emb (G, in, 4H)`` (spatial
+    embedding folded into the input weights), ``w_hh (G, H, 4H)``,
+    ``b (G, 4H)``, ``w1h (G, H, hid)``, ``w1s (G, F, hid)``, ``b1 (G, hid)``,
+    ``w2 (G, hid, 2)``, ``b2 (G, 2)``.
+    """
+    emb, lstm, h2p = stacked["spatial_embedding"], stacked["lstm"], stacked["hidden2pos"]
+    in_dim = emb["w"].shape[1]
+    if in_dim != common.input_size(inp_format):
+        raise ValueError(f"decoder input width {in_dim} does not fit {inp_format!r}")
+    h = lstm["w_hh"].shape[1]
+    w1 = h2p["lin0"]["w"]
+    return {
+        "w_emb": emb["w"] @ lstm["w_ih"],
+        "w_hh": lstm["w_hh"],
+        "b": (emb["b"][:, None, :] @ lstm["w_ih"])[:, 0] + lstm["b_ih"] + lstm["b_hh"],
+        "w1h": w1[:, :h],
+        "w1s": w1[:, h:],
+        "b1": h2p["lin0"]["b"],
+        "w2": h2p["lin1"]["w"],
+        "b2": h2p["lin1"]["b"],
+    }
+
+
+def social_bias(packed, social_feats):
+    """``social @ W1_soc + b1`` for every generator: ``(M, G, hid)``.
+    Constant over the rollout, so it is hoisted out of the kernel."""
+    return torch.einsum("mf,gfh->mgh", social_feats, packed["w1s"]) + packed["b1"][None]
+
+
+def kernel_weights(packed):
+    """The kernel's shared-memory image: per generator ``whh [H][H][4]``,
+    ``wemb [in][H][4]``, ``b [H][4]``, ``w1 [H][hid]``, ``w2 [hid][2]``,
+    ``b2 [2]``, zero-padded to a multiple of 4 floats. Returns
+    ``(flat (G * per_gen,), per_gen)``."""
+    g, in_dim, four_h = packed["w_emb"].shape
+    h = four_h // 4
+    gate_last = lambda w: w.reshape(g, -1, 4, h).transpose(2, 3).reshape(g, -1)
+    parts = [
+        gate_last(packed["w_hh"]),
+        gate_last(packed["w_emb"]),
+        gate_last(packed["b"]),
+        packed["w1h"].reshape(g, -1),
+        packed["w2"].reshape(g, -1),
+        packed["b2"].reshape(g, -1),
+    ]
+    flat = torch.cat(parts, dim=1)
+    pad = -flat.shape[1] % 4
+    flat = F.pad(flat, (0, pad))
+    return flat.contiguous().reshape(-1), flat.shape[1]
+
+
+def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
+                            gen_idx, pred_len: int, inp_format: str):
+    """Plain PyTorch version: all generators, then the per-row gather."""
+    n, m = h0.shape[0], last_xy.shape[0]
+    tile = lambda x: x.repeat(n // m, 1)
+    abs_g, rel_g = common.stacked_decoders_apply(
+        stacked, tile(last_xy), tile(last_dxdy), tile(social_feats), h0,
+        pred_len, inp_format,
+    )  # (G, N, T, 2)
+    # as gather_samples' (K, G, S, P, T, 2) and (S, P, K) with K = S = 1
+    idx = gen_idx.reshape(1, n, 1)
+    pick = lambda x: sampling.gather_samples(x[None, :, None], idx).reshape(n, pred_len, 2)
+    return pick(abs_g), pick(rel_g)
+
+
+@functools.cache
+def _kernel_fn():
+    lib = build.load(KERNEL)
+    fn = lib.mggan_decode_select
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mggan_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.mggan_cuda_error_string
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need a contiguous {dtype} tensor on {device}, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
+                          gen_idx, pred_len: int, inp_format: str):
+    """Fold the weights, hoist ``socb`` and check every kernel argument.
+    Returns the arguments of ``launch_decode_select``."""
+    packed = pack_decoder_params(stacked, inp_format)
+    socb = social_bias(packed, social_feats).contiguous()
+    wflat, per_gen = kernel_weights(packed)
+    g, in_dim, four_h = packed["w_emb"].shape
+    h, hid = four_h // 4, packed["w1h"].shape[2]
+    n, m = h0.shape[0], last_xy.shape[0]
+    dev = h0.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_select_cuda needs CUDA tensors, got {dev}")
+    if m == 0 or n % m:
+        raise ValueError(f"{n} rollout rows are not a multiple of {m} input rows")
+    if h > 32 or hid > 32 or pred_len > 32:
+        raise ValueError(f"kernel takes H, hid, pred_len <= 32; got {h}, {hid}, {pred_len}")
+    if g * per_gen * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"{g} generators' weights exceed one block's shared memory")
+    f32 = torch.float32
+    _check("wpack", wflat, (g * per_gen,), f32, dev)
+    _check("h0", h0, (n, h), f32, dev)
+    _check("socb", socb, (m, g, hid), f32, dev)
+    _check("last_xy", last_xy, (m, 2), f32, dev)
+    _check("last_dxdy", last_dxdy, (m, 2), f32, dev)
+    _check("gen_idx", gen_idx, (n,), torch.int32, dev)
+    return {
+        "tensors": (wflat, h0, socb, last_xy, last_dxdy, gen_idx),
+        "dims": (n, m, g, h, hid, in_dim, pred_len, FORMATS[inp_format], per_gen),
+    }
+
+
+def launch_decode_select(args):
+    """Launch the K1 kernel on the current stream with checked arguments
+    from ``prepare_decode_select``; returns ``(abs, rel)``."""
+    tensors, dims = args["tensors"], args["dims"]
+    n, pred_len = dims[0], dims[6]
+    dev = tensors[1].device
+    out_abs = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
+    out_rel = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out_abs, out_rel
+    fn, err_str = _kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in tensors), out_abs.data_ptr(),
+                out_rel.data_ptr(), *dims, stream)
+    if rc:
+        raise RuntimeError(f"{KERNEL} launch failed: {err_str(rc).decode()} ({rc})")
+    kernels.launches[KERNEL] += 1
+    return out_abs, out_rel
+
+
+def decode_select_cuda(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
+                       pred_len: int, inp_format: str):
+    """The K1 kernel's route; see the module note."""
+    return launch_decode_select(prepare_decode_select(
+        stacked, last_xy, last_dxdy, social_feats, h0, gen_idx, pred_len,
+        inp_format))
+
+
+def decode_select(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
+                  pred_len: int, inp_format: str):
+    """Rollout of each row's sampled generator -> ``(abs, rel)``, each
+    ``(N, pred_len, 2)``. CUDA tensors go to the kernel, CPU tensors to the
+    plain version; there is no other route."""
+    if h0.device.type == "cuda":
+        return decode_select_cuda(stacked, last_xy, last_dxdy, social_feats,
+                                  h0, gen_idx, pred_len, inp_format)
+    if h0.device.type == "cpu":
+        return decode_select_reference(stacked, last_xy, last_dxdy,
+                                       social_feats, h0, gen_idx, pred_len,
+                                       inp_format)
+    raise ValueError(f"decode_select: unsupported device {h0.device}")

@@ -1,0 +1,62 @@
+"""Noise and categorical-selection ops.
+
+Counterpart of ``mggan_tpu/ops/sampling.py``. Draws come from an explicit
+``torch.Generator`` or are injected (``z=`` / ``uniforms=``), so a test can
+hand both frameworks the same random numbers.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+GUMBEL_U_MIN = 1e-20
+
+
+def global_noise(num_samples: int, s: int, p: int, dim: int, *,
+                 generator=None, z=None):
+    """Per-scene Gaussian noise shared by all peds of a scene
+    (utils.py:160-165).
+
+    Drawn at ``(num_samples, S, 1, dim)`` (or taken from ``z``) and broadcast
+    to ``(num_samples, S, P, dim)``.
+    """
+    shape = (num_samples, s, 1, dim)
+    if z is None:
+        z = torch.randn(shape, generator=generator, device=generator.device)
+    elif tuple(z.shape) != shape:
+        raise ValueError(f"z has shape {tuple(z.shape)}, expected {shape}")
+    return z.expand(num_samples, s, p, dim)
+
+
+def categorical(logits, num_samples: int, *, generator=None, uniforms=None):
+    """Gumbel-argmax generator draws per (agent, sample) (standard.py:217-225).
+
+    ``uniforms`` of shape ``(num_samples,) + logits.shape`` in
+    ``[1e-20, 1)`` replace the generator's draws. Returns int32
+    ``(..., num_samples)``.
+    """
+    shape = (num_samples,) + tuple(logits.shape)
+    if uniforms is None:
+        r = torch.rand(shape, generator=generator, device=logits.device)
+        u = GUMBEL_U_MIN + r * (1.0 - GUMBEL_U_MIN)
+    elif tuple(uniforms.shape) != shape:
+        raise ValueError(f"uniforms have shape {tuple(uniforms.shape)}, expected {shape}")
+    else:
+        u = uniforms
+    gumbel = -torch.log(-torch.log(u))
+    idx = torch.argmax(logits[None] + gumbel, dim=-1)
+    return torch.movedim(idx, 0, -1).to(torch.int32)
+
+
+def gather_samples(decoded, gen_idxs):
+    """Pick the sampled generator's rollout per (agent, sample).
+
+    decoded: ``(K, G, S, P, ...)``; gen_idxs: ``(S, P, K)`` int.
+    Returns ``(K, S, P, ...)``, as a one-hot contraction like JAX.
+    """
+    g = decoded.shape[1]
+    onehot = F.one_hot(gen_idxs.long(), g).to(decoded.dtype)  # (S, P, K, G)
+    onehot = onehot.permute(2, 3, 0, 1)  # (K, G, S, P)
+    extra = decoded.dim() - onehot.dim()
+    return (decoded * onehot.reshape(onehot.shape + (1,) * extra)).sum(1)

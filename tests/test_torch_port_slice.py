@@ -1,0 +1,193 @@
+"""The ported sampling slice end to end against the JAX package (CPU).
+
+The flagship generator (mgan, G=4, h=32, sways social, scene CNN) is built
+at full width with the JAX factory and moved into the port. Both sides get
+the same random numbers: the test draws them with the same ``jax.random``
+split as ``Predictor._decode_sampled`` and injects them into the port.
+Tolerance: atol 1e-4 over the 12-step rollout (PARITY.md).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mggan_tpu.config import Config as JaxConfig
+from mggan_tpu.eval.predict import Predictor as JaxPredictor
+from mggan_tpu.models import factory as jax_factory
+from mggan_tpu.models import generator as jax_generator
+from mggan_tpu.models import torch_export
+from mggan_tpu.serving.runtime import ServingModel as JaxServingModel
+
+from mggan_tpu_torch.config import Config
+from mggan_tpu_torch.eval.predict import Predictor
+from mggan_tpu_torch.models import factory
+from mggan_tpu_torch.models import generator
+from mggan_tpu_torch.models.weights import (
+    generator_from_jax,
+    generator_from_state_dict,
+)
+from mggan_tpu_torch.serving.runtime import MissingSceneInputError, ServingModel
+
+ROOT = Path(__file__).resolve().parents[1]
+ATOL = 1e-4
+S, P, K = 3, 5, 20
+
+
+def _np_tree(x):
+    if isinstance(x, dict):
+        return {k: _np_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    cfg = JaxConfig(dataset="synthetic_memory", num_gens=4, gan_type="mgan",
+                    weighting_target="ml", h_dim=32, decoder_h_dim=32)
+    (g_params, g_state, g_spec), _ = jax_factory.construct_model(
+        cfg, jax.random.PRNGKey(0))
+    params, state = generator_from_jax(_np_tree(g_params), _np_tree(g_state),
+                                       factory.build_specs(Config.from_dict(cfg.to_dict())),
+                                       device="cpu")
+    port_cfg = Config.from_dict(cfg.to_dict())
+    return {
+        "jax": JaxPredictor(cfg, g_spec, g_params, g_state),
+        "port": Predictor(port_cfg, factory.build_specs(port_cfg), params,
+                          state, device="cpu"),
+        "jax_params": (g_params, g_state, g_spec),
+    }
+
+
+def _batch(seed=0):
+    rng = np.random.RandomState(seed)
+    mask = np.ones((S, P), bool)
+    mask[1, 3:] = False  # padded peds
+    mask[2, 1:] = False  # a one-ped scene
+    return {
+        "xy": rng.randn(S, P, 20, 2).astype(np.float32).cumsum(2) * 0.1,
+        "ped_mask": mask,
+        "patches": rng.uniform(-1, 1, (S, P, 33, 33, 4)).astype(np.float32),
+    }
+
+
+def _jax_draws(seed, s, p, num, num_gens, noise_dim):
+    """The random numbers ``_decode_sampled`` draws from PRNGKey(seed)."""
+    k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
+    u = jax.random.uniform(k2, (num, s, p, num_gens), minval=1e-20, maxval=1.0)
+    z = jax.random.normal(k1, (num, s, 1, noise_dim))
+    return {"uniforms": np.array(u), "z": np.array(z)}
+
+
+def test_predictor_sampling_matches_jax_at_flagship_width(flagship):
+    batch = _batch()
+    out_j = flagship["jax"].predict({k: jnp.asarray(v) for k, v in batch.items()},
+                                    jax.random.PRNGKey(11), num=K)
+    draws = _jax_draws(11, S, P, K, 4, 8)
+    out_p = flagship["port"].predict(batch, num=K, draws=draws)
+    np.testing.assert_array_equal(out_p[3].numpy(), np.asarray(out_j[3]))
+    np.testing.assert_allclose(out_p[2].numpy(), np.asarray(out_j[2]), atol=2e-5)
+    np.testing.assert_allclose(out_p[0].numpy(), np.asarray(out_j[0]), atol=ATOL)
+    np.testing.assert_allclose(out_p[1].numpy(), np.asarray(out_j[1]), atol=ATOL)
+    assert out_p[0].shape == (K, S, P, 12, 2)
+
+
+def test_serving_padded_bucket_matches_jax(flagship):
+    scenes, peds, buckets, seed = 4, 6, (2, 4), 7
+    rng = np.random.RandomState(3)
+    obs = [rng.randn(n, 8, 2).astype(np.float32).cumsum(1) * 0.1 for n in (5, 2, 6)]
+    pat = [rng.uniform(-1, 1, (n, 33, 33, 4)).astype(np.float32) for n in (5, 2, 6)]
+    jax_model = JaxServingModel.from_predictor(
+        flagship["jax"], "sampling", scenes, peds, K, scene_buckets=buckets)
+    port_model = ServingModel.from_predictor(
+        flagship["port"], "sampling", scenes, peds, K, scene_buckets=buckets,
+        device="cpu")
+    want = jax_model.predict_batch(obs, pat, seed=seed)
+    # three scenes run in the 4-scene bucket: draws at the bucket's shape
+    draws = _jax_draws(seed, 4, peds, K, 4, 8)
+    got = port_model.predict_batch(obs, pat, seed=seed, draws=draws)
+    for g, w, o in zip(got, want, obs):
+        assert g.shape == (K, o.shape[0], 12, 2)
+        np.testing.assert_allclose(g, w, atol=ATOL)
+    with pytest.raises(MissingSceneInputError):
+        port_model.predict_batch(obs)
+    own_seed = port_model.predict_batch(obs, pat, seed=seed)
+    assert all(np.isfinite(o).all() for o in own_seed)
+    one = port_model.predict(obs[1], pat[1], seed=seed)
+    assert one.shape == (K, 2, 12, 2) and np.isfinite(one).all()
+
+
+def test_decode_all_matches_jax(flagship):
+    """Every generator on every sample (the decode-all strategies' path)."""
+    g_params, _, g_spec = flagship["jax_params"]
+    rng = np.random.RandomState(5)
+    k = 3
+    inputs = (rng.randn(S, P, 2), rng.randn(S, P, 2) * 0.3,
+              rng.randn(S, P, g_spec.enc_total), rng.randn(S, P, 32),
+              rng.randn(k, S, P, 8))
+    inputs = [x.astype(np.float32) for x in inputs]
+    want = jax_generator.decode_all(g_params, g_spec, *map(jnp.asarray, inputs))
+    port = flagship["port"]
+    got = generator.decode_all(port.g_params, port.g_spec,
+                               *map(torch.from_numpy, inputs))
+    assert got.abs.shape == (k, 4, S, P, 12, 2)
+    np.testing.assert_allclose(got.abs.numpy(), np.asarray(want.abs), atol=ATOL)
+    np.testing.assert_allclose(got.rel.numpy(), np.asarray(want.rel), atol=ATOL)
+
+
+def test_reference_state_dict_loads_strictly(flagship):
+    g_params, g_state, g_spec = flagship["jax_params"]
+    spec = flagship["port"].g_spec
+    sd = torch_export.export_generator(g_params, g_state, g_spec)
+    params, state = generator_from_state_dict(sd, spec, device="cpu")
+    direct = flagship["port"]
+    flat = lambda t, pre="": (
+        [x for k, v in sorted(t.items()) for x in flat(v, f"{pre}{k}.")]
+        if isinstance(t, dict) else [(pre, t)])
+    for (ka, a), (kb, b) in zip(flat(params), flat(direct.g_params)):
+        assert ka == kb
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert len(flat(params)) == len(flat(direct.g_params))
+    for (ka, a), (kb, b) in zip(flat(state), flat(direct.g_state)):
+        assert ka == kb and torch.equal(a, b)
+    with pytest.raises(KeyError, match="unexpected"):
+        generator_from_state_dict({**sd, "extra.weight": np.zeros(1)}, spec, "cpu")
+    missing = dict(sd)
+    missing.pop("net_prior")
+    with pytest.raises(KeyError):
+        generator_from_state_dict(missing, spec, "cpu")
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    code = (
+        "import sys, pkgutil, importlib; sys.modules['jax'] = None\n"
+        "import mggan_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mggan_tpu_torch.__path__, 'mggan_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'mggan_tpu' or m.startswith('mggan_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagship):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(num_gens=2, h_dim=8, decoder_h_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        factory.construct_model(cfg, seed=0)
+    params, state, spec = factory.construct_model(cfg, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(cfg, spec, params, state)
+    cpu_pred = Predictor(cfg, spec, params, state, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingModel.from_predictor(cpu_pred, "sampling", 2, 3, 4)
+    with pytest.raises(NotImplementedError):
+        cpu_pred.get_predict_func("expected")
