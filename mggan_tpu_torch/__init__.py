@@ -8,5 +8,8 @@ hand-written CUDA C++ kernels under ``csrc/``, built at first use
 
 Ported so far: k=20 PM-categorical sampling (``eval/predict.py``'s
 ``sampling`` strategy) and the ``ServingModel`` front-end on top of it, with
-the fused-selection decoder as the CUDA kernel ``csrc/decode_select.cu``.
+the fused-selection decoder as the CUDA kernel ``csrc/decode_select.cu``;
+and the flagship train step (``training/steps.py``: D, G and PM updates for
+mgan / NS / ml), whose all-generator rollout and its reverse sweep are the
+CUDA kernels of ``csrc/decode_all.cu``.
 """

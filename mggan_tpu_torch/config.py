@@ -1,4 +1,4 @@
-"""The subset of ``mggan_tpu.config.Config`` that the ported slice reads.
+"""The subset of ``mggan_tpu.config.Config`` that the ported slices read.
 
 A copy, not an import: the port imports nothing of ``mggan_tpu``. Field
 names and defaults match the JAX ``Config`` so ``Config.from_dict`` accepts
@@ -23,6 +23,9 @@ EXPERIMENTS = ["multi_generator", "discrete"]
 INP_FORMATS = ["rel", "abs", "abs_rel"]
 POOL_TYPES = ["sways", "sgan"]
 WEIGHTING_TARGETS = ["l2", "disc_scores", "endpoint", "mgan", "ml", "none"]
+GAN_TYPES = ["probgan", "mgan", "infogan", "gan"]
+GAN_OBJECTIVES = ["NS", "MM", "LS", "W"]
+L2_LOSS_TYPES = ["none", "min_z", "min_g_z", "min_g_min_z", "mse"]
 
 
 @dataclass
@@ -38,11 +41,35 @@ class Config:
     decoder_h_dim: int = 32
     num_gens: int = 1
     seed: int = 145325
+    # training (mggan_tpu/config.py:41-91)
+    gan_type: str = "mgan"
+    gan_obj: str = "NS"
+    num_samples: int = 20
+    num_expectation_samples: int = 1
+    l2_loss_type: str = "min_g_z"
+    l2_loss_weight: float = 1.0
+    clf_loss_weight: float = 1.0
+    pi_net_loss_weight: float = 1.0
+    sigma: float = 1.0
+    g_lr: float = 1e-3
+    d_lr: float = 1e-3
+    beta1: float = 0.5
+    clipping_threshold_g: float = 500
+    clipping_threshold_d: float = 100
+    epochs: int = 500
+    num_gen_steps: int = 1
+    keep_gen_steps: int = 0
+    num_unrolling_steps: int = 0
+    global_disc: int = 1
+    wt_mgan_compat: int = 1
+    batch_size: int = 2
 
     def __post_init__(self):
         for name, allowed in (
             ("experiment", EXPERIMENTS), ("inp_format", INP_FORMATS),
             ("pool_type", POOL_TYPES), ("weighting_target", WEIGHTING_TARGETS),
+            ("gan_type", GAN_TYPES), ("gan_obj", GAN_OBJECTIVES),
+            ("l2_loss_type", L2_LOSS_TYPES),
         ):
             if getattr(self, name) not in allowed:
                 raise ValueError(
@@ -61,8 +88,7 @@ class Config:
 
 
 def flagship_config(**kw) -> Config:
-    """The serving flagship (``bench.py::_flagship_config``): 4 generators,
-    ml PM target, h=32. Its ``gan_type`` (mgan) shapes only the
-    discriminator, which this slice does not build."""
-    return Config(num_gens=4, weighting_target="ml", h_dim=32,
-                  decoder_h_dim=32, **kw)
+    """The flagship (``bench.py::_flagship_config``): mgan, 4 generators,
+    ml PM target, h=32, NS objective."""
+    return Config(num_gens=4, gan_type="mgan", weighting_target="ml",
+                  h_dim=32, decoder_h_dim=32, **kw)

@@ -41,33 +41,16 @@
 // Grouping rows by generator so a warp can reuse each weight load over
 // several rows is the next step (K4's idea); it is left for a later change.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decoder_rollout.cuh"
 
 namespace {
 
+using namespace mggan;
+
 constexpr int kThreads = 512;
-constexpr unsigned kFull = 0xffffffffu;
 
-enum Format { kRel = 0, kAbs = 1, kAbsRel = 2 };
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4& w) {
-  acc.x = fmaf(s, w.x, acc.x);
-  acc.y = fmaf(s, w.y, acc.y);
-  acc.z = fmaf(s, w.z, acc.z);
-  acc.w = fmaf(s, w.w, acc.w);
-}
-
-// Per-generator weight block, in floats (the wrapper packs it the same way):
-//   whh  [H][H][4]   recurrent weights, [k][j][gate i,f,g,o]
-//   wemb [in][H][4]  embedding folded into the input weights
-//   b    [H][4]      fused bias
-//   w1   [H][hid]    hidden2pos first layer, h part
-//   w2   [hid][2]    hidden2pos second layer
-//   b2   [2]
-// padded to a multiple of 4 floats (per_gen).
+// The per-generator weight block is the one decoder_rollout.cuh describes;
+// all G blocks sit back to back in shared memory, per_gen floats apart.
 __global__ void __launch_bounds__(kThreads, 2)
 decode_select_kernel(const float* __restrict__ wpack,
                      const float* __restrict__ h0,      // (N, H)
@@ -89,13 +72,7 @@ decode_select_kernel(const float* __restrict__ wpack,
 
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  const bool own = lane < h_dim;
-  const bool own_hid = lane < hid_dim;
-  const int off_wemb = h_dim * h_dim * 4;
-  const int off_b = off_wemb + in_dim * h_dim * 4;
-  const int off_w1 = off_b + h_dim * 4;
-  const int off_w2 = off_w1 + h_dim * hid_dim;
-  const int off_b2 = off_w2 + hid_dim * 2;
+  const Layout L(h_dim, hid_dim, in_dim, pred_len, fmt);
   const float nan = __int_as_float(0x7fc00000);
 
   for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5);
@@ -111,72 +88,10 @@ decode_select_kernel(const float* __restrict__ wpack,
       }
       continue;
     }
-    const float* W = smem + (int64_t)g * per_gen;
-    const float4* whh4 = reinterpret_cast<const float4*>(W);
-    const float4* wemb4 = reinterpret_cast<const float4*>(W + off_wemb);
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 bias = own ? reinterpret_cast<const float4*>(W + off_b)[lane] : zero4;
-    const float sb = own_hid ? socb[(m * num_gens + g) * hid_dim + lane] : 0.f;
-    const float w2x = own_hid ? W[off_w2 + lane * 2] : 0.f;
-    const float w2y = own_hid ? W[off_w2 + lane * 2 + 1] : 0.f;
-    const float b2x = W[off_b2], b2y = W[off_b2 + 1];
-
-    float x = xy0[m * 2], y = xy0[m * 2 + 1];
-    float dx = dxdy0[m * 2], dy = dxdy0[m * 2 + 1];
-    float h = own ? h0[row * h_dim + lane] : 0.f;
-    float c = 0.f;
-
-    // recurrent part of the first step's gates: h0 @ Whh
-    float4 rec = zero4;
-    for (int k = 0; k < h_dim; ++k) {
-      const float hk = __shfl_sync(kFull, h, k);
-      if (own) fma4(rec, hk, whh4[k * h_dim + lane]);
-    }
-
-    float keep_x = 0.f, keep_y = 0.f, keep_dx = 0.f, keep_dy = 0.f;
-    for (int t = 0; t < pred_len; ++t) {
-      float4 acc = rec;
-      acc.x += bias.x; acc.y += bias.y; acc.z += bias.z; acc.w += bias.w;
-      if (own) {
-        if (fmt == kAbsRel) {  // te = [x y dx dy]
-          fma4(acc, x, wemb4[lane]);
-          fma4(acc, y, wemb4[h_dim + lane]);
-          fma4(acc, dx, wemb4[2 * h_dim + lane]);
-          fma4(acc, dy, wemb4[3 * h_dim + lane]);
-        } else {  // te = dxdy (rel) or xy (abs)
-          fma4(acc, fmt == kRel ? dx : x, wemb4[lane]);
-          fma4(acc, fmt == kRel ? dy : y, wemb4[h_dim + lane]);
-        }
-        c = sigmoid(acc.y) * c + sigmoid(acc.x) * tanhf(acc.z);
-        h = sigmoid(acc.w) * tanhf(c);
-      }
-
-      // one sweep over the new h: hidden2pos now, recurrent gates for t + 1
-      const bool more = t + 1 < pred_len;
-      float a = sb;
-      rec = zero4;
-      for (int k = 0; k < h_dim; ++k) {
-        const float hk = __shfl_sync(kFull, h, k);
-        if (own_hid) a = fmaf(hk, W[off_w1 + k * hid_dim + lane], a);
-        if (more && own) fma4(rec, hk, whh4[k * h_dim + lane]);
-      }
-      a = a > 0.f ? a : 0.01f * a;
-      float px = own_hid ? a * w2x : 0.f;
-      float py = own_hid ? a * w2y : 0.f;
-      for (int s = 16; s > 0; s >>= 1) {
-        px += __shfl_xor_sync(kFull, px, s);
-        py += __shfl_xor_sync(kFull, py, s);
-      }
-      dx = px + b2x;
-      dy = py + b2y;
-      x += dx;
-      y += dy;
-      if (lane == t) { keep_x = x; keep_y = y; keep_dx = dx; keep_dy = dy; }
-    }
-    if (lane < pred_len) {
-      reinterpret_cast<float2*>(abs_row)[lane] = make_float2(keep_x, keep_y);
-      reinterpret_cast<float2*>(rel_row)[lane] = make_float2(keep_dx, keep_dy);
-    }
+    const float sb = lane < hid_dim ? socb[(m * num_gens + g) * hid_dim + lane] : 0.f;
+    const float h = lane < h_dim ? h0[row * h_dim + lane] : 0.f;
+    rollout_row(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
+                dxdy0[m * 2], dxdy0[m * 2 + 1], sb, abs_row, rel_row, nullptr);
   }
 }
 
@@ -193,13 +108,10 @@ int mggan_decode_select(const void* wpack, const void* h0, const void* socb,
                         int in_dim, int pred_len, int fmt, int per_gen,
                         void* stream) {
   const size_t smem = (size_t)num_gens * per_gen * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(decode_select_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, decode_select_kernel, kThreads, smem)) != cudaSuccess)
     return (int)err;

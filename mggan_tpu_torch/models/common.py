@@ -117,13 +117,13 @@ def stacked_decoders_init(gen, num_gens, embedding_dim, h_dim, inp_format,
         relative_decoder_init(gen, embedding_dim, h_dim, inp_format, social_feat_size)
         for _ in range(num_gens)
     ]
-    return _stack_trees(per_gen)
+    return stack_trees(per_gen)
 
 
-def _stack_trees(trees):
+def stack_trees(trees):
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
 
 

@@ -1,6 +1,8 @@
 """Model factory (counterpart of ``mggan_tpu/models/factory.py``).
 
-Generator only: the discriminator belongs to the training slice.
+``build_specs``/``construct_model`` build the generator, which serving
+needs alone; ``build_d_spec``/``construct_gan`` add the discriminator that
+training needs.
 """
 
 from __future__ import annotations
@@ -9,7 +11,7 @@ import torch
 
 from mggan_tpu_torch.config import PRED_LEN, SCENE_DIM, Config
 from mggan_tpu_torch.device import resolve_device
-from mggan_tpu_torch.models import generator
+from mggan_tpu_torch.models import discriminator, generator
 
 
 def build_specs(config: Config) -> generator.GeneratorSpec:
@@ -31,6 +33,23 @@ def build_specs(config: Config) -> generator.GeneratorSpec:
     )
 
 
+def build_d_spec(config: Config) -> discriminator.DiscriminatorSpec:
+    """The discriminator's spec (factory.py:42-53): ``h_dim`` doubled, one
+    head (five for probgan), unbounded scores for the W and LS objectives."""
+    return discriminator.DiscriminatorSpec(
+        h_dim=config.h_dim * 2,
+        inp_format=config.inp_format,
+        pred_len=PRED_LEN,
+        num_discs=5 if config.gan_type == "probgan" else 1,
+        num_gens=config.num_gens,
+        gan_type=config.gan_type,
+        global_disc=bool(config.global_disc),
+        scene_dim=SCENE_DIM,
+        pool_type=config.pool_type,
+        unbound_output=config.gan_obj in ("W", "LS"),
+    )
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
@@ -49,3 +68,18 @@ def construct_model(config: Config, seed: int | None = None, device="cuda"):
     gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
     params, state = generator.init(spec, gen)
     return tree_to(params, dev), tree_to(state, dev), spec
+
+
+def construct_gan(config: Config, seed: int | None = None, device="cuda"):
+    """Build ``((g_params, g_state, g_spec), (d_params, d_state, d_spec))``
+    with random weights, as the JAX ``construct_model`` does. One CPU
+    ``torch.Generator`` seeded with ``seed`` (``config.seed`` when None)
+    draws the generator's weights, then the discriminator's."""
+    dev = resolve_device(device)
+    g_spec, d_spec = build_specs(config), build_d_spec(config)
+    gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
+    g_params, g_state = generator.init(g_spec, gen)
+    d_params, d_state = discriminator.init(d_spec, gen)
+    on = lambda t: tree_to(t, dev)
+    return ((on(g_params), on(g_state), g_spec),
+            (on(d_params), on(d_state), d_spec))

@@ -14,8 +14,10 @@ import torch
 
 from mggan_tpu_torch.models import common
 from mggan_tpu_torch.models.common import GeneratorOutput
+from mggan_tpu_torch.ops import sampling
 from mggan_tpu_torch.ops import social as social_ops
-from mggan_tpu_torch.ops.cnn import scene_cnn_apply, scene_cnn_init
+from mggan_tpu_torch.ops.cnn import scene_cnn_apply, scene_cnn_apply_train, scene_cnn_init
+from mggan_tpu_torch.ops.kernels import decode_all as decode_all_kernel
 from mggan_tpu_torch.ops.kernels import decoder as decoder_kernel
 from mggan_tpu_torch.ops.linear import linear_init, mlp_apply, mlp_init
 
@@ -77,21 +79,28 @@ def init(spec: GeneratorSpec, generator: torch.Generator):
 
 
 def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
-           patches):
-    """Shared context encoding (standard.py:140-155), eval mode.
+           patches, train: bool = False):
+    """Shared context encoding (standard.py:140-155).
 
-    Returns ``(enc_h (S, P, E_total), social_feats (S, P, F), state)``.
+    ``train`` runs the scene CNN's BatchNorm on the batch statistics of the
+    real peds (``ped_mask``) and returns its updated running statistics;
+    eval mode returns ``state`` as it was.
+
+    Returns ``(enc_h (S, P, E_total), social_feats (S, P, F), new_state)``.
     """
     enc_h = common.trajectory_encoder_apply(
         params["encoder"], common.get_input(in_xy, in_dxdy, spec.inp_format)
     )
     feats = [enc_h]
+    new_state = dict(state)
     if spec.scene_dim > 0 and patches is not None:
         s, p = patches.shape[:2]
-        scene_enc = scene_cnn_apply(
-            params["scene"], state["scene"],
-            patches.reshape((s * p,) + tuple(patches.shape[2:])),
-        )
+        flat = patches.reshape((s * p,) + tuple(patches.shape[2:]))
+        if train:
+            scene_enc, new_state["scene"] = scene_cnn_apply_train(
+                params["scene"], state["scene"], flat, mask=ped_mask.reshape(s * p))
+        else:
+            scene_enc = scene_cnn_apply(params["scene"], state["scene"], flat)
         feats.append(scene_enc.reshape(s, p, -1))
     if spec.social_feat_size > 0:
         social_feats = social_ops.social_attention_apply(
@@ -101,7 +110,7 @@ def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
         feats.append(social_feats)
     else:
         social_feats = enc_h.new_zeros(enc_h.shape[:-1] + (0,))
-    return torch.cat(feats, dim=-1), social_feats, state
+    return torch.cat(feats, dim=-1), social_feats, new_state
 
 
 def pm_logits(params, spec: GeneratorSpec, enc_h):
@@ -121,19 +130,6 @@ def _decoder_h0(params, enc_h, noise):
     return h0.reshape(-1, h0.shape[-1])
 
 
-def _broadcast_decoder_inputs(params, last_xy, last_dxdy, enc_h,
-                              social_feats, noise):
-    """Per-agent tensors broadcast over the K samples and flattened to
-    ``(k, s, p)``-major rows (the JAX decode prologue).
-
-    Returns ``(xy_b, dxdy_b, social_b, h0)`` with leading axis K*S*P.
-    """
-    k = noise.shape[0]
-    flat = lambda x: x.reshape(-1, x.shape[-1]).repeat(k, 1)
-    return (flat(last_xy), flat(last_dxdy), flat(social_feats),
-            _decoder_h0(params, enc_h, noise))
-
-
 def _reshape_samples(x, spec, noise):
     k, s, p, _ = noise.shape
     return x.reshape(k, s, p, spec.pred_len, 2)
@@ -143,15 +139,19 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
                social_feats, noise):
     """Every generator on every noise sample (standard.py:227-265).
 
+    On CUDA tensors this is the all-generator kernel K2 (and, under
+    autograd, its reverse sweep K3), on CPU tensors their plain versions
+    (``ops/kernels/decode_all.py``). The per-agent inputs go in once; only
+    ``h0`` has a row per sample.
+
     Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2).
     """
     k, s, p, _ = noise.shape
-    xy_b, dxdy_b, social_b, h0 = _broadcast_decoder_inputs(
-        params, last_xy, last_dxdy, enc_h, social_feats, noise
-    )
-    abs_g, rel_g = common.stacked_decoders_apply(
-        params["decoders"], xy_b, dxdy_b, social_b, h0, spec.pred_len,
-        spec.inp_format,
+    flat = lambda x: x.reshape(-1, x.shape[-1])
+    # rows are (k, s, p)-major, the order _decoder_h0 produces
+    abs_g, rel_g = decode_all_kernel.decode_all(
+        params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
+        _decoder_h0(params, enc_h, noise), spec.pred_len, spec.inp_format,
     )
     shape = (spec.num_gens, k, s, p, spec.pred_len, 2)
     reshape = lambda x: x.reshape(shape).transpose(0, 1)
@@ -159,18 +159,27 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
 
 
 def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
-                  social_feats, noise, gen_idxs):
+                  social_feats, noise, gen_idxs, fuse_select: bool = True):
     """Decode only the sampled generator per (sample, agent).
 
-    On CUDA tensors this is the fused-selection kernel, on CPU tensors its
-    plain version (``ops/kernels/decoder.py``). The per-agent inputs go in
-    once; only ``h0`` and the generator index have a row per sample.
+    With ``fuse_select`` (the default, for paths without a gradient) this is
+    the fused-selection kernel K1 on CUDA tensors and its plain version on
+    CPU tensors (``ops/kernels/decoder.py``): the per-agent inputs go in
+    once; only ``h0`` and the generator index have a row per sample. K1 has
+    no backward, so a gradient path (the G step) passes
+    ``fuse_select=False`` and gets ``decode_all`` followed by the one-hot
+    gather (JAX ``generator.py:294-302``).
 
     Args:
         noise: (K, S, P, z); gen_idxs: (S, P, K) int.
     Returns:
         GeneratorOutput with abs/rel of shape (K, S, P, pred_len, 2).
     """
+    if not fuse_select:
+        out = decode_all(params, spec, last_xy, last_dxdy, enc_h, social_feats,
+                         noise)
+        return GeneratorOutput(rel=sampling.gather_samples(out.rel, gen_idxs),
+                               abs=sampling.gather_samples(out.abs, gen_idxs))
     flat = lambda x: x.reshape(-1, x.shape[-1]).contiguous()
     h0 = _decoder_h0(params, enc_h, noise).contiguous()
     # rows are (k, s, p)-major, the order _decoder_h0 produces
@@ -181,4 +190,3 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     )
     return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
                            abs=_reshape_samples(abs_sel, spec, noise))
-

@@ -1,10 +1,11 @@
 """Weights from the JAX package or from reference-format state dicts.
 
-``generator_from_jax`` takes the JAX generator's ``(params, state)`` trees
-as nested dicts of numpy arrays (the JAX layout, which the port keeps).
-``generator_from_state_dict`` takes the reference PyTorch layout with the
-reference key names (what ``mggan_tpu/models/torch_export.py`` writes) and
-requires exactly the keys the spec implies.
+``generator_from_jax``/``discriminator_from_jax`` take the JAX model's
+``(params, state)`` trees as nested dicts of numpy arrays (the JAX layout,
+which the port keeps). ``generator_from_state_dict`` and
+``discriminator_from_state_dict`` take the reference PyTorch layout with
+the reference key names (what ``mggan_tpu/models/torch_export.py`` writes)
+and require exactly the keys the spec implies.
 """
 
 from __future__ import annotations
@@ -34,6 +35,22 @@ def generator_from_jax(np_params, np_state, spec, device="cuda"):
     if spec.social_feat_size > 0:
         expected.add("social")
     _check_keys(np_params, expected, "generator params")
+    dev = resolve_device(device)
+    return _to_tensors(np_params, dev), _to_tensors(np_state, dev)
+
+
+def discriminator_from_jax(np_params, np_state, spec, device="cuda"):
+    """JAX discriminator trees (numpy leaves) -> the port's ``(params, state)``."""
+    expected = {"in_encoder", "in_fc", "pred_encoder", "discs"}
+    if spec.global_disc:
+        expected.add("social")
+    if spec.scene_dim > 0:
+        expected.add("scene")
+    if spec.gan_type == "mgan":
+        expected.add("branch")
+    _check_keys(np_params, expected, "discriminator params")
+    _check_keys(np_state, {"scene"} if spec.scene_dim > 0 else set(),
+                "discriminator state")
     dev = resolve_device(device)
     return _to_tensors(np_params, dev), _to_tensors(np_state, dev)
 
@@ -74,6 +91,34 @@ class _Reader:
                  "var": self.take(f"{prefix}.running_var")}
         return params, state
 
+    def scene(self, prefix):
+        """The scene CNN's ``(params, state)`` under ``prefix``."""
+        cnn = f"{prefix}.CNN.encoder"
+        params = {
+            "conv1": self.conv(f"{cnn}.ConvBlock_1.Block.Conv_1"),
+            "conv2": self.conv(f"{cnn}.ConvBlock_2.Block.Conv_1"),
+            "attn": self.mlp(f"{prefix}.cnn_attention", [0, 2]),
+        }
+        params["bn1"], bn1 = self.bn(f"{cnn}.ConvBlock_1.Block.BN_1")
+        params["bn2"], bn2 = self.bn(f"{cnn}.ConvBlock_2.Block.BN_1")
+        return params, {"bn1": bn1, "bn2": bn2}
+
+    def social(self, prefix):
+        return {"embed": self.mlp(f"{prefix}.feature_embedder.fc", [0, 2, 4]),
+                "w": self.lin(f"{prefix}.attention.W")}
+
+    def encoder(self, prefix):
+        params = {"lstm": self.lstm(f"{prefix}.encoder")}
+        if f"{prefix}.embedding.weight" in self.sd:
+            params["embed"] = self.lin(f"{prefix}.embedding")
+        return params
+
+    def finish(self, what, params, state, device):
+        if self.sd:
+            raise KeyError(f"unexpected keys in {what} state dict: {sorted(self.sd)}")
+        dev = resolve_device(device)
+        return _to_tensors(params, dev), _to_tensors(state, dev)
+
 
 def generator_from_state_dict(sd, spec, device="cuda"):
     """Reference-format generator state dict -> ``(params, state)``.
@@ -81,23 +126,12 @@ def generator_from_state_dict(sd, spec, device="cuda"):
     Strict: every key the spec implies must be present and no other.
     """
     r = _Reader(sd)
-    params = {"encoder": {"lstm": r.lstm("encoder.encoder")}}
-    if "encoder.embedding.weight" in r.sd:
-        params["encoder"]["embed"] = r.lin("encoder.embedding")
+    params = {"encoder": r.encoder("encoder")}
     state = {}
     if spec.scene_dim > 0:
-        cnn = "scene_encoder.CNN.encoder"
-        scene = {
-            "conv1": r.conv(f"{cnn}.ConvBlock_1.Block.Conv_1"),
-            "conv2": r.conv(f"{cnn}.ConvBlock_2.Block.Conv_1"),
-            "attn": r.mlp("scene_encoder.cnn_attention", [0, 2]),
-        }
-        scene["bn1"], bn1 = r.bn(f"{cnn}.ConvBlock_1.Block.BN_1")
-        scene["bn2"], bn2 = r.bn(f"{cnn}.ConvBlock_2.Block.BN_1")
-        params["scene"], state["scene"] = scene, {"bn1": bn1, "bn2": bn2}
+        params["scene"], state["scene"] = r.scene("scene_encoder")
     if spec.social_feat_size > 0:
-        params["social"] = {"embed": r.mlp("social.feature_embedder.fc", [0, 2, 4]),
-                            "w": r.lin("social.attention.W")}
+        params["social"] = r.social("social")
     gens = [
         {"spatial_embedding": r.lin(f"gs.{i}.spatial_embedding"),
          "lstm": r.lstm(f"gs.{i}.decoder"),
@@ -108,10 +142,33 @@ def generator_from_state_dict(sd, spec, device="cuda"):
     params["enc_to_dec"] = r.mlp("enc_h_to_dec_h", [0])
     params["net_chooser"] = r.mlp("net_chooser", [0, 2, 4])
     params["net_prior"] = r.take("net_prior")
-    if r.sd:
-        raise KeyError(f"unexpected keys in generator state dict: {sorted(r.sd)}")
-    dev = resolve_device(device)
-    return _to_tensors(params, dev), _to_tensors(state, dev)
+    return r.finish("generator", params, state, device)
+
+
+def discriminator_from_state_dict(sd, spec, device="cuda"):
+    """Reference-format discriminator state dict -> ``(params, state)``.
+
+    Strict: every key the spec implies must be present and no other.
+    """
+    if spec.gan_type not in ("mgan", "gan"):
+        raise NotImplementedError(
+            f"gan_type={spec.gan_type!r} is not ported yet (ROADMAP.md queue 1 item 10)")
+    r = _Reader(sd)
+    params = {
+        "in_encoder": r.encoder("in_encoder"),
+        "in_fc": r.mlp("in_encoder_fc", [0, 2]),
+        "pred_encoder": r.mlp("pred_encoder", [0, 2]),
+    }
+    state = {}
+    if spec.global_disc:
+        params["social"] = r.social("social")
+    if spec.scene_dim > 0:
+        params["scene"], state["scene"] = r.scene("scene_encoder")
+    params["discs"] = _stack([r.mlp(f"discs.{i}", [0, 2])
+                              for i in range(spec.num_discs)])
+    if spec.gan_type == "mgan":
+        params["branch"] = r.mlp("gen_id_reconstructor", [0, 2])
+    return r.finish("discriminator", params, state, device)
 
 
 def _stack(trees):

@@ -1,4 +1,4 @@
-"""Scene-patch CNN + channel attention, eval path in float32.
+"""Scene-patch CNN + channel attention in float32, eval and train modes.
 
 Counterpart of ``mggan_tpu/ops/cnn.py``. The public layout stays NHWC:
 patches are ``(B, 33, 33, 4)`` and conv weights are stored HWIO
@@ -75,17 +75,59 @@ def attention_head(params, x):
     return (att * feats).sum(-1)
 
 
+def bn_train_nchw(params, state, x, mask=None, momentum=0.1):
+    """Train BatchNorm (JAX ``bn_apply(train=True)``): normalise by the
+    batch statistics over the rows ``mask (B,)`` keeps, and return the
+    running statistics moved by ``momentum`` towards them (the running
+    variance unbiased by ``n / (n - 1)``, ``n`` the kept rows times H*W).
+    Returns ``(y, new_state)``."""
+    view = lambda v: v[None, :, None, None]
+    if mask is None:
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    w = mask.to(x.dtype)[:, None, None, None]
+    n = torch.clamp(mask.sum().to(x.dtype) * (x.shape[2] * x.shape[3]), min=1.0)
+    mean = (x * w).sum((0, 2, 3)) / n
+    var = (w * (x - view(mean)) ** 2).sum((0, 2, 3)) / n
+    unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+    new_state = {  # statistics, not parameters: no gradient flows into them
+        "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+        "var": (1 - momentum) * state["var"] + momentum * unbiased.detach(),
+    }
+    y = (x - view(mean)) * torch.rsqrt(view(var) + BN_EPS) * view(params["scale"]) \
+        + view(params["bias"])
+    return y, new_state
+
+
+def _scene_cnn(params, patches, bn):
+    """The conv stack with ``bn(name, x) -> x`` as its normalisation."""
+    x = patches.permute(0, 3, 1, 2)  # NHWC -> NCHW
+    for conv, name in (("conv1", "bn1"), ("conv2", "bn2")):
+        x = conv_apply_nchw(params[conv], x)
+        x = max_pool_2x2(F.relu(bn(name, x)))
+    x = x.permute(0, 2, 3, 1)  # back to NHWC before the attention reshape
+    return attention_head(params, x)
+
+
 def scene_cnn_apply(params, state, patches):
     """``(B, 33, 33, 4)`` NHWC patches -> ``(B, 64)`` scene encoding.
 
     The eval path in float32 (JAX ``train=False, compute_dtype=None``):
-    BatchNorm from running statistics. Training statistics and the bf16
-    folded-BN path are not ported yet.
+    BatchNorm from running statistics. The bf16 folded-BN path is not
+    ported yet.
     """
-    x = patches.permute(0, 3, 1, 2)  # NHWC -> NCHW
-    for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
-        x = conv_apply_nchw(params[conv], x)
-        x = F.relu(bn_eval_nchw(params[bn], state[bn], x))
-        x = max_pool_2x2(x)
-    x = x.permute(0, 2, 3, 1)  # back to NHWC before the attention reshape
-    return attention_head(params, x)
+    return _scene_cnn(params, patches,
+                      lambda name, x: bn_eval_nchw(params[name], state[name], x))
+
+
+def scene_cnn_apply_train(params, state, patches, mask=None):
+    """The train path (JAX ``scene_cnn_apply(..., train=True, mask)``):
+    BatchNorm over the batch statistics of the rows ``mask (B,)`` keeps.
+    Returns ``(encoding (B, 64), new_state)``, the running statistics
+    updated as ``bn_train_nchw`` says."""
+    new_state = {}
+
+    def bn(name, x):
+        y, new_state[name] = bn_train_nchw(params[name], state[name], x, mask)
+        return y
+
+    return _scene_cnn(params, patches, bn), new_state

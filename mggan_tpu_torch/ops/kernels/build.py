@@ -2,8 +2,9 @@
 
 Each ``mggan_tpu_torch/csrc/*.cu`` compiles on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
-library name carries a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is reused. Builds happen at first
+library name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so a changed source or header is rebuilt
+and an unchanged one is reused. Builds happen at first
 use, never at import, into ``mggan_tpu_torch/_build/`` (listed in
 ``.gitignore``); all sources compile in parallel, one nvcc each. A failed
 build raises with nvcc's output.
@@ -45,7 +46,8 @@ def nvcc_path() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,352 @@
+"""All-generator decoder rollout and its reverse sweep: the ports of the
+TPU kernels K2 and K3.
+
+Counterpart of ``mggan_tpu/ops/pallas/decoder.py::pallas_decode_all``
+(forward ``_fwd_kernel``, backward ``_bwd_kernel``). ``decode_all`` rolls
+out every generator on every row and returns ``(abs, rel)``, each
+``(G, N, pred_len, 2)``. The split mirrors JAX's custom VJP:
+
+* the weight folding (``pack_decoder_params``) and the hoisted social bias
+  (``social_bias``) stay plain differentiable PyTorch;
+* ``DecodeAll``, a ``torch.autograd.Function`` over the folded per-generator
+  tensors ``w_emb, w_hh, b, w1h, w2, b2`` and ``socb, h0, last_xy,
+  last_dxdy``, runs the forward with the (h, c) sequence saved, and its
+  backward runs the reverse sweep; autograd chains the grads back to the
+  stacked params and the social features.
+
+On CUDA tensors the forward launches K2 and the backward K3
+(``csrc/decode_all.cu``), or they raise; on CPU tensors they run the plain
+versions ``decode_all_reference`` and ``decode_all_bwd_reference``. There
+is no other route. Without a gradient to take, ``decode_all`` runs the
+forward alone, without saving (h, c).
+
+Row layout, as K1's: ``h0 (N, H)`` has a row per rollout; ``last_xy``,
+``last_dxdy (M, 2)`` and ``socb (M, G, hid)`` have ``M`` rows with
+``N % M == 0`` and rollout ``n`` reads row ``n % M`` (rows are
+``(k, s, p)``-major). The grads of those M-row inputs are summed over the
+K copies here, as the VJP of the broadcast (``.reshape(K, M, ...).sum(0)``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from mggan_tpu_torch.ops import kernels
+from mggan_tpu_torch.ops.kernels import build
+from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+SOURCE = "decode_all"  # csrc/decode_all.cu
+KERNEL_FWD = "decode_all_fwd"
+KERNEL_BWD = "decode_all_bwd"
+PACKED = ("w_emb", "w_hh", "b", "w1h", "w2", "b2")
+BWD_WARPS = 8  # warps per K3 block (kBwdWarps in the source)
+
+
+def _tile(x, n):
+    """``(M, ...)`` -> ``(N, ...)`` with row n = row n % M."""
+    return x.repeat((n // x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def _untile(x, m):
+    """The VJP of ``_tile``: ``(N, ...)`` -> ``(M, ...)`` summed over copies."""
+    return x.reshape((x.shape[0] // m, m) + tuple(x.shape[1:])).sum(0)
+
+
+def _decoder_input(xy, nd, inp_format):
+    if inp_format == "rel":
+        return nd
+    if inp_format == "abs":
+        return xy
+    return torch.cat([xy, nd], dim=-1)
+
+
+# ------------------------------------------------------------ plain versions --
+def decode_all_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
+                         last_dxdy, pred_len: int, inp_format: str,
+                         save_hc: bool = False):
+    """K2's plain version: every generator's rollout on every row, the
+    arithmetic of ``common.relative_decoder_apply`` on the folded weights.
+
+    Returns ``(abs, rel, hc)``: abs/rel ``(G, N, T, 2)`` and, with
+    ``save_hc``, each step's h and c as ``(G, N, T, 2, H)`` (else None).
+    """
+    g, n = w_hh.shape[0], h0.shape[0]
+    xy = _tile(last_xy, n)[None].expand(g, n, 2)
+    nd = _tile(last_dxdy, n)[None].expand(g, n, 2)
+    sb = _tile(socb, n).transpose(0, 1)  # (G, N, hid)
+    h = h0[None].expand((g,) + tuple(h0.shape))
+    c = torch.zeros_like(h)
+    abs_seq, rel_seq, hc_seq = [], [], []
+    for _ in range(pred_len):
+        te = _decoder_input(xy, nd, inp_format)
+        gates = torch.bmm(te, w_emb) + torch.bmm(h, w_hh) + b[:, None]
+        i, f, gg, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hid = F.leaky_relu(torch.bmm(h, w1h) + sb, 0.01)
+        nd = torch.bmm(hid, w2) + b2[:, None]
+        xy = xy + nd
+        abs_seq.append(xy)
+        rel_seq.append(nd)
+        if save_hc:
+            hc_seq.append(torch.stack([h, c], dim=2))
+    hc = torch.stack(hc_seq, dim=2) if save_hc else None
+    return torch.stack(abs_seq, 2), torch.stack(rel_seq, 2), hc
+
+
+def decode_all_bwd_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
+                             last_dxdy, out_abs, out_rel, hc, g_abs, g_rel,
+                             pred_len: int, inp_format: str):
+    """K3's plain version: the explicit reverse sweep of
+    ``decoder.py::_bwd_kernel`` from the saved (h, c) and outputs.
+
+    The gates and hidden2pos's pre-activation are recomputed at each step;
+    the grads are those of ``DecodeAll``'s inputs, ``(d_w_emb, d_w_hh, d_b,
+    d_w1h, d_w2, d_b2, d_socb, d_h0, d_last_xy, d_last_dxdy)``.
+    """
+    g, n = w_hh.shape[0], h0.shape[0]
+    m = last_xy.shape[0]
+    xy0 = _tile(last_xy, n)[None].expand(g, n, 2)
+    nd0 = _tile(last_dxdy, n)[None].expand(g, n, 2)
+    sb = _tile(socb, n).transpose(0, 1)  # (G, N, hid)
+    h_init = h0[None].expand((g,) + tuple(h0.shape))
+    hs, cs = hc[:, :, :, 0], hc[:, :, :, 1]  # (G, N, T, H)
+    t_ = lambda x: x.transpose(1, 2)
+
+    zeros = lambda like: torch.zeros_like(like)
+    dh_c, dc_c = zeros(h_init), zeros(h_init)
+    dxy_c, dnd_next = zeros(xy0), zeros(xy0)
+    d_w_emb, d_w_hh, d_b = zeros(w_emb), zeros(w_hh), zeros(b)
+    d_w1h, d_w2, d_b2, d_sb = zeros(w1h), zeros(w2), zeros(b2), zeros(sb)
+    for t in range(pred_len - 1, -1, -1):
+        h_t, c_t = hs[:, :, t], cs[:, :, t]
+        h_p = hs[:, :, t - 1] if t > 0 else h_init
+        c_p = cs[:, :, t - 1] if t > 0 else zeros(h_init)
+        xy_p = out_abs[:, :, t - 1] if t > 0 else xy0
+        nd_p = out_rel[:, :, t - 1] if t > 0 else nd0
+        te = _decoder_input(xy_p, nd_p, inp_format)
+
+        dxy_t = g_abs[:, :, t] + dxy_c
+        dnd = g_rel[:, :, t] + dxy_t + dnd_next
+
+        # hidden2pos backward, pre-activation recomputed
+        pre = torch.bmm(h_t, w1h) + sb
+        act = torch.where(pre > 0, pre, 0.01 * pre)
+        dhid = torch.bmm(dnd, t_(w2))
+        dpre = torch.where(pre > 0, dhid, 0.01 * dhid)
+        d_w2 = d_w2 + torch.bmm(t_(act), dnd)
+        d_b2 = d_b2 + dnd.sum(1)
+        dh = torch.bmm(dpre, t_(w1h)) + dh_c
+        d_w1h = d_w1h + torch.bmm(t_(h_t), dpre)
+        d_sb = d_sb + dpre
+
+        # LSTM backward, gates recomputed
+        gates = torch.bmm(te, w_emb) + torch.bmm(h_p, w_hh) + b[:, None]
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        i, f, gg, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
+        tanh_c = torch.tanh(c_t)
+        d_o = dh * tanh_c
+        dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
+        dc_c = dc * f
+        dgates = torch.cat([
+            (dc * gg) * i * (1.0 - i),
+            (dc * c_p) * f * (1.0 - f),
+            (dc * i) * (1.0 - gg * gg),
+            d_o * o * (1.0 - o),
+        ], dim=-1)
+        dte = torch.bmm(dgates, t_(w_emb))
+        dh_c = torch.bmm(dgates, t_(w_hh))
+        d_w_emb = d_w_emb + torch.bmm(t_(te), dgates)
+        d_w_hh = d_w_hh + torch.bmm(t_(h_p), dgates)
+        d_b = d_b + dgates.sum(1)
+
+        if inp_format == "rel":
+            dnd_next, dxy_c = dte, dxy_t
+        elif inp_format == "abs":
+            dxy_c, dnd_next = dxy_t + dte, zeros(dnd_next)
+        else:  # te = [x y dx dy]
+            dxy_c, dnd_next = dxy_t + dte[..., :2], dte[..., 2:]
+    return (d_w_emb, d_w_hh, d_b, d_w1h, d_w2, d_b2,
+            _untile(d_sb.transpose(0, 1), m), dh_c.sum(0),
+            _untile(dxy_c.sum(0), m), _untile(dnd_next.sum(0), m))
+
+
+# ---------------------------------------------------------------- kernels --
+@functools.cache
+def _lib():
+    lib = build.load(SOURCE)
+    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.mggan_decode_all_fwd.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
+    lib.mggan_decode_all_fwd.restype = i32
+    lib.mggan_decode_all_bwd.argtypes = [ptr] * 16 + [ll] * 2 + [i32] * 8 + [ptr]
+    lib.mggan_decode_all_bwd.restype = i32
+    lib.mggan_decode_all_grad_floats.argtypes = [i32] * 3
+    lib.mggan_decode_all_grad_floats.restype = i32
+    lib.mggan_decode_all_bwd_smem.argtypes = [i32] * 4
+    lib.mggan_decode_all_bwd_smem.restype = ll
+    lib.mggan_cuda_error_string.argtypes = [i32]
+    lib.mggan_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def prepare(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
+            pred_len: int, inp_format: str):
+    """Pack the kernels' weight image and check every row argument
+    (``decoder.prepare_rollout``); ``launch_fwd``/``launch_bwd`` take it."""
+    packed = dict(zip(PACKED, (w_emb, w_hh, b, w1h, w2, b2)))
+    return kdec.prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len,
+                                inp_format)
+
+
+def _raise_on(rc, name):
+    if rc:
+        err = _lib().mggan_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {err} ({rc})")
+
+
+def launch_fwd(args, save_hc: bool):
+    """K2 on the current stream -> ``(abs, rel, hc or None)``."""
+    tensors, dims = args["tensors"], args["dims"]
+    n, _, g, h, _, _, t = dims[:7]
+    dev = tensors[1].device
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    out_abs, out_rel = new(g, n, t, 2), new(g, n, t, 2)
+    hc = new(g, n, t, 2, h) if save_hc else None
+    if n == 0:
+        return out_abs, out_rel, hc
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().mggan_decode_all_fwd(
+            *(x.data_ptr() for x in tensors), out_abs.data_ptr(), out_rel.data_ptr(),
+            hc.data_ptr() if save_hc else None, *dims, stream)
+    _raise_on(rc, KERNEL_FWD)
+    kernels.launches[KERNEL_FWD] += 1
+    return out_abs, out_rel, hc
+
+
+def bwd_blocks_per_gen(n: int, num_gens: int, device) -> int:
+    """K3's blocks per generator: one wave of one block per SM over all
+    generators, at most one block per 8 rows. Fixed for a card and shape,
+    so the weight grads' summation order is too."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-sms // num_gens), -(-n // BWD_WARPS)))
+
+
+def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel):
+    """K3 on the current stream: the reverse sweep and the fixed-order sum
+    of its blocks' weight grads. Returns the raw outputs ``(d_h0 (G,N,H),
+    d_xy0 (G,N,2), d_dxdy0 (G,N,2), d_socb (N,G,hid), dw (G,P))``."""
+    tensors, dims = args["tensors"], args["dims"]
+    n, _, g, h, hid, in_dim, t = dims[:7]
+    dev = tensors[1].device
+    for name, x, shape in (("abs", out_abs, (g, n, t, 2)), ("rel", out_rel, (g, n, t, 2)),
+                           ("hc", hc, (g, n, t, 2, h)), ("g_abs", g_abs, (g, n, t, 2)),
+                           ("g_rel", g_rel, (g, n, t, 2))):
+        kdec.check_arg(name, x, shape, torch.float32, dev)
+    lib = _lib()
+    size = lib.mggan_decode_all_grad_floats(h, hid, in_dim)
+    smem = lib.mggan_decode_all_bwd_smem(h, hid, in_dim, dims[8])
+    if smem > kdec.MAX_SHARED_BYTES:
+        raise ValueError(f"K3 needs {smem} bytes of shared memory per block")
+    nb = bwd_blocks_per_gen(n, g, dev)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    d_h0, d_xy0, d_dxdy0 = new(g, n, h), new(g, n, 2), new(g, n, 2)
+    d_socb, partials, dw = new(n, g, hid), new(g, nb, size), new(g, size)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mggan_decode_all_bwd(
+            *(x.data_ptr() for x in tensors),
+            *(x.data_ptr() for x in (out_abs, out_rel, hc, g_abs, g_rel, d_h0, d_xy0,
+                                     d_dxdy0, d_socb, partials, dw)),
+            *dims, nb, stream)
+    _raise_on(rc, KERNEL_BWD)
+    kernels.launches[KERNEL_BWD] += 1
+    return d_h0, d_xy0, d_dxdy0, d_socb, dw
+
+
+def weight_grads_from_image(dw, h: int, hid: int, in_dim: int):
+    """K3's per-generator grad image ``(G, P)`` -> grads in the layout of
+    ``w_emb, w_hh, b, w1h, w2, b2``. The image holds ``dWhh^T [j][k][gate]
+    | dWemb [in][j][gate] | db [j][gate] | dW1h^T [q][k] | dW2 [q][2] |
+    db2 [2]``; the folded weights are gate-major, column ``gate * H + j``."""
+    g = dw.shape[0]
+    sizes = (h * h * 4, in_dim * h * 4, h * 4, hid * h, hid * 2, 2)
+    whh_t, wemb, bias, w1_t, w2, b2 = torch.split(dw, sizes, dim=1)
+    return (
+        wemb.reshape(g, in_dim, h, 4).permute(0, 1, 3, 2).reshape(g, in_dim, 4 * h),
+        whh_t.reshape(g, h, h, 4).permute(0, 2, 3, 1).reshape(g, h, 4 * h),
+        bias.reshape(g, h, 4).permute(0, 2, 1).reshape(g, 4 * h),
+        w1_t.reshape(g, hid, h).transpose(1, 2),
+        w2.reshape(g, hid, 2),
+        b2,
+    )
+
+
+# ------------------------------------------------------------------ routes --
+def decode_all_fwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
+                   pred_len: int, inp_format: str, save_hc: bool):
+    """K2 on CUDA tensors, its plain version on CPU tensors."""
+    inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
+    if h0.device.type == "cuda":
+        args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format)
+        return launch_fwd(args, save_hc)
+    if h0.device.type == "cpu":
+        return decode_all_reference(*inputs, pred_len, inp_format, save_hc)
+    raise ValueError(f"decode_all: unsupported device {h0.device}")
+
+
+def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
+                   out_abs, out_rel, hc, g_abs, g_rel, pred_len: int,
+                   inp_format: str):
+    """K3 on CUDA tensors, its plain version on CPU tensors; returns the
+    grads of ``DecodeAll``'s tensor inputs."""
+    inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
+    if h0.device.type == "cpu":
+        return decode_all_bwd_reference(*inputs, out_abs, out_rel, hc, g_abs,
+                                        g_rel, pred_len, inp_format)
+    if h0.device.type != "cuda":
+        raise ValueError(f"decode_all: unsupported device {h0.device}")
+    args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format)
+    d_h0, d_xy0, d_dxdy0, d_socb, dw = launch_bwd(
+        args, out_abs, out_rel, hc, g_abs.contiguous(), g_rel.contiguous())
+    m = last_xy.shape[0]
+    h, hid, in_dim = w_hh.shape[1], w1h.shape[2], w_emb.shape[1]
+    return (*weight_grads_from_image(dw, h, hid, in_dim), _untile(d_socb, m),
+            d_h0.sum(0), _untile(d_xy0.sum(0), m), _untile(d_dxdy0.sum(0), m))
+
+
+class DecodeAll(torch.autograd.Function):
+    """Forward K2 with (h, c) saved; backward K3 (see the module note)."""
+
+    @staticmethod
+    def forward(ctx, w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
+                pred_len, inp_format):
+        inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
+        out_abs, out_rel, hc = decode_all_fwd(*inputs, pred_len, inp_format,
+                                              save_hc=True)
+        ctx.save_for_backward(*inputs, out_abs, out_rel, hc)
+        ctx.pred_len, ctx.inp_format = pred_len, inp_format
+        return out_abs, out_rel
+
+    @staticmethod
+    def backward(ctx, g_abs, g_rel):
+        grads = decode_all_bwd(*ctx.saved_tensors, g_abs, g_rel, ctx.pred_len,
+                               ctx.inp_format)
+        return (*grads, None, None)
+
+
+def decode_all(stacked, last_xy, last_dxdy, social_feats, h0, pred_len: int,
+               inp_format: str):
+    """Every generator's rollout on every row -> ``(abs, rel)``, each
+    ``(G, N, pred_len, 2)``; differentiable through ``DecodeAll`` when a
+    gradient is needed. See the module note for the row layout."""
+    packed = kdec.pack_decoder_params(stacked, inp_format)
+    socb = kdec.social_bias(packed, social_feats)
+    inputs = tuple(packed[k] for k in PACKED) + (socb, h0, last_xy, last_dxdy)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return DecodeAll.apply(*inputs, pred_len, inp_format)
+    return decode_all_fwd(*inputs, pred_len, inp_format, save_hc=False)[:2]

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from mggan_tpu_torch.models import common
 from mggan_tpu_torch.ops import kernels, sampling
 from mggan_tpu_torch.ops.kernels import build
+from mggan_tpu_torch.utils.pytree import tree_leaves
 
 KERNEL = "decode_select"
 FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
@@ -116,7 +117,9 @@ def _kernel_fn():
     return fn, lib.mggan_cuda_error_string
 
 
-def _check(name, t, shape, dtype, device):
+def check_arg(name, t, shape, dtype, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the kernels take raw pointers and trust these."""
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
             f"{name}: need a contiguous {dtype} tensor on {device}, got "
@@ -126,19 +129,18 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
-                          gen_idx, pred_len: int, inp_format: str):
-    """Fold the weights, hoist ``socb`` and check every kernel argument.
-    Returns the arguments of ``launch_decode_select``."""
-    packed = pack_decoder_params(stacked, inp_format)
-    socb = social_bias(packed, social_feats).contiguous()
+def prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len: int,
+                    inp_format: str):
+    """The weight image and checked row arguments every rollout kernel
+    (K1, K2, K3) takes: ``{"tensors": (wpack, h0, socb, last_xy,
+    last_dxdy), "dims": (N, M, G, H, hid, in, T, format, per_gen)}``."""
     wflat, per_gen = kernel_weights(packed)
     g, in_dim, four_h = packed["w_emb"].shape
     h, hid = four_h // 4, packed["w1h"].shape[2]
     n, m = h0.shape[0], last_xy.shape[0]
     dev = h0.device
     if dev.type != "cuda":
-        raise ValueError(f"decode_select_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"the rollout kernels need CUDA tensors, got {dev}")
     if m == 0 or n % m:
         raise ValueError(f"{n} rollout rows are not a multiple of {m} input rows")
     if h > 32 or hid > 32 or pred_len > 32:
@@ -146,16 +148,27 @@ def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
     if g * per_gen * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"{g} generators' weights exceed one block's shared memory")
     f32 = torch.float32
-    _check("wpack", wflat, (g * per_gen,), f32, dev)
-    _check("h0", h0, (n, h), f32, dev)
-    _check("socb", socb, (m, g, hid), f32, dev)
-    _check("last_xy", last_xy, (m, 2), f32, dev)
-    _check("last_dxdy", last_dxdy, (m, 2), f32, dev)
-    _check("gen_idx", gen_idx, (n,), torch.int32, dev)
+    check_arg("wpack", wflat, (g * per_gen,), f32, dev)
+    check_arg("h0", h0, (n, h), f32, dev)
+    check_arg("socb", socb, (m, g, hid), f32, dev)
+    check_arg("last_xy", last_xy, (m, 2), f32, dev)
+    check_arg("last_dxdy", last_dxdy, (m, 2), f32, dev)
     return {
-        "tensors": (wflat, h0, socb, last_xy, last_dxdy, gen_idx),
+        "tensors": (wflat, h0, socb, last_xy, last_dxdy),
         "dims": (n, m, g, h, hid, in_dim, pred_len, FORMATS[inp_format], per_gen),
     }
+
+
+def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
+                          gen_idx, pred_len: int, inp_format: str):
+    """Fold the weights, hoist ``socb`` and check every kernel argument.
+    Returns the arguments of ``launch_decode_select``."""
+    packed = pack_decoder_params(stacked, inp_format)
+    socb = social_bias(packed, social_feats).contiguous()
+    args = prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len, inp_format)
+    check_arg("gen_idx", gen_idx, (h0.shape[0],), torch.int32, h0.device)
+    args["tensors"] += (gen_idx,)
+    return args
 
 
 def launch_decode_select(args):
@@ -191,7 +204,16 @@ def decode_select(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
                   pred_len: int, inp_format: str):
     """Rollout of each row's sampled generator -> ``(abs, rel)``, each
     ``(N, pred_len, 2)``. CUDA tensors go to the kernel, CPU tensors to the
-    plain version; there is no other route."""
+    plain version; there is no other route.
+
+    The kernel has no backward, so a call that autograd would differentiate
+    raises on every device: a gradient path decodes all generators and
+    gathers (``generator.decode_select(fuse_select=False)``)."""
+    leaves = tree_leaves(stacked) + [last_xy, last_dxdy, social_feats, h0]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves):
+        raise RuntimeError(
+            "decode_select has no backward; under autograd decode all "
+            "generators and gather (decode_select(..., fuse_select=False))")
     if h0.device.type == "cuda":
         return decode_select_cuda(stacked, last_xy, last_dxdy, social_feats,
                                   h0, gen_idx, pred_len, inp_format)

@@ -39,6 +39,8 @@ def _activation(name):
     if name in ("leaky_relu", "leakyrelu"):
         # torch nn.LeakyReLU default negative_slope=0.01
         return lambda x: F.leaky_relu(x, 0.01)
+    if name == "leaky_relu_02":
+        return lambda x: F.leaky_relu(x, 0.2)
     if name is None or name == "none":
         return lambda x: x
     raise ValueError(f"unknown activation {name}")

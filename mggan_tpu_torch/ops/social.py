@@ -39,23 +39,29 @@ def social_features(last_xy, last_dxdy, mask):
 def attention_pool(w_params, femb, enc_h, mask):
     """Masked dot-product attention (reference social.py:7-30): self and
     padded peers are masked with -1e9; rows of padded peds, and of scenes
-    with one ped or fewer, are zeroed. Returns ``(S, P, H)``."""
-    p = enc_h.shape[1]
-    wh = linear_apply(w_params, enc_h)  # (S, P, F)
-    sigma = torch.einsum("sijf,sjf->sij", femb, wh)
+    with one ped or fewer, are zeroed.
+
+    ``enc_h`` is ``(..., S, P, H)``: leading sample axes share the pairwise
+    embedding ``femb (S, P, P, F)``. Returns ``(..., S, P, H)``.
+    """
+    p = enc_h.shape[-2]
+    wh = linear_apply(w_params, enc_h)  # (..., S, P, F)
+    sigma = torch.einsum("sijf,...sjf->...sij", femb, wh)
     eye = torch.eye(p, dtype=torch.bool, device=mask.device)[None]
     valid_j = mask[:, None, :] & ~eye
     sigma = torch.where(valid_j, sigma, torch.full_like(sigma, NEG_INF))
     att = torch.softmax(sigma, dim=-1)
     row_ok = (mask.sum(-1)[:, None] > 1) & mask
-    pooled = torch.einsum("sij,sjh->sih", att, enc_h)
+    pooled = torch.einsum("...sij,...sjh->...sih", att, enc_h)
     return torch.where(row_ok[..., None], pooled, torch.zeros_like(pooled))
 
 
 def social_attention_apply(params, last_xy, last_dxdy, enc_h, mask):
     """The sways social module (reference social.py:107-123).
 
-    params = {"embed": mlp [3,32,64,F], "w": linear (H->F)}; enc_h (S, P, H).
+    params = {"embed": mlp [3,32,64,F], "w": linear (H->F)}; enc_h
+    ``(..., S, P, H)``. The pairwise geometry is computed once and shared
+    by every leading sample (JAX ``social_attention_apply``'s vmap).
     """
     femb = mlp_apply(params["embed"], social_features(last_xy, last_dxdy, mask))
     return attention_pool(params["w"], femb, enc_h, mask)
