@@ -23,7 +23,21 @@ Phases, in order; any failure exits nonzero before the result line:
      timed ones, launch counts read around them; one step with injected
      random numbers at 4 scenes on the card and on the CPU, compared;
   6. device profiles of a 64-scene request and of a train step;
-  7. a JSON line listing every ported kernel, then the result line
+  7. bf16 kernels: K1's and K2's bf16 variants against their bf16 plain
+     versions on the card (atol 2e-3) at the eval batch's 9,728 rows (x 4
+     generators for K2) and K1's at 1,310,720 rows, K1-bf16 equal to
+     K2-bf16 on the selected rows bit for bit, each timed beside its bounds;
+  8. eval path: the synthetic dataset (512 windows of up to 16 peds) in
+     batches of 32 through ``get_predictions_multi`` with the six
+     multi-generator strategies in f32 and ``sampling`` + ``expected`` in
+     bf16, then ``evaluate_ade_fde`` and ``evaluate_precision_recall``
+     (radius 3) for k = 1..19; ``rejection`` on a one-generator model over
+     the first 64 windows; the first 4 batches again on the port's CPU path
+     with the same injected draws, compared (rejection: its decodes);
+  9. sampling at ``bench.py``'s batch (4,096 scenes x 16 peds, k=20)
+     through ``Predictor.predict`` in f32 and in bf16, with K1's share of
+     the device time;
+ 10. a JSON line listing every ported kernel, then the result line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package ``mggan_tpu``.
@@ -40,8 +54,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores (the
-# kernels here do no tensor-core work) and HBM3 bandwidth.
+# f32 kernels' operands), bf16 on the tensor cores (the bf16 variants'
+# operands: their bound; the fp32-FMA figure is kept beside it, labelled)
+# and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Kernel vs plain version, float32 on the same card: summation order and
@@ -72,6 +89,29 @@ KINK = 1e-5
 # 2 * lr per update (G: two updates per step, D: one).
 TRAIN_ATOL = TRAIN_RTOL = 1e-4
 NOISE_LEAVES = {("scene", "conv1", "b"), ("scene", "conv2", "b")}
+# bf16 kernels against their bf16 plain versions on the card: a rounding of
+# h to bf16 can land on the other side between two summation orders, and
+# the max over rows grows with the row count (on an H100 80GB HBM3 at
+# 700 W: 8.1e-4 and 1.2e-3 at 9,728 rows, 1.9e-3 at 1,310,720; PERF.md).
+# The wrong variant, the f32 kernel against the bf16 plain version, read
+# 9.4e-3 and 1.3e-2 there; every run checks that it lies beyond the limit.
+BF16_ATOL = 4e-3
+# Eval card vs CPU on the same draws. f32: ADE/FDE and every predicted
+# position within 1e-4, the rollout tolerance. bf16: the scene CNN's bf16
+# convolutions round differently in cuDNN and on the CPU and the kernels'
+# h roundings can flip, each moving a few positions by up to ~1e-3; on an
+# H100 80GB HBM3 at 700 W ADE/FDE read 8.6e-7 and positions 6.4e-4 at most
+# (PERF.md). The wrong variant, f32 against bf16 on the same draws, reads
+# 8.4e-6 on ADE/FDE, 1.6e-3 at most and 1.5e-4 on average on positions for
+# ``expected`` (more for ``sampling``, whose picks move). So bf16 is held
+# to ADE/FDE within 3e-6, positions within 2e-3, and their mean absolute
+# difference within 1e-5; every run also holds a card run in f32 against
+# the CPU's bf16 and checks that these limits reject it. Mode thresholds
+# each agent's min-FDE at 3 m: agents on the other side are counted.
+EVAL_ATOL = 1e-4
+EVAL_BF16_METRIC_ATOL = 3e-6
+EVAL_BF16_PRED_ATOL = 2e-3
+EVAL_BF16_PRED_MEAN_ATOL = 1e-5
 
 SEED = 0
 NUM = 20
@@ -80,6 +120,14 @@ BUCKETS = (1, 8, 64)
 BENCH_SCENES = 4096  # bench.py's k=20 sampling batch
 TRAIN_SCENES = 256  # bench.py's train batch: 256 scenes x 16 peds, K=20
 TRAIN_STEPS = 5
+EVAL_WINDOWS = 512  # synthetic dataset: windows of up to PEDS peds, seed 2
+EVAL_BATCH = 32  # scenes per eval batch: 32 x 16 x 19 = 9,728 rollouts
+EVAL_K = 19  # cli/evaluate.py decodes max(range(1, 20)) samples
+REJECTION_WINDOWS = 64
+CPU_BATCHES = 4  # eval batches repeated on the CPU
+F32_STRATEGIES = ("expected", "uniform_expected", "smart_expected", "smart_sampling",
+                  "uniform_sampling", "sampling")
+BF16_STRATEGIES = ("sampling", "expected")
 
 
 class SmokeFailure(RuntimeError):
@@ -154,9 +202,9 @@ def phase_build():
     return secs
 
 
-def decode_select_case(n_scenes, gen):
+def decode_select_case(n_scenes, gen, num=NUM):
     """Flagship decoder weights and per-row inputs for ``n_scenes`` scenes of
-    PEDS peds with NUM samples: N = NUM * n_scenes * PEDS rollouts."""
+    PEDS peds with ``num`` samples: N = num * n_scenes * PEDS rollouts."""
     import torch
 
     from mggan_tpu_torch.models import common
@@ -167,15 +215,15 @@ def decode_select_case(n_scenes, gen):
     return {
         "stacked": stacked,
         "xy": rand(m, 2) * 3.0, "dxdy": rand(m, 2) * 0.3,
-        "soc": rand(m, 32), "h0": rand(m * NUM, 32),
-        "idx": torch.randint(0, 4, (m * NUM,), generator=gen, dtype=torch.int32),
+        "soc": rand(m, 32), "h0": rand(m * num, 32),
+        "idx": torch.randint(0, 4, (m * num,), generator=gen, dtype=torch.int32),
     }
 
 
-def roofline_ms(flops, nbytes):
-    """Least time for the work on an H100: max(FLOPs / fp32 peak,
+def roofline_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    """Least time for the work on an H100: max(FLOPs / ``peak_flops``,
     bytes / HBM rate) -> ``(ms, "operations" or "bytes", flops, bytes)``."""
-    by_ops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops, by_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes"), flops, nbytes
 
 
@@ -183,21 +231,21 @@ def nbytes_of(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
-def decode_select_bound_ms(prepared):
+def decode_select_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
     """K1's bound: each input read once and each output written once; the
     gate, hidden2pos and output products of the sampled generator."""
     tensors, dims = prepared["tensors"], prepared["dims"]
     n, _, _, h, hid, in_dim, t = dims[:7]
     flops = n * t * (2 * (in_dim + h) * 4 * h + 2 * h * hid + 2 * hid * 2)
-    return roofline_ms(flops, nbytes_of(*tensors) + 2 * n * t * 2 * 4)
+    return roofline_ms(flops, nbytes_of(*tensors) + 2 * n * t * 2 * 4, peak_flops)
 
 
-def decode_all_bound_ms(prepared, outputs):
+def decode_all_bound_ms(prepared, outputs, peak_flops=PEAK_FP32_FLOPS):
     """K2's bound: the inputs read once, ``outputs`` (abs, rel and, when
     saved, hc) written once; K1's products for every (row, generator)."""
     n, _, g, h, hid, in_dim, t = prepared["dims"][:7]
     flops = g * n * t * (2 * (in_dim + h) * 4 * h + 2 * h * hid + 2 * hid * 2)
-    return roofline_ms(flops, nbytes_of(*prepared["tensors"], *outputs))
+    return roofline_ms(flops, nbytes_of(*prepared["tensors"], *outputs), peak_flops)
 
 
 def decode_all_bwd_bound_ms(prepared, inputs, outputs):
@@ -284,11 +332,11 @@ def kink_rows(inputs, hc):
     within KINK of zero at some step of some generator."""
     import torch
 
-    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
 
-    w1h, socb, h0 = inputs[3], inputs[6], inputs[7]
+    w1h, socb = inputs[3], inputs[6]
     g, n, t, _, h = hc.shape
-    sb = kda._tile(socb, n).transpose(0, 1)  # (G, N, hid)
+    sb = kdec.tile_rows(socb, n).transpose(0, 1)  # (G, N, hid)
     pre = torch.bmm(hc[:, :, :, 0].reshape(g, n * t, h), w1h).reshape(g, n, t, -1)
     return (pre + sb[:, :, None]).abs().amin(dim=(0, 2, 3)) < KINK
 
@@ -614,7 +662,8 @@ def device_profile(fn, reps, label, unit):
     return {"wall_ms": wall_ms / reps, "device_busy_ms": busy_ms / reps,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else float(np.nan),
             "device_ops": launches / reps,
-            "top": [[name[:60], tot / reps] for name, (tot, _) in top[:5]]}
+            "top": [[name[:60], tot / reps] for name, (tot, _) in top[:5]],
+            "by_name_ms": {name: tot / reps for name, (tot, _) in by_name.items()}}
 
 
 def phase_profile(model, obs, pat, train, reps=5):
@@ -638,30 +687,383 @@ def phase_profile(model, obs, pat, train, reps=5):
                                 f"{PEDS} peds, K={NUM}", "step")
     return serving, train_prof
 
+def phase_bf16_kernels():
+    """K1's and K2's bf16 variants against their bf16 plain versions on the
+    card, at the eval batch (32 scenes x 16 peds x 19 samples = 9,728 rows;
+    K2 x 4 generators) and, for K1, at bench.py's 1,310,720 rows; K1-bf16
+    against K2-bf16 on the selected rows (bit for bit); the f32 variant
+    against the bf16 plain version (must lie beyond the limit); each timed
+    beside the f32 variant, its plain version and its bounds (bf16 tensor
+    cores, and the fp32-FMA figure beside it)."""
+    import torch
 
-def kernel_entries(kern, fwd, bwd, serving_launches, train):
-    """The kernels line: one entry per ported kernel with its main-path
-    launches and the numbers measured in this run."""
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    bf16 = torch.bfloat16
+    on = lambda x: ({k: on(v) for k, v in x.items()} if isinstance(x, dict)
+                    else x.to("cuda"))
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    def compare(got, want, what):
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        beyond = sum(int(((a - b).abs() > BF16_ATOL).sum()) for a, b in zip(got, want))
+        check(all(bool(torch.isfinite(a).all()) for a in got), f"{what}: non-finite output")
+        return err, beyond
+
+    def bounds(b16, b32):
+        return {"bound_ms": b16[0], "bound_by": b16[1], "bound_ms_fp32_fma": b32[0],
+                "bound_by_fp32_fma": b32[1], "flops": b16[2], "bytes": b16[3]}
+
+    sel, every = {}, {}
+    for label, scenes, k, reps in (("eval", EVAL_BATCH, EVAL_K, 20),
+                                   ("bench", BENCH_SCENES, NUM, 5)):
+        case = on(decode_select_case(scenes, gen, num=k))
+        args = (case["stacked"], case["xy"], case["dxdy"], case["soc"], case["h0"],
+                case["idx"], 12, "rel")
+        prepared = kdec.prepare_decode_select(*args, compute_dtype=bf16)
+        prepared32 = kdec.prepare_decode_select(*args)
+        got = kdec.launch_decode_select(prepared)
+        got32 = kdec.launch_decode_select(prepared32)
+        torch.cuda.synchronize()
+        want = kdec.decode_select_reference(*args, compute_dtype=bf16)
+        err, beyond = compare(got, want, f"decode_select_bf16 {label}")
+        wrong = compare(got32, want, f"decode_select {label}")[0]
+        ms = cuda_time_ms(lambda: kdec.launch_decode_select(prepared), reps)
+        ms32 = cuda_time_ms(lambda: kdec.launch_decode_select(prepared32), reps)
+        plain_ms = cuda_time_ms(lambda: kdec.decode_select_reference(
+            *args, compute_dtype=bf16), max(2, reps // 5), warmup=1)
+        n = prepared["dims"][0]
+        sel[label] = {"n_rows": n, "max_abs_err": err, "elements_beyond_atol": beyond,
+                      "f32_kernel_vs_bf16_plain_max_abs": wrong, "ms": ms,
+                      "f32_kernel_ms": ms32, "plain_ms": plain_ms,
+                      "smem_bytes": nbytes_of(prepared["tensors"][0]),
+                      **bounds(decode_select_bound_ms(prepared, PEAK_BF16_FLOPS),
+                               decode_select_bound_ms(prepared))}
+        r = sel[label]
+        print(f"decode_select_bf16[{label}] N={n}: max_abs_err={err:.3e} (atol {BF16_ATOL:g}, "
+              f"{beyond} elements beyond), the f32 kernel against the bf16 plain version "
+              f"{wrong:.3e}; kernel {ms:.4f} ms (f32 variant {ms32:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} at the bf16 "
+              f"tensor-core peak ({r['bound_ms_fp32_fma']:.4f} ms by {r['bound_by_fp32_fma']} "
+              f"at the fp32-FMA peak); weight image {r['smem_bytes']} B; library_ms null")
+        check(beyond == 0, f"decode_select_bf16 {label}: {beyond} elements beyond {BF16_ATOL}")
+        check(wrong > BF16_ATOL, f"decode_select {label}: the f32 kernel passes the bf16 "
+              f"limit ({wrong:.3e} <= {BF16_ATOL})")
+
+        if label == "eval":  # K2-bf16 on the same rows, and K1-bf16 == K2-bf16
+            packed = kdec.pack_decoder_params(case["stacked"], "rel")
+            inputs = [packed[key] for key in kda.PACKED] + [
+                kdec.social_bias(packed, case["soc"]), case["h0"], case["xy"], case["dxdy"]]
+            inputs = [x.contiguous() for x in inputs]
+            kprep = kda.prepare(*inputs, 12, "rel", bf16)
+            kprep32 = kda.prepare(*inputs, 12, "rel")
+            out = kda.launch_fwd(kprep, save_hc=False)[:2]
+            out32 = kda.launch_fwd(kprep32, save_hc=False)[:2]
+            torch.cuda.synchronize()
+            want_all = kda.decode_all_reference(*inputs, 12, "rel", compute_dtype=bf16)[:2]
+            err_all, beyond_all = compare(out, want_all, "decode_all_fwd_bf16")
+            wrong_all = compare(out32, want_all, "decode_all_fwd")[0]
+            rows = torch.arange(n, device="cuda")
+            pick = case["idx"].long()
+            identical = all(torch.equal(a, b[pick, rows]) for a, b in zip(got, out))
+            ms_all = cuda_time_ms(lambda: kda.launch_fwd(kprep, save_hc=False), reps)
+            ms_all32 = cuda_time_ms(lambda: kda.launch_fwd(kprep32, save_hc=False), reps)
+            plain_all = cuda_time_ms(lambda: kda.decode_all_reference(
+                *inputs, 12, "rel", compute_dtype=bf16), 4, warmup=1)
+            every[label] = {"n_rows": n, "max_abs_err": err_all,
+                            "elements_beyond_atol": beyond_all,
+                            "f32_kernel_vs_bf16_plain_max_abs": wrong_all, "ms": ms_all,
+                            "f32_kernel_ms": ms_all32, "plain_ms": plain_all,
+                            "k1_equals_k2_on_selected_rows": identical,
+                            **bounds(decode_all_bound_ms(kprep, out, PEAK_BF16_FLOPS),
+                                     decode_all_bound_ms(kprep, out))}
+            r = every[label]
+            print(f"decode_all_fwd_bf16[{label}] N={n} x G=4: max_abs_err={err_all:.3e} "
+                  f"({beyond_all} elements beyond {BF16_ATOL:g}), the f32 kernel against the "
+                  f"bf16 plain version {wrong_all:.3e}; K1-bf16 == K2-bf16 on the selected "
+                  f"rows bit for bit: {identical}; kernel {ms_all:.4f} ms (f32 variant "
+                  f"{ms_all32:.4f} ms), plain {plain_all:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"by {r['bound_by']} at the bf16 tensor-core peak "
+                  f"({r['bound_ms_fp32_fma']:.4f} ms at the fp32-FMA peak); library_ms null")
+            check(beyond_all == 0, f"decode_all_fwd_bf16: {beyond_all} elements beyond tolerance")
+            check(wrong_all > BF16_ATOL, f"decode_all_fwd: the f32 kernel passes the bf16 limit "
+                  f"({wrong_all:.3e} <= {BF16_ATOL})")
+            check(identical, "K1-bf16 and K2-bf16 differ on the selected rows")
+            del packed, inputs, kprep, kprep32, out, out32, want_all
+        del case, args, prepared, prepared32, got, got32, want
+        torch.cuda.empty_cache()
+    return sel, every
+
+
+def first_windows(ds, n):
+    """The dataset's first ``n`` windows, as a dataset."""
+    import dataclasses
+
+    cut = lambda x: None if x is None else x[:n]
+    return dataclasses.replace(ds, trajectories=ds.trajectories[:n],
+                               scene_names=ds.scene_names[:n],
+                               big_patches=cut(ds.big_patches), ped_ids=cut(ds.ped_ids))
+
+
+def final_min_fde(ds, preds):
+    """Each real agent's running min over samples of its final displacement
+    error (the quantity ``Mode`` thresholds): (K, N_valid)."""
+    import numpy as np
+
+    gt = ds.pred_traj
+    keep = ~np.isnan(gt).any(-1).any(-1)
+    fde = np.linalg.norm(preds[-1][:, keep] - gt[keep, -1][None], axis=-1)  # (K, N)
+    return np.minimum.accumulate(fde, axis=0)
+
+
+def compare_eval(ds, card, cpu, ks, bf16):
+    """ADE/FDE/Mode and positions of the card's and the CPU's predictions of
+    one strategy: max diffs, the Mode flips (agents whose min-FDE lies on
+    the other side of 3 m at some k), the limits the diffs are held to and
+    whether they hold (``ok``)."""
+    import numpy as np
+
+    from mggan_tpu_torch.eval.evaluate import evaluate_ade_fde
+    from mggan_tpu_torch.eval.metrics import MODE_THRESH
+
+    m_card, m_cpu = evaluate_ade_fde(ds, card, ks), evaluate_ade_fde(ds, cpu, ks)
+    dist = [k for k in m_cpu if not k.startswith("Mode")]
+    diff = max(abs(m_card[k] - m_cpu[k]) for k in dist)
+    limit, pred_limit, mean_limit = (
+        (EVAL_BF16_METRIC_ATOL, EVAL_BF16_PRED_ATOL, EVAL_BF16_PRED_MEAN_ATOL) if bf16
+        else (EVAL_ATOL, EVAL_ATOL, EVAL_ATOL))
+    a, b = final_min_fde(ds, card), final_min_fde(ds, cpu)
+    flips = ((a < MODE_THRESH) != (b < MODE_THRESH)).sum(1)  # (K,)
+    n = a.shape[1]
+    mode_ok = all(abs(m_card[f"Mode k={k}"] - m_cpu[f"Mode k={k}"]) * n <= flips[k - 1] + 1e-6
+                  for k in ks)
+    pred_diff = np.abs(card - cpu)
+    pred_err, pred_mean = float(pred_diff.max()), float(pred_diff.mean())
+    return {"metric_max_abs_diff": diff, "metric_limit": limit, "mode_flips": int(flips.sum()),
+            "mode_consistent_with_flips": mode_ok, "pred_max_abs_diff": pred_err,
+            "pred_limit": pred_limit, "pred_mean_abs_diff": pred_mean,
+            "pred_mean_limit": mean_limit, "pred_scale": float(np.abs(cpu).max()),
+            "ok": bool(diff <= limit and pred_err <= pred_limit and pred_mean <= mean_limit
+                       and mode_ok)}
+
+
+def phase_eval():
+    """The evaluation path on the card (see the module note), its launch
+    counts read around each run, and the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.data.augment import augment_batch
+    from mggan_tpu_torch.data.batcher import PaddedBatcher
+    from mggan_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mggan_tpu_torch.eval.evaluate import (
+        HOST_ONLY, batch_seed, evaluate_ade_fde, get_predictions_multi,
+    )
+    from mggan_tpu_torch.eval.manifold import evaluate_precision_recall
+    from mggan_tpu_torch.eval.predict import Predictor
+    from mggan_tpu_torch.models.factory import construct_model, tree_to
+    from mggan_tpu_torch.ops import kernels
+
+    ds = make_synthetic_dataset(num_windows=EVAL_WINDOWS, max_peds=PEDS, seed=2)
+    loader = lambda d: PaddedBatcher(d, batch_size=EVAL_BATCH, max_peds=PEDS)
+    ks = list(range(1, EVAL_K + 1))
+    n_agents = sum(len(t) for t in ds.trajectories)
+    cfg = flagship_config()
+    params, state, spec = construct_model(cfg, seed=SEED, device="cuda")
+    cfg1 = dataclasses.replace(cfg, num_gens=1)  # the flagship at one generator
+    params1, state1, spec1 = construct_model(cfg1, seed=SEED, device="cuda")
+    runs = (("f32", cfg, params, state, spec, None, F32_STRATEGIES, ds),
+            ("bf16", cfg, params, state, spec, torch.bfloat16, BF16_STRATEGIES, ds),
+            ("rejection", cfg1, params1, state1, spec1, None, ("rejection",),
+             first_windows(ds, REJECTION_WINDOWS)))
+    out, cpu_checks = {}, {}
+    for mode, c, prm, st, sp, cd, strats, data in runs:
+        pred = Predictor(c, sp, prm, st, device="cuda", compute_dtype=cd)
+        # warm-up on one batch: cuDNN's algorithm choice, the first launches
+        get_predictions_multi(pred, loader(first_windows(data, EVAL_BATCH)), EVAL_K,
+                              strats, seed=SEED)
+        torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        preds = get_predictions_multi(pred, loader(data), EVAL_K, strats, seed=SEED)
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        t1 = time.perf_counter()
+        metrics = {}
+        for s_name, p_arr in preds.items():
+            check(p_arr.shape == (12, EVAL_K, sum(len(t) for t in data.trajectories), 2),
+                  f"eval {mode} {s_name}: shape {p_arr.shape}")
+            check(np.isfinite(p_arr).all(), f"eval {mode} {s_name}: non-finite predictions")
+            metrics[s_name] = {**evaluate_ade_fde(data, p_arr, ks),
+                               **evaluate_precision_recall(data, p_arr, 3.0, ks)}
+            bad = [k for k, v in metrics[s_name].items() if not np.isfinite(v)]
+            check(not bad, f"eval {mode} {s_name}: non-finite metrics {bad[:3]}")
+        metric_s = time.perf_counter() - t1
+        out[mode] = {"windows": len(data), "seconds": secs, "ms_per_window": secs / len(data) * 1e3,
+                     "metric_seconds": metric_s, "launches": launches,
+                     "metrics": {s_name: {k: v for k, v in m.items()
+                                          if k.endswith(("k=1", "k=5", "k=19")) or k == "Precision"}
+                                 for s_name, m in metrics.items()}}
+        print(f"eval {mode}: {len(data)} windows x up to {PEDS} peds in batches of {EVAL_BATCH}, "
+              f"k={EVAL_K}, strategies {','.join(strats)}: {secs:.3f} s "
+              f"({secs / len(data) * 1e3:.3f} ms per window), metrics on the host "
+              f"{metric_s:.3f} s; launches {json.dumps(launches)}")
+        for s_name, m in metrics.items():
+            print(f"  {s_name:>16}: ADE k=1 {m['ADE k=1']:.4f} k=19 {m['ADE k=19']:.4f}, "
+                  f"FDE k=1 {m['FDE k=1']:.4f} k=19 {m['FDE k=19']:.4f}, Mode k=19 "
+                  f"{m['Mode k=19']:.4f}, Precision {m['Precision']:.4f}, Recall k=19 "
+                  f"{m['Recall k=19']:.4f}")
+
+        # the first batches again on the port's CPU path, same draws
+        cpu = Predictor(c, sp, tree_to(prm, "cpu"), tree_to(st, "cpu"), device="cpu",
+                        compute_dtype=cd)
+        if mode == "rejection":
+            batch = next(iter(loader(data)))
+            mb = augment_batch({k: v for k, v in batch.items() if k not in HOST_ONLY},
+                               train=False, device="cuda")
+            draws = cpu.make_draws(torch.Generator().manual_seed(SEED), strats,
+                                   EVAL_BATCH, PEDS, EVAL_K)["rejection"]
+            d_gpu = pred.rejection_decodes(mb, None, EVAL_K, draws=draws)
+            d_cpu = cpu.rejection_decodes(mb, None, EVAL_K, draws=draws)
+            errs = {k: float((d_gpu[k].cpu() - d_cpu[k]).abs().max()) for k in ("base", "pert")}
+            cpu_checks[mode] = {"decode_max_abs_diff": errs,
+                                "rows": int(d_cpu["pert"][..., 0, 0].numel())}
+            print(f"  rejection card vs CPU, first batch, same draws: base decode max abs "
+                  f"diff {errs['base']:.3e}, perturbed decodes {errs['pert']:.3e} "
+                  f"(atol {EVAL_ATOL:g})")
+            check(max(errs.values()) <= EVAL_ATOL, f"rejection decodes card vs CPU {errs}")
+            continue
+        sub = first_windows(data, CPU_BATCHES * EVAL_BATCH)
+        draws = [cpu.make_draws(torch.Generator().manual_seed(batch_seed(SEED, i)), strats,
+                                EVAL_BATCH, PEDS, EVAL_K) for i in range(CPU_BATCHES)]
+        on_card = get_predictions_multi(pred, loader(sub), EVAL_K, strats, draws=draws)
+        on_cpu = get_predictions_multi(cpu, loader(sub), EVAL_K, strats, draws=draws)
+        cpu_checks[mode] = {s_name: compare_eval(sub, on_card[s_name], on_cpu[s_name], ks,
+                                                 cd is not None) for s_name in strats}
+        checks = {f"card vs CPU {mode}": cpu_checks[mode]}
+        if cd is not None:  # the wrong variant: the card in f32, the CPU in bf16
+            pred32 = Predictor(c, sp, prm, st, device="cuda")
+            on_card32 = get_predictions_multi(pred32, loader(sub), EVAL_K, strats, draws=draws)
+            cpu_checks["f32_card_vs_bf16_cpu"] = {
+                s_name: compare_eval(sub, on_card32[s_name], on_cpu[s_name], ks, True)
+                for s_name in strats}
+            checks["card in f32 vs CPU bf16 (must fail)"] = cpu_checks["f32_card_vs_bf16_cpu"]
+            del pred32
+        for what, results in checks.items():
+            for s_name, r in results.items():
+                print(f"  {what} {s_name}, first {CPU_BATCHES} batches, same draws: ADE/FDE "
+                      f"max abs diff {r['metric_max_abs_diff']:.3e} (limit "
+                      f"{r['metric_limit']:.0e}), Mode flips {r['mode_flips']} (Mode diffs "
+                      f"explained by them: {r['mode_consistent_with_flips']}), predictions max "
+                      f"abs diff {r['pred_max_abs_diff']:.3e} (limit {r['pred_limit']:.0e}) of "
+                      f"max |value| {r['pred_scale']:.2f}, mean abs diff "
+                      f"{r['pred_mean_abs_diff']:.3e} (limit {r['pred_mean_limit']:.0e}): "
+                      f"within the limits {r['ok']}")
+        for s_name, r in cpu_checks[mode].items():
+            check(r["ok"], f"eval card vs CPU {mode} {s_name}: {r}")
+        for s_name, r in cpu_checks.get("f32_card_vs_bf16_cpu", {}).items():
+            check(not r["ok"], f"eval: a card run in f32 passes the bf16 limits ({s_name})")
+        del pred, cpu
+        torch.cuda.empty_cache()
+    need = {"f32": {"decode_all_fwd": 2, "decode_select": 1},
+            "bf16": {"decode_all_fwd_bf16": 1, "decode_select_bf16": 1},
+            "rejection": {"decode_all_fwd": 2}}
+    for mode, per_batch in need.items():
+        batches = -(-out[mode]["windows"] // EVAL_BATCH)
+        for name, count in per_batch.items():
+            got = out[mode]["launches"].get(name, 0)
+            check(got >= count * batches, f"eval {mode}: {name} launched {got} times")
+    return {"agents": n_agents, "runs": out, "card_vs_cpu": cpu_checks}
+
+
+def phase_bench_sampling(reps=3):
+    """``Predictor.predict`` at bench.py's batch (4,096 scenes x 16 peds,
+    k=20; inputs made on the card from a seed) in f32 and in bf16: host
+    clock around calls that end in a synchronize, launch counts around the
+    timed calls, then one profiled call for K1's share of device time."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.eval.predict import Predictor
+    from mggan_tpu_torch.models.factory import construct_model
+    from mggan_tpu_torch.ops import kernels
+
+    cfg = flagship_config()
+    params, state, spec = construct_model(cfg, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    s, p = BENCH_SCENES, PEDS
+    batch = {"xy": torch.randn((s, p, 20, 2), generator=gen, device="cuda").cumsum(2) * 0.1,
+             "ped_mask": torch.ones((s, p), dtype=torch.bool, device="cuda"),
+             "patches": torch.rand((s, p, 33, 33, 4), generator=gen, device="cuda") * 2 - 1}
+    out = {}
+    for mode, cd, k1 in (("f32", None, "decode_select"),
+                         ("bf16", torch.bfloat16, "decode_select_bf16")):
+        pred = Predictor(cfg, spec, params, state, device="cuda", compute_dtype=cd)
+        g = pred.new_generator(SEED)
+        res = pred.predict(batch, g, num=NUM)
+        torch.cuda.synchronize()
+        check(res[0].shape == (NUM, s, p, 12, 2) and bool(torch.isfinite(res[0]).all()),
+              f"bench sampling {mode}: bad output")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.launches.clear()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pred.predict(batch, g, num=NUM)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(launches.get(k1, 0) >= reps, f"bench sampling {mode}: K1 launched {launches}")
+        prof = device_profile(lambda rep: pred.predict(batch, g, num=NUM), 1,
+                              f"sampling {mode}, {s} scenes x {p} peds, k={NUM}", "call")
+        # one K1 variant runs per mode; the profiler names it by its template
+        k1_ms = sum(v for name, v in prof["by_name_ms"].items() if "decode_select_kernel" in name)
+        p50 = float(np.median(times))
+        out[mode] = {"p50_ms": p50, "times_ms": times, "traj_per_s": s * p * NUM / p50 * 1e3,
+                     "launches": launches, "peak_gib": peak, "k1_device_ms": k1_ms,
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "k1_share_of_device_time": k1_ms / prof["device_busy_ms"],
+                     "idle_share": prof["idle_share"]}
+        print(f"bench sampling {mode}: {s} scenes x {p} peds, k={NUM}: p50 {p50:.3f} ms over "
+              f"{reps} calls ({out[mode]['traj_per_s']:.4g} trajectories/s), peak device "
+              f"memory {peak:.2f} GiB; K1 {k1_ms:.3f} ms of {prof['device_busy_ms']:.3f} ms "
+              f"device time ({out[mode]['k1_share_of_device_time']:.3f}); launches "
+              f"{json.dumps(launches)}")
+        del pred, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_entries(kern, fwd, bwd, sel16, all16, paths):
+    """The kernels line: one entry per ported kernel with its launches on
+    each main path (``paths``: path -> launch counts) and the numbers
+    measured in this run."""
+    by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     serving, bench = kern["serving"], kern["bench"]
-    train_launches = train["launches"]
     shapes = lambda res: {label: {k: v for k, v in r.items() if k not in ("flops", "bytes")}
                           for label, r in res.items()}
+    no_library = ("no single PyTorch call runs a rollout that feeds back its own output")
     entries = [{
         "name": "decode_select",
         "status": "ported (f32)",
         "route": "cuda",
         "source": "mggan_tpu_torch/csrc/decode_select.cu",
         "replaces": "mggan_tpu/ops/pallas/decoder.py:140",
-        "launches": serving_launches.get("decode_select", 0)
-        + train_launches.get("decode_select", 0),
-        "launches_by_path": {"serving": serving_launches.get("decode_select", 0),
-                             "train": train_launches.get("decode_select", 0)},
+        "launches": sum(by_path("decode_select").values()),
+        "launches_by_path": by_path("decode_select"),
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": serving["ms"],
         "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
         "library_ms": None,
+        "library_note": no_library,
         "n_rows": serving["n_rows"],
         "atol": KERNEL_ATOL,
         "bench_shape": {k: bench[k] for k in ("n_rows", "ms", "plain_ms", "bound_ms",
@@ -678,17 +1080,43 @@ def kernel_entries(kern, fwd, bwd, serving_launches, train):
             "route": "cuda",
             "source": "mggan_tpu_torch/csrc/decode_all.cu",
             "replaces": f"mggan_tpu/ops/pallas/decoder.py:{line}",
-            "launches": train_launches.get(name, 0),
+            "launches": sum(by_path(name).values()),
+            "launches_by_path": by_path(name),
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
             "ms": g.get("ms_save_hc", g["ms"]),
             "plain_ms": g["plain_ms"],
             "bound_ms": g.get("bound_ms_save_hc", g["bound_ms"]),
             "bound_by": g.get("bound_by_save_hc", g["bound_by"]),
             "library_ms": None,
-            "library_note": "no single PyTorch call runs a rollout that feeds back "
-                            "its own output",
+            "library_note": no_library,
             "n_rows": g["n_rows"],
             **atol,
+            "shapes": shapes(res),
+        })
+    for name, res, source, line in (
+            ("decode_select_bf16", sel16, "decode_select.cu", 140),
+            ("decode_all_fwd_bf16", all16, "decode_all.cu", 573)):
+        main = res["eval"]
+        entries.append({
+            "name": name,
+            "status": "ported (bf16 compute_dtype)",
+            "route": "cuda",
+            "source": f"mggan_tpu_torch/csrc/{source}",
+            "replaces": f"mggan_tpu/ops/pallas/decoder.py:{line} (compute_dtype=bfloat16)",
+            "launches": sum(by_path(name).values()),
+            "launches_by_path": by_path(name),
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "bound_note": "bound_ms at the bf16 tensor-core peak (bf16 operands); "
+                          "bound_ms_fp32_fma at the fp32 CUDA-core peak (the kernel's FMAs)",
+            "bound_ms_fp32_fma": main["bound_ms_fp32_fma"],
+            "library_ms": None,
+            "library_note": no_library,
+            "n_rows": main["n_rows"],
+            "atol": BF16_ATOL,
             "shapes": shapes(res),
         })
     return entries
@@ -714,13 +1142,22 @@ def main():
     train, train_handles = phase_train()
     train_vs_cpu = phase_train_card_vs_cpu()
     profile_serving, profile_train = phase_profile(model, obs, pat, train_handles)
+    del model, train_handles
+    sel16, all16 = phase_bf16_kernels()
+    evaluation = phase_eval()
+    bench = phase_bench_sampling()
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
         print(f"chip_smoke: JAX modules were loaded: {loaded[:5]}", file=sys.stderr)
         return 1
 
-    entries = kernel_entries(kern, fwd, bwd, serving_launches, train)
+    paths = {"serving": serving_launches, "train": train["launches"],
+             **{f"eval_{mode}": r["launches"] for mode, r in evaluation["runs"].items()},
+             **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()}}
+    entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths)
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} was launched on no main path")
     print(json.dumps({
         "build_s": build_s,
         "serving_p50_ms": {str(b): v["p50_ms"] for b, v in latency.items()},
@@ -729,8 +1166,10 @@ def main():
         "train_step_times_ms": train["times_ms"],
         "train_peak_gib": train["peak_gib"],
         "train_card_vs_cpu": train_vs_cpu,
-        "profile_64_scenes": profile_serving,
-        "profile_train_step": profile_train,
+        "profile_64_scenes": {k: v for k, v in profile_serving.items() if k != "by_name_ms"},
+        "profile_train_step": {k: v for k, v in profile_train.items() if k != "by_name_ms"},
+        "eval": evaluation,
+        "bench_sampling": bench,
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -5,7 +5,10 @@
 // and pallas_decode_all). It runs every generator g's rollout on every row n
 // (the arithmetic of decoder_rollout.cuh) and stores abs/rel as (G, N, T, 2).
 // For training it also stores each step's h and c as hc (G, N, T, 2, H), the
-// residuals K3 recomputes the gates from.
+// residuals K3 recomputes the gates from. Its bf16 variant
+// (mggan_decode_all_fwd_bf16, the TPU kernel's compute_dtype=bfloat16) runs
+// the same template on the bf16 weight image, forward only (no hc): no path
+// trains in bf16.
 //
 // K3 replaces decoder.py::_bwd_kernel (via _decode_bwd and _vjp_bwd). From
 // the saved hc and outputs and the output cotangents g_abs/g_rel it sweeps
@@ -91,6 +94,8 @@ __host__ __device__ inline size_t bwd_smem_bytes(int h, int hid, int in, int per
                           (size_t)kBwdWarps * round4(GradLayout(h, hid, in).size));
 }
 
+// T = float or __nv_bfloat16: the weight image of decoder_rollout.cuh.
+template <typename T>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 decode_all_fwd_kernel(const float* __restrict__ wpack,
                       const float* __restrict__ h0,      // (N, H)
@@ -123,10 +128,10 @@ decode_all_fwd_kernel(const float* __restrict__ wpack,
     const int64_t gn = (int64_t)g * n_rows + row;
     const float sb = lane < hid_dim ? socb[(m * num_gens + g) * hid_dim + lane] : 0.f;
     const float h = lane < h_dim ? h0[row * h_dim + lane] : 0.f;
-    rollout_row(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
-                dxdy0[m * 2], dxdy0[m * 2 + 1], sb, out_abs + gn * pred_len * 2,
-                out_rel + gn * pred_len * 2,
-                hc == nullptr ? nullptr : hc + gn * pred_len * 2 * h_dim);
+    rollout_row<T>(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
+                   dxdy0[m * 2], dxdy0[m * 2 + 1], sb, out_abs + gn * pred_len * 2,
+                   out_rel + gn * pred_len * 2,
+                   hc == nullptr ? nullptr : hc + gn * pred_len * 2 * h_dim);
   }
 }
 
@@ -282,7 +287,7 @@ decode_all_bwd_kernel(const float* __restrict__ wpack,
       if (fmt == kRel) { te[0] = nd_p.x; te[1] = nd_p.y; }
       float4 dg = zero4;
       if (own) {
-        add_input(gates, wemb4, L, lane, xy_p.x, xy_p.y, nd_p.x, nd_p.y);
+        add_input<float>(gates, wemb4, L, lane, xy_p.x, xy_p.y, nd_p.x, nd_p.y);
         const float ig = sigmoid(gates.x), fg = sigmoid(gates.y);
         const float gg = tanhf(gates.z), og = sigmoid(gates.w);
         const float tc = tanhf(c_t);
@@ -371,6 +376,32 @@ __global__ void decode_all_wgrad_reduce(const float* __restrict__ partials,
   dw[idx] = s;
 }
 
+template <typename T>
+int launch_fwd(const void* wpack, const void* h0, const void* socb, const void* xy0,
+               const void* dxdy0, void* out_abs, void* out_rel, void* hc, long long n_rows,
+               long long m_rows, int num_gens, int h_dim, int hid_dim, int in_dim,
+               int pred_len, int fmt, int per_gen, void* stream) {
+  const size_t smem = (size_t)num_gens * per_gen * sizeof(float);
+  cudaError_t err = allow_smem(decode_all_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, decode_all_fwd_kernel<T>, kFwdThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long warps = kFwdThreads / 32;
+  long long blocks = (n_rows * num_gens + warps - 1) / warps;
+  const long long resident = (long long)sms * per_sm;
+  if (blocks > resident) blocks = resident;
+  decode_all_fwd_kernel<T><<<(unsigned)blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
+      (const float*)dxdy0, (float*)out_abs, (float*)out_rel, (float*)hc,
+      (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len,
+      fmt, per_gen);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -385,32 +416,28 @@ long long mggan_decode_all_bwd_smem(int h_dim, int hid_dim, int in_dim, int per_
   return (long long)bwd_smem_bytes(h_dim, hid_dim, in_dim, per_gen);
 }
 
-// K2 on `stream`; hc may be null (no residuals). Returns cudaGetLastError()
-// after the launch (0 on success); the caller checks shapes beforehand.
+// K2 on `stream` with the f32 weight image; hc may be null (no residuals).
+// Returns cudaGetLastError() after the launch (0 on success); the caller
+// checks shapes beforehand.
 int mggan_decode_all_fwd(const void* wpack, const void* h0, const void* socb,
                          const void* xy0, const void* dxdy0, void* out_abs,
                          void* out_rel, void* hc, long long n_rows, long long m_rows,
                          int num_gens, int h_dim, int hid_dim, int in_dim,
                          int pred_len, int fmt, int per_gen, void* stream) {
-  const size_t smem = (size_t)num_gens * per_gen * sizeof(float);
-  cudaError_t err = allow_smem(decode_all_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, decode_all_fwd_kernel, kFwdThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long warps = kFwdThreads / 32;
-  long long blocks = (n_rows * num_gens + warps - 1) / warps;
-  const long long resident = (long long)sms * per_sm;
-  if (blocks > resident) blocks = resident;
-  decode_all_fwd_kernel<<<(unsigned)blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
-      (const float*)dxdy0, (float*)out_abs, (float*)out_rel, (float*)hc,
-      (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len,
-      fmt, per_gen);
-  return (int)cudaGetLastError();
+  return launch_fwd<float>(wpack, h0, socb, xy0, dxdy0, out_abs, out_rel, hc, n_rows,
+                           m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
+                           per_gen, stream);
+}
+
+// K2 with the bf16 weight image (compute_dtype=bfloat16), forward only: no hc.
+int mggan_decode_all_fwd_bf16(const void* wpack, const void* h0, const void* socb,
+                              const void* xy0, const void* dxdy0, void* out_abs,
+                              void* out_rel, long long n_rows, long long m_rows,
+                              int num_gens, int h_dim, int hid_dim, int in_dim,
+                              int pred_len, int fmt, int per_gen, void* stream) {
+  return launch_fwd<__nv_bfloat16>(wpack, h0, socb, xy0, dxdy0, out_abs, out_rel, nullptr,
+                                   n_rows, m_rows, num_gens, h_dim, hid_dim, in_dim,
+                                   pred_len, fmt, per_gen, stream);
 }
 
 // K3 on `stream`: the sweep over (blocks_per_gen, G) blocks into partials

@@ -14,6 +14,12 @@
 // weights and masks the result with a one-hot; here only the selected
 // generator runs, 1/G of the arithmetic for the same output.
 //
+// Two variants, as the TPU kernel's compute_dtype: f32, and bf16
+// (mggan_decode_select_bf16), where te, h and hid are rounded to bf16 before
+// their products with the bf16 weights Wemb', Whh and W1h, and c, the
+// biases, W2 and every sum stay f32 (decoder_rollout.cuh::rollout_row). The
+// bf16 weight image is half the f32 one (~40 KB for G=4 at H=32).
+//
 // Row inputs: h0 and idx have N rows. xy0, dxdy0 and socb have M rows with
 // N % M == 0, and row n reads row n % M: the sampling path flattens rows
 // (k, s, p)-major and those inputs do not depend on the sample k, so the
@@ -40,6 +46,10 @@
 // to one row only and rows next to each other have different generators.
 // Grouping rows by generator so a warp can reuse each weight load over
 // several rows is the next step (K4's idea); it is left for a later change.
+// The bf16 variant reads half the weight bytes per row-step but does the
+// same fp32 FMAs on converted operands, plus the conversions: bound by the
+// same pipes. Its products on the tensor cores (bf16, 989 TFLOP/s) would
+// need rows grouped by generator first, as above.
 
 #include "decoder_rollout.cuh"
 
@@ -49,8 +59,10 @@ using namespace mggan;
 
 constexpr int kThreads = 512;
 
-// The per-generator weight block is the one decoder_rollout.cuh describes;
-// all G blocks sit back to back in shared memory, per_gen floats apart.
+// The per-generator weight block is one of the images decoder_rollout.cuh
+// describes (T = float or __nv_bfloat16); all G blocks sit back to back in
+// shared memory, per_gen 4-byte words apart.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_select_kernel(const float* __restrict__ wpack,
                      const float* __restrict__ h0,      // (N, H)
@@ -90,42 +102,63 @@ decode_select_kernel(const float* __restrict__ wpack,
     }
     const float sb = lane < hid_dim ? socb[(m * num_gens + g) * hid_dim + lane] : 0.f;
     const float h = lane < h_dim ? h0[row * h_dim + lane] : 0.f;
-    rollout_row(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
-                dxdy0[m * 2], dxdy0[m * 2 + 1], sb, abs_row, rel_row, nullptr);
+    rollout_row<T>(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
+                   dxdy0[m * 2], dxdy0[m * 2 + 1], sb, abs_row, rel_row, nullptr);
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the rollout on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success); the caller checks shapes and sizes beforehand.
-int mggan_decode_select(const void* wpack, const void* h0, const void* socb,
-                        const void* xy0, const void* dxdy0, const void* idx,
-                        void* out_abs, void* out_rel, long long n_rows,
-                        long long m_rows, int num_gens, int h_dim, int hid_dim,
-                        int in_dim, int pred_len, int fmt, int per_gen,
-                        void* stream) {
+template <typename T>
+int launch(const void* wpack, const void* h0, const void* socb, const void* xy0,
+           const void* dxdy0, const void* idx, void* out_abs, void* out_rel,
+           long long n_rows, long long m_rows, int num_gens, int h_dim, int hid_dim,
+           int in_dim, int pred_len, int fmt, int per_gen, void* stream) {
   const size_t smem = (size_t)num_gens * per_gen * sizeof(float);
-  cudaError_t err = allow_smem(decode_select_kernel, smem);
+  cudaError_t err = allow_smem(decode_select_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   int sms = 0, per_sm = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, decode_select_kernel, kThreads, smem)) != cudaSuccess)
+           &per_sm, decode_select_kernel<T>, kThreads, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long warps = kThreads / 32;
   long long blocks = (n_rows + warps - 1) / warps;
   const long long resident = (long long)sms * per_sm;
   if (blocks > resident) blocks = resident;
-  decode_select_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  decode_select_kernel<T><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
       (const float*)dxdy0, (const int32_t*)idx, (float*)out_abs, (float*)out_rel,
       (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim,
       pred_len, fmt, per_gen);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the rollout on `stream`, with the f32 weight image (mggan_decode_select)
+// or the bf16 one (mggan_decode_select_bf16). Return cudaGetLastError() after
+// the launch (0 on success); the caller checks shapes and sizes beforehand.
+int mggan_decode_select(const void* wpack, const void* h0, const void* socb,
+                        const void* xy0, const void* dxdy0, const void* idx,
+                        void* out_abs, void* out_rel, long long n_rows,
+                        long long m_rows, int num_gens, int h_dim, int hid_dim,
+                        int in_dim, int pred_len, int fmt, int per_gen,
+                        void* stream) {
+  return launch<float>(wpack, h0, socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows, m_rows,
+                       num_gens, h_dim, hid_dim, in_dim, pred_len, fmt, per_gen, stream);
+}
+
+int mggan_decode_select_bf16(const void* wpack, const void* h0, const void* socb,
+                             const void* xy0, const void* dxdy0, const void* idx,
+                             void* out_abs, void* out_rel, long long n_rows,
+                             long long m_rows, int num_gens, int h_dim, int hid_dim,
+                             int in_dim, int pred_len, int fmt, int per_gen,
+                             void* stream) {
+  return launch<__nv_bfloat16>(wpack, h0, socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows,
+                               m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
+                               per_gen, stream);
 }
 
 const char* mggan_cuda_error_string(int code) {

@@ -2,19 +2,31 @@
 // decode_select.cu (K1) and decode_all.cu (K2), and the helpers the reverse
 // sweep (K3) uses too.
 //
-// Per-generator weight block in shared memory, in floats (the wrapper packs
-// it this way, ops/kernels/decoder.py::kernel_weights):
+// Per-generator weight block in shared memory (the wrapper packs it this
+// way, ops/kernels/decoder.py::kernel_weights), in one of two images:
+//
+// f32, in floats:
 //   whh  [H][H][4]   recurrent weights, [k][j][gate i,f,g,o]
 //   wemb [in][H][4]  spatial embedding folded into the input weights
 //   b    [H][4]      fused bias
 //   w1   [H][hid]    hidden2pos first layer, h part
 //   w2   [hid][2]    hidden2pos second layer
 //   b2   [2]
-// padded to a multiple of 4 floats (per_gen). Lane j owns hidden unit j
-// (H <= 32); lanes >= H or >= hid hold zeros and still join every shuffle.
+// padded to a multiple of 4 floats (per_gen).
+//
+// bf16 (compute_dtype=bfloat16), in 4-byte words: the matrix operands in
+// bf16, in the same orders, then the rest in f32:
+//   whh [H][H][4] | wemb [in][H][4] | w1 [H][hid]   bf16, padded to 8 values
+//   b [H][4] | w2 [hid][2] | b2 [2]                 f32
+// padded to a multiple of 4 words (per_gen). A lane's four gate weights are
+// one 8-byte load, and the image is half the f32 one.
+//
+// Lane j owns hidden unit j (H <= 32); lanes >= H or >= hid hold zeros and
+// still join every shuffle.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,7 +45,7 @@ __device__ __forceinline__ void fma4(float4& acc, float s, const float4& w) {
   acc.w = fmaf(s, w.w, acc.w);
 }
 
-// Offsets of the parts of one generator's weight block, in floats.
+// Offsets of the parts of one generator's f32 weight block, in floats.
 struct Layout {
   int h, hid, in, pred_len, fmt;
   int wemb, b, w1, w2, b2;
@@ -48,51 +60,121 @@ struct Layout {
   }
 };
 
+// The matrix operands' type T: float (f32 image) or __nv_bfloat16 (bf16
+// image). Quad<T> is a lane's four gate weights as one load.
+template <typename T> struct Quad;
+template <> struct Quad<float> { using type = float4; };
+template <> struct Quad<__nv_bfloat16> { using type = uint2; };
+
+__device__ __forceinline__ float4 to_f32(const float4& q) { return q; }
+// bf16 -> f32 is the 16 bits moved to the top; little-endian, so .x holds
+// gates i (low half) and f, .y gates g and o.
+__device__ __forceinline__ float4 to_f32(const uint2& q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// An operand of a product with T weights, rounded as the TPU kernels round
+// it (``x.astype(compute_dtype)``): unchanged for f32, to the nearest bf16
+// (ties to even) for bf16. Products of two bf16 values are exact in f32,
+// and fmaf accumulates in f32, as ``preferred_element_type=f32`` does.
+template <typename T> __device__ __forceinline__ float operand(float x);
+template <> __device__ __forceinline__ float operand<float>(float x) { return x; }
+template <> __device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Pointers into one generator's block of either image.
+template <typename T>
+struct Weights {
+  using Q = typename Quad<T>::type;
+  const Q* whh;      // [k][j] quads
+  const Q* wemb;     // [i][j] quads
+  const T* w1;       // [k][q]
+  const float4* b;   // [j]
+  const float* w2;   // [q][2]
+  const float* b2;   // [2]
+};
+
+// Words of the bf16 part of the bf16 image: (H*H*4 + in*H*4 + H*hid) values
+// padded to 8 (16 bytes), two to a word.
+__host__ __device__ __forceinline__ int bf16_part_words(int h, int hid, int in) {
+  return ((h * h * 4 + in * h * 4 + h * hid + 7) & ~7) / 2;
+}
+
+template <typename T> __device__ Weights<T> weights_at(const float* W, const Layout& L);
+
+template <>
+__device__ __forceinline__ Weights<float> weights_at<float>(const float* W, const Layout& L) {
+  return {reinterpret_cast<const float4*>(W), reinterpret_cast<const float4*>(W + L.wemb),
+          W + L.w1, reinterpret_cast<const float4*>(W + L.b), W + L.w2, W + L.b2};
+}
+
+template <>
+__device__ __forceinline__ Weights<__nv_bfloat16> weights_at<__nv_bfloat16>(const float* W,
+                                                                            const Layout& L) {
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(W);
+  const float* f = W + bf16_part_words(L.h, L.hid, L.in);
+  return {reinterpret_cast<const uint2*>(v), reinterpret_cast<const uint2*>(v + L.h * L.h * 4),
+          v + (L.h + L.in) * L.h * 4, reinterpret_cast<const float4*>(f), f + L.h * 4,
+          f + L.h * 4 + L.hid * 2};
+}
+
 // The decoder input te of one step times the folded input weights, added
-// into acc: te = dxdy (rel), xy (abs) or [x y dx dy] (abs_rel).
-__device__ __forceinline__ void add_input(float4& acc, const float4* wemb4, const Layout& L,
+// into acc: te = dxdy (rel), xy (abs) or [x y dx dy] (abs_rel), each value
+// rounded as an operand of T.
+template <typename T, typename Q>
+__device__ __forceinline__ void add_input(float4& acc, const Q* wemb, const Layout& L,
                                           int lane, float x, float y, float dx, float dy) {
   if (L.fmt == kAbsRel) {
-    fma4(acc, x, wemb4[lane]);
-    fma4(acc, y, wemb4[L.h + lane]);
-    fma4(acc, dx, wemb4[2 * L.h + lane]);
-    fma4(acc, dy, wemb4[3 * L.h + lane]);
+    fma4(acc, operand<T>(x), to_f32(wemb[lane]));
+    fma4(acc, operand<T>(y), to_f32(wemb[L.h + lane]));
+    fma4(acc, operand<T>(dx), to_f32(wemb[2 * L.h + lane]));
+    fma4(acc, operand<T>(dy), to_f32(wemb[3 * L.h + lane]));
   } else {
-    fma4(acc, L.fmt == kRel ? dx : x, wemb4[lane]);
-    fma4(acc, L.fmt == kRel ? dy : y, wemb4[L.h + lane]);
+    fma4(acc, operand<T>(L.fmt == kRel ? dx : x), to_f32(wemb[lane]));
+    fma4(acc, operand<T>(L.fmt == kRel ? dy : y), to_f32(wemb[L.h + lane]));
   }
 }
 
-// Rolls out one row with generator weights W (shared memory):
+// Rolls out one row with generator weights W (shared memory, image of T):
 //   gates = te @ Wemb' + h @ Whh + b;  c = sig(f) c + sig(i) tanh(g);  h = sig(o) tanh(c)
 //   hid = LeakyReLU_0.01(h @ W1h + sb);  nd = hid @ W2 + b2;  xy += nd;  dxdy = nd
 // from h0 = h, c0 = 0, and stores abs = xy and rel = nd of every step at
 // abs_row / rel_row (pred_len float2 each). With hc_row it also stores each
 // step's h and c there, [t][h | c][H]: two coalesced stores per step.
 //
+// With T = bf16 the operands of the products with bf16 weights (te, h0,
+// every step's h, hid) are rounded to bf16 and everything else (c, b, sb,
+// W2, b2, the position sums, every accumulation) stays f32: the arithmetic
+// of the TPU kernels with compute_dtype=bfloat16.
+//
 // Lane t keeps step t's outputs, so each row's outputs are one coalesced
 // store at the end. One sweep over the new h per step feeds both hidden2pos
 // (lanes < hid) and the next step's recurrent gates.
+template <typename T>
 __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int lane,
                                             float h, float x, float y, float dx, float dy,
                                             float sb, float* abs_row, float* rel_row,
                                             float* hc_row) {
   const bool own = lane < L.h;
   const bool own_hid = lane < L.hid;
-  const float4* whh4 = reinterpret_cast<const float4*>(W);
-  const float4* wemb4 = reinterpret_cast<const float4*>(W + L.wemb);
+  const Weights<T> w = weights_at<T>(W, L);
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 bias = own ? reinterpret_cast<const float4*>(W + L.b)[lane] : zero4;
-  const float w2x = own_hid ? W[L.w2 + lane * 2] : 0.f;
-  const float w2y = own_hid ? W[L.w2 + lane * 2 + 1] : 0.f;
-  const float b2x = W[L.b2], b2y = W[L.b2 + 1];
+  const float4 bias = own ? w.b[lane] : zero4;
+  const float w2x = own_hid ? w.w2[lane * 2] : 0.f;
+  const float w2y = own_hid ? w.w2[lane * 2 + 1] : 0.f;
+  const float b2x = w.b2[0], b2y = w.b2[1];
   float c = 0.f;
+  h = operand<T>(h);
 
   // recurrent part of the first step's gates: h0 @ Whh
   float4 rec = zero4;
   for (int k = 0; k < L.h; ++k) {
     const float hk = __shfl_sync(kFull, h, k);
-    if (own) fma4(rec, hk, whh4[k * L.h + lane]);
+    if (own) fma4(rec, hk, to_f32(w.whh[k * L.h + lane]));
   }
 
   float keep_x = 0.f, keep_y = 0.f, keep_dx = 0.f, keep_dy = 0.f;
@@ -100,9 +182,9 @@ __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int
     float4 acc = rec;
     acc.x += bias.x; acc.y += bias.y; acc.z += bias.z; acc.w += bias.w;
     if (own) {
-      add_input(acc, wemb4, L, lane, x, y, dx, dy);
+      add_input<T>(acc, w.wemb, L, lane, x, y, dx, dy);
       c = sigmoid(acc.y) * c + sigmoid(acc.x) * tanhf(acc.z);
-      h = sigmoid(acc.w) * tanhf(c);
+      h = operand<T>(sigmoid(acc.w) * tanhf(c));
       if (hc_row != nullptr) {
         hc_row[t * 2 * L.h + lane] = h;
         hc_row[t * 2 * L.h + L.h + lane] = c;
@@ -115,10 +197,10 @@ __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int
     rec = zero4;
     for (int k = 0; k < L.h; ++k) {
       const float hk = __shfl_sync(kFull, h, k);
-      if (own_hid) a = fmaf(hk, W[L.w1 + k * L.hid + lane], a);
-      if (more && own) fma4(rec, hk, whh4[k * L.h + lane]);
+      if (own_hid) a = fmaf(hk, to_f32(w.w1[k * L.hid + lane]), a);
+      if (more && own) fma4(rec, hk, to_f32(w.whh[k * L.h + lane]));
     }
-    a = a > 0.f ? a : 0.01f * a;
+    a = operand<T>(a > 0.f ? a : 0.01f * a);
     float px = own_hid ? a * w2x : 0.f;
     float py = own_hid ? a * w2y : 0.f;
     for (int s = 16; s > 0; s >>= 1) {

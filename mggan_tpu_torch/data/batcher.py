@@ -1,0 +1,98 @@
+"""Padded-batch assembly (counterpart of ``mggan_tpu/data/batcher.py``;
+replaces torch DataLoader + ``seq_collate_scene``, data_loaders.py:92-100 /
+trajectories_scene.py:40-78).
+
+Windows (scenes) are batched along a scene axis and peds are padded to a
+fixed ``max_peds``, so every batch has the same ``(S, P, ...)`` shape.
+Scenes stay atomic (a scene never straddles a batch), mirroring
+``seq_start_end``. The last partial batch is padded with empty, masked
+scenes (the reference uses ``drop_last=False``). Batches are numpy arrays
+on the host; the device patch bank (``patch_bank``) is not ported yet
+(ROADMAP.md queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mggan_tpu_torch.data.dataset import BIG_PATCH, SEQ_LEN, SceneDataset
+
+
+class PaddedBatcher:
+    def __init__(
+        self,
+        ds: SceneDataset,
+        batch_size: int,
+        max_peds: int | None = None,
+        shuffle: bool = False,
+        seed: int = 0,
+    ):
+        self.ds = ds
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        # Epoch order is a pure function of (seed, epoch), as in the JAX
+        # package; each iteration advances the epoch.
+        self.seed = seed
+        self._epoch = 0
+        self.include_patches = ds.big_patches is not None
+
+        sizes = [len(t) for t in ds.trajectories]
+        data_max = max(sizes) if sizes else 1
+        self.max_peds = max_peds or data_max
+        if data_max > self.max_peds:
+            raise ValueError(
+                f"dataset has a scene with {data_max} peds > max_peds="
+                f"{self.max_peds}; raise --max_peds"
+            )
+
+        # Scene extent in meters for augmentation (width, height).
+        self._wh_m = {}
+        for name, info in ds.images.items():
+            h, w = info["small"].shape[:2]
+            self._wh_m[name] = (w / ds.px_per_meter, h / ds.px_per_meter)
+
+    def __len__(self):
+        return (len(self.ds) + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            epoch_rng = np.random.RandomState(
+                (self.seed * 1_000_003 + self._epoch) % (2**31 - 1)
+            )
+            epoch_rng.shuffle(order)
+        self._epoch += 1
+        bs = self.batch_size
+        for i in range(0, len(order), bs):
+            yield self.make_batch(order[i : i + bs])
+
+    def make_batch(self, idxs):
+        ds, p = self.ds, self.max_peds
+        s = self.batch_size  # the last batch is padded with empty scenes
+        xy = np.zeros((s, p, SEQ_LEN, 2), np.float32)
+        ped_mask = np.zeros((s, p), bool)
+        wh_m = np.ones((s, 2), np.float32)
+        scale = np.ones((s,), np.float32)
+        window_idx = np.full((s,), -1, np.int64)
+        if self.include_patches:
+            big = np.zeros((s, p, BIG_PATCH, BIG_PATCH, 3), np.uint8)
+        for row, wi in enumerate(idxs):
+            traj = ds.trajectories[wi]
+            n = len(traj)
+            xy[row, :n] = traj
+            ped_mask[row, :n] = True
+            wh_m[row] = self._wh_m[ds.scene_names[wi]]
+            scale[row] = ds.eval_scaling(wi)
+            window_idx[row] = wi
+            if self.include_patches:
+                big[row, :n] = ds.big_patches[wi]
+        batch = {
+            "xy": xy,
+            "ped_mask": ped_mask,
+            "wh_m": wh_m,
+            "scale": scale,
+            "window_idx": window_idx,
+        }
+        if self.include_patches:
+            batch["big_patches"] = big
+        return batch

@@ -1,0 +1,94 @@
+"""ADE/FDE/Mode metrics, batched over padded scenes (counterpart of
+``mggan_tpu/eval/metrics.py``).
+
+Reference semantics (metrics.py:6-141, evaluation.py:43-78):
+* ADE/FDE at k use the JOINT scene minimum: min over the first k samples of
+  the error summed over the scene's valid agents.
+* Accumulation is (sum, count) pairs across scenes; ADE's count is
+  ``pred_len * n_agents``, FDE's and Mode's is ``n_agents``.
+* Mode = fraction of agents whose per-agent min-FDE over k samples is
+  < 3 m (the intent of the reference's mode threshold).
+* For pixel datasets errors are rescaled per scene by 1/ratio.
+
+``allreduce_sums`` (the sum of these pairs across processes) waits for the
+multi-device port (ROADMAP.md queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MODE_THRESH = 3.0
+
+
+def displacement_errors(pred_abs, gt_xy, scale):
+    """Per-agent ADE-sum and FDE per sample.
+
+    Args:
+        pred_abs: (K, S, P, T, 2); gt_xy: (S, P, T, 2) (NaNs zeroed upstream;
+            invalid agents are excluded by the mask later).
+        scale: (S,) per-scene rescaling.
+
+    Returns:
+        (ades (K,S,P) summed over T, fdes (K,S,P)).
+    """
+    sc = scale[None, :, None, None, None]
+    d = torch.linalg.vector_norm((pred_abs - gt_xy[None]) * sc, dim=-1)  # (K,S,P,T)
+    return d.sum(-1), d[..., -1]
+
+
+def batch_metric_sums(pred_abs, gt_xy, loss_mask, scale, ks, pred_len=12):
+    """(sum, count) accumulators for one padded batch, all ks at once.
+
+    Returns ``{f"{name} k={k}": (sum, count)}`` with 0-d tensors.
+    """
+    ades, fdes = displacement_errors(pred_abs, gt_xy, scale)
+    m = loss_mask[None].to(ades.dtype)
+    ades = ades * m
+    fdes = fdes * m
+    scene_ade = ades.sum(-1)  # (K, S) summed over valid agents
+    scene_fde = fdes.sum(-1)
+    total_agents = loss_mask.sum()
+    inf = torch.tensor(float("inf"), dtype=fdes.dtype, device=fdes.device)
+    out = {}
+    for k in ks:
+        min_ade = scene_ade[:k].amin(0).sum()
+        min_fde = scene_fde[:k].amin(0).sum()
+        # per-agent min-FDE over k (metrics.py:136), masked
+        agent_min_fde = torch.where(loss_mask, fdes[:k].amin(0), inf)
+        mode = (agent_min_fde < MODE_THRESH).sum()
+        out[f"ADE k={k}"] = (min_ade, pred_len * total_agents)
+        out[f"FDE k={k}"] = (min_fde, total_agents)
+        out[f"Mode k={k}"] = (mode.to(torch.float32), total_agents)
+    return out
+
+
+class MetricAccumulator:
+    """Host-side (sum, count) accumulation across batches
+    (evaluation.py:52-78)."""
+
+    def __init__(self):
+        self.sums = {}
+
+    def update(self, batch_sums):
+        for key, (v, c) in batch_sums.items():
+            v, c = float(v), float(c)
+            s, n = self.sums.get(key, (0.0, 0.0))
+            self.sums[key] = (s + v, n + c)
+
+    def result(self):
+        return {k: (s / n if n else float("nan")) for k, (s, n) in self.sums.items()}
+
+
+def pred_diversity(preds):
+    """Mean 1 - cosine similarity over sample pairs (metrics.py:71-96).
+
+    preds: (T, K, 2) relative predictions for one agent -> scalar in [0, 1].
+    """
+    k = preds.shape[1]
+    flat = np.asarray(preds).transpose(1, 0, 2).reshape(k, -1)
+    norm = flat / (np.linalg.norm(flat, axis=1, keepdims=True) + 1e-8)
+    cos = norm @ norm.T
+    off_diag = (cos.sum() - np.trace(cos)) / (k * (k - 1))
+    return 1.0 - off_diag

@@ -79,12 +79,15 @@ def init(spec: GeneratorSpec, generator: torch.Generator):
 
 
 def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
-           patches, train: bool = False):
+           patches, train: bool = False, compute_dtype=None):
     """Shared context encoding (standard.py:140-155).
 
     ``train`` runs the scene CNN's BatchNorm on the batch statistics of the
     real peds (``ped_mask``) and returns its updated running statistics;
-    eval mode returns ``state`` as it was.
+    eval mode returns ``state`` as it was. ``compute_dtype`` (eval only,
+    e.g. ``torch.bfloat16``) runs the scene CNN's folded-BN conv stack in
+    that dtype; the trajectory encoder and the social module stay float32,
+    as in JAX.
 
     Returns ``(enc_h (S, P, E_total), social_feats (S, P, F), new_state)``.
     """
@@ -100,7 +103,8 @@ def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
             scene_enc, new_state["scene"] = scene_cnn_apply_train(
                 params["scene"], state["scene"], flat, mask=ped_mask.reshape(s * p))
         else:
-            scene_enc = scene_cnn_apply(params["scene"], state["scene"], flat)
+            scene_enc = scene_cnn_apply(params["scene"], state["scene"], flat,
+                                        compute_dtype)
         feats.append(scene_enc.reshape(s, p, -1))
     if spec.social_feat_size > 0:
         social_feats = social_ops.social_attention_apply(
@@ -136,13 +140,14 @@ def _reshape_samples(x, spec, noise):
 
 
 def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
-               social_feats, noise):
+               social_feats, noise, compute_dtype=None):
     """Every generator on every noise sample (standard.py:227-265).
 
     On CUDA tensors this is the all-generator kernel K2 (and, under
     autograd, its reverse sweep K3), on CPU tensors their plain versions
     (``ops/kernels/decode_all.py``). The per-agent inputs go in once; only
-    ``h0`` has a row per sample.
+    ``h0`` has a row per sample. ``compute_dtype=torch.bfloat16`` is K2's
+    bf16 variant (forward only).
 
     Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2).
     """
@@ -152,6 +157,7 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     abs_g, rel_g = decode_all_kernel.decode_all(
         params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
         _decoder_h0(params, enc_h, noise), spec.pred_len, spec.inp_format,
+        compute_dtype,
     )
     shape = (spec.num_gens, k, s, p, spec.pred_len, 2)
     reshape = lambda x: x.reshape(shape).transpose(0, 1)
@@ -159,7 +165,8 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
 
 
 def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
-                  social_feats, noise, gen_idxs, fuse_select: bool = True):
+                  social_feats, noise, gen_idxs, compute_dtype=None,
+                  fuse_select: bool = True):
     """Decode only the sampled generator per (sample, agent).
 
     With ``fuse_select`` (the default, for paths without a gradient) this is
@@ -168,7 +175,8 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     once; only ``h0`` and the generator index have a row per sample. K1 has
     no backward, so a gradient path (the G step) passes
     ``fuse_select=False`` and gets ``decode_all`` followed by the one-hot
-    gather (JAX ``generator.py:294-302``).
+    gather (JAX ``generator.py:294-302``). ``compute_dtype=torch.bfloat16``
+    selects the kernels' bf16 variants.
 
     Args:
         noise: (K, S, P, z); gen_idxs: (S, P, K) int.
@@ -177,7 +185,7 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     """
     if not fuse_select:
         out = decode_all(params, spec, last_xy, last_dxdy, enc_h, social_feats,
-                         noise)
+                         noise, compute_dtype)
         return GeneratorOutput(rel=sampling.gather_samples(out.rel, gen_idxs),
                                abs=sampling.gather_samples(out.abs, gen_idxs))
     flat = lambda x: x.reshape(-1, x.shape[-1]).contiguous()
@@ -186,7 +194,7 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
     abs_sel, rel_sel = decoder_kernel.decode_select(
         params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
-        h0, idx, spec.pred_len, spec.inp_format,
+        h0, idx, spec.pred_len, spec.inp_format, compute_dtype,
     )
     return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
                            abs=_reshape_samples(abs_sel, spec, noise))

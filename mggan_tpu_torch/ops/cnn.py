@@ -1,4 +1,5 @@
-"""Scene-patch CNN + channel attention in float32, eval and train modes.
+"""Scene-patch CNN + channel attention: eval (float32, or bf16 with the
+BatchNorm folded into the convolutions) and train modes.
 
 Counterpart of ``mggan_tpu/ops/cnn.py``. The public layout stays NHWC:
 patches are ``(B, 33, 33, 4)`` and conv weights are stored HWIO
@@ -108,15 +109,42 @@ def _scene_cnn(params, patches, bn):
     return attention_head(params, x)
 
 
-def scene_cnn_apply(params, state, patches):
-    """``(B, 33, 33, 4)`` NHWC patches -> ``(B, 64)`` scene encoding.
+def fold_bn(params, state):
+    """Eval-mode BatchNorm (a per-channel affine) folded into each conv's
+    weights and bias: ``{"conv1": {"w", "b"}, "conv2": {"w", "b"}}``."""
+    folded = {}
+    for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+        g = params[bn]["scale"] * torch.rsqrt(state[bn]["var"] + BN_EPS)
+        folded[conv] = {
+            "w": params[conv]["w"] * g,  # (3,3,I,O) * (O,)
+            "b": (params[conv]["b"] - state[bn]["mean"]) * g + params[bn]["bias"],
+        }
+    return folded
 
-    The eval path in float32 (JAX ``train=False, compute_dtype=None``):
-    BatchNorm from running statistics. The bf16 folded-BN path is not
-    ported yet.
+
+def scene_cnn_apply(params, state, patches, compute_dtype=None):
+    """``(B, 33, 33, 4)`` NHWC patches -> ``(B, 64)`` scene encoding, eval
+    mode (BatchNorm from running statistics).
+
+    ``compute_dtype=None`` is the float32 path. With a ``compute_dtype``
+    (JAX ``train=False, compute_dtype=...``, ops/cnn.py:151-167) the
+    BatchNorm is folded into the conv weights and the conv stack runs in
+    that dtype end to end: operands, conv outputs, bias, ReLU and pooling;
+    the attention head stays float32. The convolutions stay
+    ``F.conv2d``: they were plain XLA in the JAX package.
     """
-    return _scene_cnn(params, patches,
-                      lambda name, x: bn_eval_nchw(params[name], state[name], x))
+    if compute_dtype is None:
+        return _scene_cnn(params, patches,
+                          lambda name, x: bn_eval_nchw(params[name], state[name], x))
+    folded = fold_bn(params, state)
+    x = patches.permute(0, 3, 1, 2).to(compute_dtype)  # NHWC -> NCHW
+    for conv in ("conv1", "conv2"):
+        w = folded[conv]["w"].permute(3, 2, 0, 1).to(compute_dtype)  # HWIO -> OIHW
+        b = folded[conv]["b"].to(compute_dtype)
+        x = F.conv2d(x, w, padding=1) + b[None, :, None, None]
+        x = max_pool_2x2(F.relu(x))
+    x = x.permute(0, 2, 3, 1)  # back to NHWC before the attention reshape
+    return attention_head(params, x.float())
 
 
 def scene_cnn_apply_train(params, state, patches, mask=None):

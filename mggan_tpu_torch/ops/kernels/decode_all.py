@@ -20,6 +20,13 @@ versions ``decode_all_reference`` and ``decode_all_bwd_reference``. There
 is no other route. Without a gradient to take, ``decode_all`` runs the
 forward alone, without saving (h, c).
 
+``compute_dtype=torch.bfloat16`` runs K2's bf16 variant (counted as
+``decode_all_fwd_bf16``; plain version ``decode_all_reference`` with the
+same argument), with K1's bf16 numerics (``decoder.py``'s module note). It
+is forward only: under autograd it raises, as no path of the JAX package
+trains in bf16 (JAX's backward recomputes in f32 from the bf16 forward's
+(h, c); ROADMAP.md queue 2).
+
 Row layout, as K1's: ``h0 (N, H)`` has a row per rollout; ``last_xy``,
 ``last_dxdy (M, 2)`` and ``socb (M, G, hid)`` have ``M`` rows with
 ``N % M == 0`` and rollout ``n`` reads row ``n % M`` (rows are
@@ -33,7 +40,6 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from mggan_tpu_torch.ops import kernels
 from mggan_tpu_torch.ops.kernels import build
@@ -41,61 +47,23 @@ from mggan_tpu_torch.ops.kernels import decoder as kdec
 
 SOURCE = "decode_all"  # csrc/decode_all.cu
 KERNEL_FWD = "decode_all_fwd"
+KERNEL_FWD_BF16 = "decode_all_fwd_bf16"
 KERNEL_BWD = "decode_all_bwd"
-PACKED = ("w_emb", "w_hh", "b", "w1h", "w2", "b2")
+PACKED = kdec.PACKED
 BWD_WARPS = 8  # warps per K3 block (kBwdWarps in the source)
 
 
-def _tile(x, n):
-    """``(M, ...)`` -> ``(N, ...)`` with row n = row n % M."""
-    return x.repeat((n // x.shape[0],) + (1,) * (x.dim() - 1))
-
-
 def _untile(x, m):
-    """The VJP of ``_tile``: ``(N, ...)`` -> ``(M, ...)`` summed over copies."""
+    """The VJP of ``decoder.tile_rows``: ``(N, ...)`` -> ``(M, ...)`` summed
+    over copies."""
     return x.reshape((x.shape[0] // m, m) + tuple(x.shape[1:])).sum(0)
 
 
-def _decoder_input(xy, nd, inp_format):
-    if inp_format == "rel":
-        return nd
-    if inp_format == "abs":
-        return xy
-    return torch.cat([xy, nd], dim=-1)
-
-
 # ------------------------------------------------------------ plain versions --
-def decode_all_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
-                         last_dxdy, pred_len: int, inp_format: str,
-                         save_hc: bool = False):
-    """K2's plain version: every generator's rollout on every row, the
-    arithmetic of ``common.relative_decoder_apply`` on the folded weights.
-
-    Returns ``(abs, rel, hc)``: abs/rel ``(G, N, T, 2)`` and, with
-    ``save_hc``, each step's h and c as ``(G, N, T, 2, H)`` (else None).
-    """
-    g, n = w_hh.shape[0], h0.shape[0]
-    xy = _tile(last_xy, n)[None].expand(g, n, 2)
-    nd = _tile(last_dxdy, n)[None].expand(g, n, 2)
-    sb = _tile(socb, n).transpose(0, 1)  # (G, N, hid)
-    h = h0[None].expand((g,) + tuple(h0.shape))
-    c = torch.zeros_like(h)
-    abs_seq, rel_seq, hc_seq = [], [], []
-    for _ in range(pred_len):
-        te = _decoder_input(xy, nd, inp_format)
-        gates = torch.bmm(te, w_emb) + torch.bmm(h, w_hh) + b[:, None]
-        i, f, gg, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        hid = F.leaky_relu(torch.bmm(h, w1h) + sb, 0.01)
-        nd = torch.bmm(hid, w2) + b2[:, None]
-        xy = xy + nd
-        abs_seq.append(xy)
-        rel_seq.append(nd)
-        if save_hc:
-            hc_seq.append(torch.stack([h, c], dim=2))
-    hc = torch.stack(hc_seq, dim=2) if save_hc else None
-    return torch.stack(abs_seq, 2), torch.stack(rel_seq, 2), hc
+# K2's plain version: every generator's rollout on every row, in f32 or
+# bf16, returning (abs, rel, hc or None); the same function is K1's before
+# its gather.
+decode_all_reference = kdec.rollout_reference
 
 
 def decode_all_bwd_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
@@ -110,9 +78,9 @@ def decode_all_bwd_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
     """
     g, n = w_hh.shape[0], h0.shape[0]
     m = last_xy.shape[0]
-    xy0 = _tile(last_xy, n)[None].expand(g, n, 2)
-    nd0 = _tile(last_dxdy, n)[None].expand(g, n, 2)
-    sb = _tile(socb, n).transpose(0, 1)  # (G, N, hid)
+    xy0 = kdec.tile_rows(last_xy, n)[None].expand(g, n, 2)
+    nd0 = kdec.tile_rows(last_dxdy, n)[None].expand(g, n, 2)
+    sb = kdec.tile_rows(socb, n).transpose(0, 1)  # (G, N, hid)
     h_init = h0[None].expand((g,) + tuple(h0.shape))
     hs, cs = hc[:, :, :, 0], hc[:, :, :, 1]  # (G, N, T, H)
     t_ = lambda x: x.transpose(1, 2)
@@ -128,7 +96,7 @@ def decode_all_bwd_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
         c_p = cs[:, :, t - 1] if t > 0 else zeros(h_init)
         xy_p = out_abs[:, :, t - 1] if t > 0 else xy0
         nd_p = out_rel[:, :, t - 1] if t > 0 else nd0
-        te = _decoder_input(xy_p, nd_p, inp_format)
+        te = kdec.decoder_input(xy_p, nd_p, inp_format)
 
         dxy_t = g_abs[:, :, t] + dxy_c
         dnd = g_rel[:, :, t] + dxy_t + dnd_next
@@ -182,6 +150,8 @@ def _lib():
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.mggan_decode_all_fwd.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
     lib.mggan_decode_all_fwd.restype = i32
+    lib.mggan_decode_all_fwd_bf16.argtypes = [ptr] * 7 + [ll] * 2 + [i32] * 7 + [ptr]
+    lib.mggan_decode_all_fwd_bf16.restype = i32
     lib.mggan_decode_all_bwd.argtypes = [ptr] * 16 + [ll] * 2 + [i32] * 8 + [ptr]
     lib.mggan_decode_all_bwd.restype = i32
     lib.mggan_decode_all_grad_floats.argtypes = [i32] * 3
@@ -194,12 +164,12 @@ def _lib():
 
 
 def prepare(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
-            pred_len: int, inp_format: str):
+            pred_len: int, inp_format: str, compute_dtype=None):
     """Pack the kernels' weight image and check every row argument
     (``decoder.prepare_rollout``); ``launch_fwd``/``launch_bwd`` take it."""
     packed = dict(zip(PACKED, (w_emb, w_hh, b, w1h, w2, b2)))
     return kdec.prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len,
-                                inp_format)
+                                inp_format, compute_dtype)
 
 
 def _raise_on(rc, name):
@@ -209,8 +179,11 @@ def _raise_on(rc, name):
 
 
 def launch_fwd(args, save_hc: bool):
-    """K2 on the current stream -> ``(abs, rel, hc or None)``."""
-    tensors, dims = args["tensors"], args["dims"]
+    """K2 (its f32 or bf16 variant, as the arguments say) on the current
+    stream -> ``(abs, rel, hc or None)``; the bf16 variant saves no hc."""
+    tensors, dims, bf16 = args["tensors"], args["dims"], args["bf16"]
+    if bf16 and save_hc:
+        raise ValueError("K2's bf16 variant is forward only: it saves no (h, c)")
     n, _, g, h, _, _, t = dims[:7]
     dev = tensors[1].device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -218,13 +191,17 @@ def launch_fwd(args, save_hc: bool):
     hc = new(g, n, t, 2, h) if save_hc else None
     if n == 0:
         return out_abs, out_rel, hc
+    ptrs = [x.data_ptr() for x in tensors] + [out_abs.data_ptr(), out_rel.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().mggan_decode_all_fwd(
-            *(x.data_ptr() for x in tensors), out_abs.data_ptr(), out_rel.data_ptr(),
-            hc.data_ptr() if save_hc else None, *dims, stream)
-    _raise_on(rc, KERNEL_FWD)
-    kernels.launches[KERNEL_FWD] += 1
+        if bf16:
+            rc = _lib().mggan_decode_all_fwd_bf16(*ptrs, *dims, stream)
+        else:
+            rc = _lib().mggan_decode_all_fwd(
+                *ptrs, hc.data_ptr() if save_hc else None, *dims, stream)
+    name = KERNEL_FWD_BF16 if bf16 else KERNEL_FWD
+    _raise_on(rc, name)
+    kernels.launches[name] += 1
     return out_abs, out_rel, hc
 
 
@@ -288,14 +265,17 @@ def weight_grads_from_image(dw, h: int, hid: int, in_dim: int):
 
 # ------------------------------------------------------------------ routes --
 def decode_all_fwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
-                   pred_len: int, inp_format: str, save_hc: bool):
+                   pred_len: int, inp_format: str, save_hc: bool,
+                   compute_dtype=None):
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
     if h0.device.type == "cuda":
-        args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format)
+        args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format,
+                       compute_dtype)
         return launch_fwd(args, save_hc)
     if h0.device.type == "cpu":
-        return decode_all_reference(*inputs, pred_len, inp_format, save_hc)
+        return decode_all_reference(*inputs, pred_len, inp_format, save_hc,
+                                    compute_dtype)
     raise ValueError(f"decode_all: unsupported device {h0.device}")
 
 
@@ -340,13 +320,19 @@ class DecodeAll(torch.autograd.Function):
 
 
 def decode_all(stacked, last_xy, last_dxdy, social_feats, h0, pred_len: int,
-               inp_format: str):
+               inp_format: str, compute_dtype=None):
     """Every generator's rollout on every row -> ``(abs, rel)``, each
     ``(G, N, pred_len, 2)``; differentiable through ``DecodeAll`` when a
-    gradient is needed. See the module note for the row layout."""
+    gradient is needed (f32 only). See the module note for the row layout
+    and for ``compute_dtype``."""
     packed = kdec.pack_decoder_params(stacked, inp_format)
     socb = kdec.social_bias(packed, social_feats)
     inputs = tuple(packed[k] for k in PACKED) + (socb, h0, last_xy, last_dxdy)
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        if kdec.is_bf16(compute_dtype):
+            raise NotImplementedError(
+                "decode_all in bf16 has no backward: K3 after a bf16 forward "
+                "is ROADMAP.md queue 2; train in f32")
         return DecodeAll.apply(*inputs, pred_len, inp_format)
-    return decode_all_fwd(*inputs, pred_len, inp_format, save_hc=False)[:2]
+    return decode_all_fwd(*inputs, pred_len, inp_format, save_hc=False,
+                          compute_dtype=compute_dtype)[:2]

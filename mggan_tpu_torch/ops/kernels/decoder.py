@@ -7,8 +7,18 @@ row's sampled generator and returns its ``(abs, rel)``:
 * on CUDA tensors it launches ``csrc/decode_select.cu`` (built at first use)
   or raises;
 * on CPU tensors it runs ``decode_select_reference``, the plain PyTorch
-  version: every generator's rollout (``stacked_decoders_apply``) followed
-  by ``gather_samples``.
+  version: every generator's rollout on the folded weights
+  (``rollout_reference``, also K2's plain version) followed by
+  ``gather_samples``.
+
+``compute_dtype=torch.bfloat16`` is the TPU kernel's bf16 variant, with the
+kernels' numerics (not those of the JAX package's portable scan, which
+rounds at other places): the folded ``w_emb``, ``w_hh`` and ``w1h`` and the
+operands of their products (``te``, ``h0``, every step's ``h`` and ``hid``
+before ``@ w2``) are rounded to bf16; the products accumulate in f32, and the
+biases, ``socb``, ``w2``, ``b2``, ``c`` and the position sums stay f32. On
+CUDA tensors it launches the kernel's bf16 variant (counted as
+``decode_select_bf16``).
 
 Row layout: ``h0 (N, H)`` and ``gen_idx (N,)`` have a row per rollout;
 ``last_xy``, ``last_dxdy`` and ``social_feats`` have ``M`` rows with
@@ -32,7 +42,9 @@ from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.utils.pytree import tree_leaves
 
 KERNEL = "decode_select"
+KERNEL_BF16 = "decode_select_bf16"
 FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
+PACKED = ("w_emb", "w_hh", "b", "w1h", "w2", "b2")  # the folded weights, in order
 MAX_SHARED_BYTES = 232448  # per block on the H100, as dynamic shared memory
 
 
@@ -63,42 +75,104 @@ def pack_decoder_params(stacked, inp_format: str):
     }
 
 
+def is_bf16(compute_dtype) -> bool:
+    """True for ``torch.bfloat16``, False for None or ``torch.float32``
+    (the same arithmetic as None in the rollout kernels); raises otherwise."""
+    if compute_dtype in (None, torch.float32):
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"compute_dtype must be None, float32 or bfloat16, got {compute_dtype}")
+
+
 def social_bias(packed, social_feats):
     """``social @ W1_soc + b1`` for every generator: ``(M, G, hid)``.
     Constant over the rollout, so it is hoisted out of the kernel."""
     return torch.einsum("mf,gfh->mgh", social_feats, packed["w1s"]) + packed["b1"][None]
 
 
-def kernel_weights(packed):
-    """The kernel's shared-memory image: per generator ``whh [H][H][4]``,
-    ``wemb [in][H][4]``, ``b [H][4]``, ``w1 [H][hid]``, ``w2 [hid][2]``,
-    ``b2 [2]``, zero-padded to a multiple of 4 floats. Returns
-    ``(flat (G * per_gen,), per_gen)``."""
+def kernel_weights(packed, compute_dtype=None):
+    """The kernels' shared-memory image (``csrc/decoder_rollout.cuh``), per
+    generator. f32: ``whh [H][H][4]``, ``wemb [in][H][4]``, ``b [H][4]``,
+    ``w1 [H][hid]``, ``w2 [hid][2]``, ``b2 [2]``. bf16: ``whh``, ``wemb``
+    and ``w1`` in bf16, zero-padded to 8 values and held two to a float32
+    word, then ``b``, ``w2`` and ``b2`` in f32. Either is zero-padded to a
+    multiple of 4 words. Returns ``(flat float32 (G * per_gen,), per_gen)``.
+    """
     g, in_dim, four_h = packed["w_emb"].shape
     h = four_h // 4
     gate_last = lambda w: w.reshape(g, -1, 4, h).transpose(2, 3).reshape(g, -1)
-    parts = [
-        gate_last(packed["w_hh"]),
-        gate_last(packed["w_emb"]),
-        gate_last(packed["b"]),
-        packed["w1h"].reshape(g, -1),
-        packed["w2"].reshape(g, -1),
-        packed["b2"].reshape(g, -1),
-    ]
-    flat = torch.cat(parts, dim=1)
-    pad = -flat.shape[1] % 4
-    flat = F.pad(flat, (0, pad))
+    whh, wemb, bias = (gate_last(packed[k]) for k in ("w_hh", "w_emb", "b"))
+    w1, w2, b2 = (packed[k].reshape(g, -1) for k in ("w1h", "w2", "b2"))
+    if is_bf16(compute_dtype):
+        mats = torch.cat([whh, wemb, w1], dim=1).to(torch.bfloat16)
+        mats = F.pad(mats, (0, -mats.shape[1] % 8)).contiguous()
+        flat = torch.cat([mats.view(torch.float32), bias, w2, b2], dim=1)
+    else:
+        flat = torch.cat([whh, wemb, bias, w1, w2, b2], dim=1)
+    flat = F.pad(flat, (0, -flat.shape[1] % 4))
     return flat.contiguous().reshape(-1), flat.shape[1]
 
 
+def tile_rows(x, n):
+    """``(M, ...)`` -> ``(N, ...)`` with row n = row n % M."""
+    return x.repeat((n // x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def decoder_input(xy, nd, inp_format):
+    if inp_format == "rel":
+        return nd
+    if inp_format == "abs":
+        return xy
+    return torch.cat([xy, nd], dim=-1)
+
+
+def rollout_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
+                      last_dxdy, pred_len: int, inp_format: str,
+                      save_hc: bool = False, compute_dtype=None):
+    """The plain version of the rollout kernels: every generator's rollout
+    on every row, the arithmetic of ``common.relative_decoder_apply`` on the
+    folded weights, in f32 or with the bf16 rounding of the module note.
+
+    Returns ``(abs, rel, hc)``: abs/rel ``(G, N, T, 2)`` and, with
+    ``save_hc``, each step's h and c as ``(G, N, T, 2, H)`` (else None).
+    """
+    op = (lambda x: x.to(torch.bfloat16).float()) if is_bf16(compute_dtype) \
+        else (lambda x: x)
+    w_emb, w_hh, w1h = op(w_emb), op(w_hh), op(w1h)
+    g, n = w_hh.shape[0], h0.shape[0]
+    xy = tile_rows(last_xy, n)[None].expand(g, n, 2)
+    nd = tile_rows(last_dxdy, n)[None].expand(g, n, 2)
+    sb = tile_rows(socb, n).transpose(0, 1)  # (G, N, hid)
+    h = op(h0)[None].expand((g,) + tuple(h0.shape))
+    c = torch.zeros_like(h)
+    abs_seq, rel_seq, hc_seq = [], [], []
+    for _ in range(pred_len):
+        te = op(decoder_input(xy, nd, inp_format))
+        gates = torch.bmm(te, w_emb) + torch.bmm(h, w_hh) + b[:, None]
+        i, f, gg, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h = op(torch.sigmoid(o) * torch.tanh(c))
+        hid = op(F.leaky_relu(torch.bmm(h, w1h) + sb, 0.01))
+        nd = torch.bmm(hid, w2) + b2[:, None]
+        xy = xy + nd
+        abs_seq.append(xy)
+        rel_seq.append(nd)
+        if save_hc:
+            hc_seq.append(torch.stack([h, c], dim=2))
+    hc = torch.stack(hc_seq, dim=2) if save_hc else None
+    return torch.stack(abs_seq, 2), torch.stack(rel_seq, 2), hc
+
+
 def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
-                            gen_idx, pred_len: int, inp_format: str):
+                            gen_idx, pred_len: int, inp_format: str,
+                            compute_dtype=None):
     """Plain PyTorch version: all generators, then the per-row gather."""
-    n, m = h0.shape[0], last_xy.shape[0]
-    tile = lambda x: x.repeat(n // m, 1)
-    abs_g, rel_g = common.stacked_decoders_apply(
-        stacked, tile(last_xy), tile(last_dxdy), tile(social_feats), h0,
-        pred_len, inp_format,
+    n = h0.shape[0]
+    packed = pack_decoder_params(stacked, inp_format)
+    abs_g, rel_g, _ = rollout_reference(
+        *(packed[k] for k in PACKED), social_bias(packed, social_feats), h0,
+        last_xy, last_dxdy, pred_len, inp_format, compute_dtype=compute_dtype,
     )  # (G, N, T, 2)
     # as gather_samples' (K, G, S, P, T, 2) and (S, P, K) with K = S = 1
     idx = gen_idx.reshape(1, n, 1)
@@ -107,9 +181,9 @@ def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(bf16: bool):
     lib = build.load(KERNEL)
-    fn = lib.mggan_decode_select
+    fn = lib.mggan_decode_select_bf16 if bf16 else lib.mggan_decode_select
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
@@ -130,11 +204,13 @@ def check_arg(name, t, shape, dtype, device):
 
 
 def prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len: int,
-                    inp_format: str):
+                    inp_format: str, compute_dtype=None):
     """The weight image and checked row arguments every rollout kernel
     (K1, K2, K3) takes: ``{"tensors": (wpack, h0, socb, last_xy,
-    last_dxdy), "dims": (N, M, G, H, hid, in, T, format, per_gen)}``."""
-    wflat, per_gen = kernel_weights(packed)
+    last_dxdy), "dims": (N, M, G, H, hid, in, T, format, per_gen), "bf16":
+    whether wpack is the bf16 image}``."""
+    bf16 = is_bf16(compute_dtype)
+    wflat, per_gen = kernel_weights(packed, compute_dtype)
     g, in_dim, four_h = packed["w_emb"].shape
     h, hid = four_h // 4, packed["w1h"].shape[2]
     n, m = h0.shape[0], last_xy.shape[0]
@@ -156,24 +232,28 @@ def prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len: int,
     return {
         "tensors": (wflat, h0, socb, last_xy, last_dxdy),
         "dims": (n, m, g, h, hid, in_dim, pred_len, FORMATS[inp_format], per_gen),
+        "bf16": bf16,
     }
 
 
 def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
-                          gen_idx, pred_len: int, inp_format: str):
+                          gen_idx, pred_len: int, inp_format: str,
+                          compute_dtype=None):
     """Fold the weights, hoist ``socb`` and check every kernel argument.
     Returns the arguments of ``launch_decode_select``."""
     packed = pack_decoder_params(stacked, inp_format)
     socb = social_bias(packed, social_feats).contiguous()
-    args = prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len, inp_format)
+    args = prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len,
+                           inp_format, compute_dtype)
     check_arg("gen_idx", gen_idx, (h0.shape[0],), torch.int32, h0.device)
     args["tensors"] += (gen_idx,)
     return args
 
 
 def launch_decode_select(args):
-    """Launch the K1 kernel on the current stream with checked arguments
-    from ``prepare_decode_select``; returns ``(abs, rel)``."""
+    """Launch the K1 kernel (its f32 or bf16 variant, as the arguments
+    say) on the current stream with checked arguments from
+    ``prepare_decode_select``; returns ``(abs, rel)``."""
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
     dev = tensors[1].device
@@ -181,27 +261,28 @@ def launch_decode_select(args):
     out_rel = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out_abs, out_rel
-    fn, err_str = _kernel_fn()
+    fn, err_str = _kernel_fn(args["bf16"])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in tensors), out_abs.data_ptr(),
                 out_rel.data_ptr(), *dims, stream)
+    name = KERNEL_BF16 if args["bf16"] else KERNEL
     if rc:
-        raise RuntimeError(f"{KERNEL} launch failed: {err_str(rc).decode()} ({rc})")
-    kernels.launches[KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()} ({rc})")
+    kernels.launches[name] += 1
     return out_abs, out_rel
 
 
 def decode_select_cuda(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
-                       pred_len: int, inp_format: str):
+                       pred_len: int, inp_format: str, compute_dtype=None):
     """The K1 kernel's route; see the module note."""
     return launch_decode_select(prepare_decode_select(
         stacked, last_xy, last_dxdy, social_feats, h0, gen_idx, pred_len,
-        inp_format))
+        inp_format, compute_dtype))
 
 
 def decode_select(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
-                  pred_len: int, inp_format: str):
+                  pred_len: int, inp_format: str, compute_dtype=None):
     """Rollout of each row's sampled generator -> ``(abs, rel)``, each
     ``(N, pred_len, 2)``. CUDA tensors go to the kernel, CPU tensors to the
     plain version; there is no other route.
@@ -216,9 +297,10 @@ def decode_select(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
             "generators and gather (decode_select(..., fuse_select=False))")
     if h0.device.type == "cuda":
         return decode_select_cuda(stacked, last_xy, last_dxdy, social_feats,
-                                  h0, gen_idx, pred_len, inp_format)
+                                  h0, gen_idx, pred_len, inp_format,
+                                  compute_dtype)
     if h0.device.type == "cpu":
         return decode_select_reference(stacked, last_xy, last_dxdy,
                                        social_feats, h0, gen_idx, pred_len,
-                                       inp_format)
+                                       inp_format, compute_dtype)
     raise ValueError(f"decode_select: unsupported device {h0.device}")

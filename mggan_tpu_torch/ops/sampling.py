@@ -49,6 +49,17 @@ def categorical(logits, num_samples: int, *, generator=None, uniforms=None):
     return torch.movedim(idx, 0, -1).to(torch.int32)
 
 
+def selection_indices(sampled_idxs):
+    """Occurrence counters: ``out[..., k]`` = how many times
+    ``sampled_idxs[..., k]`` appeared earlier in the same row
+    (utils.py:234-248, vectorised), e.g. ``[1, 2, 3, 1] -> [0, 0, 0, 1]``."""
+    k = sampled_idxs.shape[-1]
+    same = sampled_idxs[..., :, None] == sampled_idxs[..., None, :]  # (..., k, k)
+    earlier = torch.ones((k, k), dtype=torch.bool,
+                         device=sampled_idxs.device).tril(diagonal=-1)
+    return (same & earlier).sum(-1).to(torch.int32)
+
+
 def gather_samples(decoded, gen_idxs):
     """Pick the sampled generator's rollout per (agent, sample).
 

@@ -51,3 +51,9 @@ def tree_global_norm(tree) -> torch.Tensor:
     for x in tree_leaves(tree):
         total = total + (x.float() ** 2).sum()
     return torch.sqrt(torch.as_tensor(total))
+
+
+def relative_to_abs(rel_traj, start_pos):
+    """Cumulative-sum integration (utils.py:70-83): ``rel_traj (..., T, 2)``
+    and ``start_pos (..., 2)`` -> absolute ``(..., T, 2)``."""
+    return torch.cumsum(rel_traj, dim=-2) + start_pos[..., None, :]

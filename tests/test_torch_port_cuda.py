@@ -110,3 +110,33 @@ def test_decode_all_bwd_weight_grads_are_bit_identical(cuda):
     second = _decode_all_grads(stacked, rows, "rel", cuda)[1]
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+BF16_ATOL = 2e-3  # bf16 operands: a rounding of h can flip between the card and the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format", ["rel", "abs", "abs_rel"])
+@pytest.mark.parametrize("h_dim", [32, 20])
+def test_bf16_kernels_match_reference(cuda, inp_format, h_dim):
+    """K1's and K2's bf16 variants against their bf16 plain versions, and
+    K1-bf16 equal to K2-bf16 on the selected rows bit for bit (one rollout
+    template, one arithmetic)."""
+    stacked, rows = _decode_all_case(inp_format, h_dim, seed=3)
+    idx = torch.from_numpy(np.random.RandomState(3).randint(0, 4, rows[3].shape[0])
+                           .astype(np.int32))
+    bf16 = torch.bfloat16
+    before = dict(kernels.launches)
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    sel = kdec.decode_select(*on, T, inp_format, compute_dtype=bf16)
+    every = kda.decode_all(*on[:5], T, inp_format, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    assert kernels.launches[kdec.KERNEL_BF16] == before.get(kdec.KERNEL_BF16, 0) + 1
+    assert kernels.launches[kda.KERNEL_FWD_BF16] == before.get(kda.KERNEL_FWD_BF16, 0) + 1
+    want_sel = kdec.decode_select_reference(stacked, *rows, idx, T, inp_format, bf16)
+    want_all = kda.decode_all(stacked, *rows, T, inp_format, compute_dtype=bf16)
+    for a, b in zip(sel + every, want_sel + want_all):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=BF16_ATOL)
+    rows_n = torch.arange(idx.shape[0], device=cuda)
+    for a, b in zip(sel, every):
+        assert torch.equal(a, b[idx.to(cuda).long(), rows_n])

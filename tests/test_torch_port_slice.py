@@ -25,6 +25,7 @@ from mggan_tpu.models import torch_export
 from mggan_tpu.serving.runtime import ServingModel as JaxServingModel
 
 from mggan_tpu_torch.config import Config
+from mggan_tpu_torch.data.augment import augment_batch
 from mggan_tpu_torch.eval.predict import Predictor
 from mggan_tpu_torch.models import factory
 from mggan_tpu_torch.models import generator
@@ -170,12 +171,14 @@ def test_port_imports_without_jax_or_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'mggan_tpu' or m.startswith('mggan_tpu.')]\n"
         "assert not bad, bad\n"
+        "for m in ('data.augment', 'data.loaders', 'eval.evaluate', 'eval.manifold', 'eval.metrics'):\n"
+        "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 25  # the data and eval modules included
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagship):
@@ -189,5 +192,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagsh
     cpu_pred = Predictor(cfg, spec, params, state, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingModel.from_predictor(cpu_pred, "sampling", 2, 3, 4)
-    with pytest.raises(NotImplementedError):
-        cpu_pred.get_predict_func("expected")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        cpu_pred.get_predict_func("nope")
+    batch = {"xy": np.zeros((1, 2, 20, 2), np.float32),
+             "big_patches": np.zeros((1, 2, 49, 49, 3), np.uint8)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        augment_batch(batch, train=False)
+    assert augment_batch(batch, train=False, device="cpu")["patches"].device.type == "cpu"
