@@ -37,7 +37,28 @@ Phases, in order; any failure exits nonzero before the result line:
   9. sampling at ``bench.py``'s batch (4,096 scenes x 16 peds, k=20)
      through ``Predictor.predict`` in f32 and in bf16, with K1's share of
      the device time;
- 10. a JSON line listing every ported kernel, then the result line
+ 10. ablation kernels: K4's route (``decode_select_sorted``) against its
+     plain version in the three input formats, with F=0 and with every row
+     on one generator, f32 (atol 1e-4) and bf16 (atol 4e-3) at 4,096 rows;
+     at 20,480 rows K5 and B1-f32 equal to K1 bit for bit (K5-bf16 to
+     K1-bf16), K5, B1 (f32, bf16, lin), K4's route and B2 against their
+     plain versions, each timed beside its plain version and its bound,
+     K4's route against K1;
+ 11. K3 after a bf16 forward at the PM step's 4,096 x 4 rows: K2-bf16's
+     saved (h, c) against the bf16 plain forward's (atol 4e-3, mean 1e-6,
+     h rounded to bf16, c not; the f32 forward's hc must fail), the whole
+     route (K2-bf16, then K3) against the plain forward and reverse sweep
+     and K3 alone against the plain sweep on the kernel's residuals (kink
+     rows, and rows where an h rounding flipped between the two forwards,
+     reported apart); the route after the f32 forward must fail those
+     limits; ``DecodeAll`` in bf16 gives K3's grads bit for bit;
+ 12. the ablation path, launch counts read around it: the entry points'
+     timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``, with each
+     kernel's resident warps per SM and bounds), K5 and B1-f32 equal to K1
+     bit for bit there, K4's route within 1e-4 of K1 (bf16: 4e-3 of
+     K1-bf16), a bf16 gradient of ``decode_all``; then B1-bf16, B1-lin and
+     B2 against their plain versions at those rows;
+ 13. a JSON line listing every ported kernel, then the result line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package ``mggan_tpu``.
@@ -112,6 +133,22 @@ EVAL_ATOL = 1e-4
 EVAL_BF16_METRIC_ATOL = 3e-6
 EVAL_BF16_PRED_ATOL = 2e-3
 EVAL_BF16_PRED_MEAN_ATOL = 1e-5
+
+# The ablation path (phases 10-12). B1-bf16 against its plain version:
+# hexp and __hdiv on the card against torch's exp and division on the same
+# bf16 values, and a summation order that moves a bf16 rounding; on an H100
+# 80GB HBM3 at 700 W it read 3.9e-4 at 20,480 rows, and K1 (f32
+# activations) against B1-bf16's plain version 4.4e-3 (PERF.md). Every run
+# checks that K1 lies beyond the limit.
+B1_BF16_ATOL = 2e-3
+# K2-bf16's saved (h, c) against the bf16 plain forward's (phase 11): a flip
+# of one h's bf16 rounding moves it by one bf16 step, up to 2^-8 (3.9e-3)
+# below 1, within BF16_ATOL; such flips are rare, and the mean abs
+# difference read 1.3e-8 on an H100 80GB HBM3 at 700 W, the f32 forward's
+# hc 1.6e-4 (PERF.md). Every run checks that the f32 forward's hc fails.
+HC_MEAN_ATOL = 1e-6
+ABL_ROWS = 20_480  # the ablation kernels against their plain versions
+SORTED_AGENTS, SORTED_K = 256, 16  # K4's route cases: 4,096 rows
 
 SEED = 0
 NUM = 20
@@ -227,6 +264,11 @@ def roofline_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes"), flops, nbytes
 
 
+def rollout_flops(n, t, h, hid, in_dim):
+    """The products of ``n`` single-generator rollouts of ``t`` steps."""
+    return n * t * (2 * (in_dim + h) * 4 * h + 2 * h * hid + 2 * hid * 2)
+
+
 def nbytes_of(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
@@ -236,16 +278,16 @@ def decode_select_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
     gate, hidden2pos and output products of the sampled generator."""
     tensors, dims = prepared["tensors"], prepared["dims"]
     n, _, _, h, hid, in_dim, t = dims[:7]
-    flops = n * t * (2 * (in_dim + h) * 4 * h + 2 * h * hid + 2 * hid * 2)
-    return roofline_ms(flops, nbytes_of(*tensors) + 2 * n * t * 2 * 4, peak_flops)
+    return roofline_ms(rollout_flops(n, t, h, hid, in_dim),
+                       nbytes_of(*tensors) + 2 * n * t * 2 * 4, peak_flops)
 
 
 def decode_all_bound_ms(prepared, outputs, peak_flops=PEAK_FP32_FLOPS):
     """K2's bound: the inputs read once, ``outputs`` (abs, rel and, when
     saved, hc) written once; K1's products for every (row, generator)."""
     n, _, g, h, hid, in_dim, t = prepared["dims"][:7]
-    flops = g * n * t * (2 * (in_dim + h) * 4 * h + 2 * h * hid + 2 * hid * 2)
-    return roofline_ms(flops, nbytes_of(*prepared["tensors"], *outputs), peak_flops)
+    return roofline_ms(rollout_flops(g * n, t, h, hid, in_dim),
+                       nbytes_of(*prepared["tensors"], *outputs), peak_flops)
 
 
 def decode_all_bwd_bound_ms(prepared, inputs, outputs):
@@ -341,6 +383,33 @@ def kink_rows(inputs, hc):
     return (pre + sb[:, :, None]).abs().amin(dim=(0, 2, 3)) < KINK
 
 
+def grad_errors(got_g, want_g, kink_n, kink_m):
+    """K3's grads (``DecodeAll``'s input order) against the plain sweep's:
+    weight grads by max abs error over max |grad|; per-row grads by
+    rtol/atol, elements of kink rows (``kink_n`` per rollout row,
+    ``kink_m`` per agent) counted apart."""
+    import torch
+
+    w_err, w_rel, row_err, row_bad, kink_bad, kink_err = 0.0, 0.0, 0.0, 0, 0, 0.0
+    for i, (a, w) in enumerate(zip(got_g, want_g)):
+        diff = (a - w).abs()
+        if i < 6:  # weight grads: sums over the rows
+            w_err = max(w_err, float(diff.max()))
+            w_rel = max(w_rel, float(diff.max() / w.abs().max().clamp_min(1e-30)))
+            continue
+        # per-row grads: d_socb, d_xy, d_dxdy per agent (M), d_h0 per row (N)
+        kink = (kink_n if i == 7 else kink_m).reshape((-1,) + (1,) * (diff.dim() - 1))
+        beyond = diff > GRAD_ATOL + GRAD_RTOL * w.abs()
+        row_err = max(row_err, float(torch.where(kink, 0.0, diff).max()))
+        kink_err = max(kink_err, float(torch.where(kink, diff, 0.0).max()))
+        row_bad += int((beyond & ~kink).sum())
+        kink_bad += int((beyond & kink).sum())
+    return {"weight_grad_max_abs_err": w_err, "weight_grad_err_over_max": w_rel,
+            "row_grad_max_abs_err": row_err, "row_elements_beyond": row_bad,
+            "kink_elements_beyond": kink_bad, "kink_max_abs_err": kink_err,
+            "ok": row_bad == 0 and w_rel <= WGRAD_REL}
+
+
 def phase_decode_all_kernels():
     """K2 and K3 against their plain versions on the card, timed, at the
     shapes of the train step's paths: a small case, the PM step's 4,096
@@ -392,20 +461,10 @@ def phase_decode_all_kernels():
         want_g = kda.decode_all_bwd_reference(*saved, 12, "rel")
         kink_n = kink_rows(inputs, hc)  # (N,) bool
         kink_m = kink_n.reshape(k, m).any(0)  # (M,) an agent with a kink row
-        w_err, w_rel, row_err, row_bad, kink_bad, kink_err = 0.0, 0.0, 0.0, 0, 0, 0.0
-        for i, (a, w) in enumerate(zip(got_g, want_g)):
-            diff = (a - w).abs()
-            if i < 6:  # weight grads: sums over the rows
-                w_err = max(w_err, float(diff.max()))
-                w_rel = max(w_rel, float(diff.max() / w.abs().max().clamp_min(1e-30)))
-                continue
-            # per-row grads: d_socb, d_xy, d_dxdy per agent (M), d_h0 per row (N)
-            kink = (kink_n if i == 7 else kink_m).reshape((-1,) + (1,) * (diff.dim() - 1))
-            beyond = diff > GRAD_ATOL + GRAD_RTOL * w.abs()
-            row_err = max(row_err, float(torch.where(kink, 0.0, diff).max()))
-            kink_err = max(kink_err, float(torch.where(kink, diff, 0.0).max()))
-            row_bad += int((beyond & ~kink).sum())
-            kink_bad += int((beyond & kink).sum())
+        ge = grad_errors(got_g, want_g, kink_n, kink_m)
+        w_err, w_rel = ge["weight_grad_max_abs_err"], ge["weight_grad_err_over_max"]
+        row_err, row_bad = ge["row_grad_max_abs_err"], ge["row_elements_beyond"]
+        kink_bad, kink_err = ge["kink_elements_beyond"], ge["kink_max_abs_err"]
         bms = cuda_time_ms(lambda: kda.launch_bwd(prepared, out_abs, out_rel, hc, g_abs,
                                                   g_rel), reps)
         plain_bms = cuda_time_ms(lambda: kda.decode_all_bwd_reference(*saved, 12, "rel"),
@@ -1040,6 +1099,433 @@ def phase_bench_sampling(reps=3):
     return out
 
 
+def sorted_tiles_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
+    """K4's kernel (B2): the buffer rows, tile generators and weights read
+    once, ``(n_buf, 2, T, 2)`` written once; per buffer row K1's products
+    and socb's."""
+    n_buf, _, feat, h, hid, in_dim, t = prepared["dims"][:7]
+    flops = rollout_flops(n_buf, t, h, hid, in_dim) + n_buf * 2 * feat * hid
+    return roofline_ms(flops, nbytes_of(*prepared["tensors"]) + n_buf * 4 * t * 4, peak_flops)
+
+
+def sorted_route_bound_ms(args, compute_dtype=None, peak_flops=PEAK_FP32_FLOPS):
+    """K4's route as a function: each row's h0, social features, xy, dxdy
+    and generator and the weights read once, abs and rel written once; per
+    row K1's products and socb's."""
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    stacked, xy, dxdy, soc, h0, idx, t, fmt = args
+    packed = kdec.pack_decoder_params(stacked, fmt)
+    n, h = h0.shape
+    g, in_dim, _ = packed["w_emb"].shape
+    hid, feat = packed["w1h"].shape[2], soc.shape[1]
+    weights = kdec.kernel_weights(packed, compute_dtype)[0]
+    flops = rollout_flops(n, t, h, hid, in_dim) + n * 2 * feat * hid
+    nbytes = nbytes_of(h0, soc, xy, dxdy, idx, weights, packed["w1s"], packed["b1"])
+    return roofline_ms(flops, nbytes + 2 * n * t * 2 * 4, peak_flops)
+
+
+def phase_ablation_kernels():
+    """The ablation path's kernels against their plain versions on the card
+    (launches here are not the path's): K4's route in the three input
+    formats, with F=0 and with every row on one generator, f32 and bf16;
+    then, on the benchmarks' inputs at ABL_ROWS rows, K5 and B1-f32 against
+    K1 bit for bit, each new kernel against its plain version and timed
+    beside it and its bound, K4's route against K1 and B2 on grouped rows."""
+    import torch
+
+    from mggan_tpu_torch.ablations import decode_ablation as dab
+    from mggan_tpu_torch.ablations import make_inputs
+    from mggan_tpu_torch.ablations import sorted_select_ablation as sab
+    from mggan_tpu_torch.models import common
+    from mggan_tpu_torch.ops.kernels import decode_ablation as kab
+    from mggan_tpu_torch.ops.kernels import decode_sorted as ks
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    bf16 = torch.bfloat16
+    on = lambda x: ({k: on(v) for k, v in x.items()} if isinstance(x, dict)
+                    else x.to("cuda"))
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    def compare(got, want, what):
+        check(all(bool(torch.isfinite(a).all()) for a in got), f"{what}: non-finite output")
+        diffs = [(a - b).abs() for a, b in zip(got, want)]
+        return max(float(d.max()) for d in diffs), max(float(d.mean()) for d in diffs)
+
+    cases = {}
+    for fmt, feat, skew in (("rel", 32, False), ("abs", 32, False), ("abs_rel", 32, False),
+                            ("rel", 0, False), ("rel", 32, True)):
+        m, n = SORTED_AGENTS, SORTED_AGENTS * SORTED_K
+        rand = lambda *shape: torch.randn(shape, generator=gen)
+        idx = (torch.full((n,), 2, dtype=torch.int32) if skew
+               else torch.randint(0, 4, (n,), generator=gen, dtype=torch.int32))
+        args = (on(common.stacked_decoders_init(gen, 4, 16, 32, fmt, feat)),
+                *map(on, (rand(m, 2) * 3.0, rand(m, 2) * 0.3, rand(m, feat), rand(n, 32), idx)),
+                12, fmt)
+        label = f"{fmt}, F={feat}" + (", every row on generator 2" if skew else "")
+        for cd, atol in ((None, KERNEL_ATOL), (bf16, BF16_ATOL)):
+            got = ks.decode_select_sorted(*args, compute_dtype=cd)
+            torch.cuda.synchronize()
+            want = ks.decode_select_sorted_reference(*args, compute_dtype=cd)
+            err = compare(got, want, f"decode_sorted {label}")[0]
+            cases[f"{label}, {'bf16' if cd else 'f32'}"] = err
+            print(f"decode_sorted route [{label}, {'bf16' if cd else 'f32'}] N={n}: max_abs_err "
+                  f"{err:.3e} against its plain version (atol {atol:g})")
+            check(err <= atol, f"decode_sorted {label}: max abs err {err:.3e} > {atol}")
+        if fmt == "rel" and feat and not skew:  # the wrong variant: the f32 route, bf16 plain
+            wrong = compare(ks.decode_select_sorted(*args),
+                            ks.decode_select_sorted_reference(*args, compute_dtype=bf16),
+                            "decode_sorted")[0]
+            cases["f32 route against the bf16 plain version"] = wrong
+            print(f"  the f32 route against the bf16 plain version: {wrong:.3e} (must exceed "
+                  f"{BF16_ATOL:g})")
+            check(wrong > BF16_ATOL, f"decode_sorted: the f32 route passes the bf16 limit")
+
+    inp = make_inputs(ABL_ROWS, SEED)
+    args, p32, p16 = dab.prepare(inp)
+    calls = dab.variants(inp)
+    k1, k1_bf16 = calls["kernel_select"](), calls["kernel_select_bf16"]()
+    torch.cuda.synchronize()
+    plain = {"f32": lambda: kdec.decode_select_reference(*args),
+             "bf16": lambda: kdec.decode_select_reference(*args, compute_dtype=bf16),
+             "act_bf16": lambda: kab.decode_select_act_reference(*args[:7], "bf16"),
+             "act_lin": lambda: kab.decode_select_act_reference(*args[:7], "lin")}
+    plain_out = {k: f() for k, f in plain.items()}
+    plain_ms = {k: cuda_time_ms(f, 4, warmup=1) for k, f in plain.items()}
+    b32, b16 = decode_select_bound_ms(p32), decode_select_bound_ms(p16, PEAK_BF16_FLOPS)
+    out = {}
+
+    def record(name, call, want_key, atol, bound, equal_to=None, **extra):
+        got = call()
+        torch.cuda.synchronize()
+        err, mean = compare(got, plain_out[want_key], name)
+        identical = None if equal_to is None else all(
+            torch.equal(a, b) for a, b in zip(got, equal_to))
+        ms = cuda_time_ms(call, 20)
+        out[name] = {"n_rows": ABL_ROWS, "max_abs_err": err, "mean_abs_err": mean,
+                     "atol": atol, "ms": ms, "plain_ms": plain_ms[want_key],
+                     "bound_ms": bound[0], "bound_by": bound[1], **extra}
+        if identical is not None:
+            out[name]["equals_k1_bit_for_bit"] = identical
+        print(f"{name} N={ABL_ROWS}: max_abs_err {err:.3e} (mean {mean:.3e}; atol {atol:g})"
+              + ("" if identical is None else f", equal to K1 bit for bit: {identical}")
+              + f"; kernel {ms:.4f} ms, plain {plain_ms[want_key]:.3f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]}, library_ms null")
+        check(err <= atol, f"{name}: max abs err {err:.3e} > {atol}")
+        check(identical is not False, f"{name} differs from K1")
+        return got
+
+    fp32_fma = lambda b: {"bound_ms_fp32_fma": b[0]}
+    record("decode_select_ilp", calls["kernel_ilp"], "f32", KERNEL_ATOL, b32, k1)
+    record("decode_select_ilp_bf16", calls["kernel_ilp_bf16"], "bf16", BF16_ATOL, b16, k1_bf16,
+           **fp32_fma(b32))
+    record("decode_select_act_f32", calls["kernel_f32"], "f32", KERNEL_ATOL, b32, k1)
+    act16 = record("decode_select_act_bf16", calls["kernel_bf16"], "act_bf16", B1_BF16_ATOL, b32)
+    # the wrong variant: B1-f32 (K1) against B1-bf16's plain version
+    wrong = compare(k1, plain_out["act_bf16"], "decode_select")
+    out["decode_select_act_bf16"]["f32_kernel_vs_bf16_plain"] = {"max": wrong[0], "mean": wrong[1]}
+    print(f"  K1 against B1-bf16's plain version: max {wrong[0]:.3e}, mean {wrong[1]:.3e} "
+          f"(must exceed {B1_BF16_ATOL:g}); B1-bf16 kernel against K1: "
+          f"{compare(act16, k1, 'b1')[0]:.3e}")
+    check(wrong[0] > B1_BF16_ATOL, "K1 passes B1-bf16's limit")
+    record("decode_select_act_lin", calls["kernel_lin"], "act_lin", KERNEL_ATOL, b32)
+
+    # K4's route and B2 at ABL_ROWS rows
+    for name, cd, atol, k1_out in (("decode_sorted", None, KERNEL_ATOL, k1),
+                                   ("decode_sorted_bf16", bf16, BF16_ATOL, k1_bf16)):
+        call = lambda cd=cd: ks.decode_select_sorted(*args, compute_dtype=cd)
+        want = ks.decode_select_sorted_reference(*args, compute_dtype=cd)
+        plain_out[name] = want
+        plain_ms[name] = cuda_time_ms(
+            lambda cd=cd: ks.decode_select_sorted_reference(*args, compute_dtype=cd), 4, warmup=1)
+        bound = (sorted_route_bound_ms(args, cd, PEAK_BF16_FLOPS) if cd
+                 else sorted_route_bound_ms(args))
+        extra = {"bound_ms_fp32_fma": sorted_route_bound_ms(args, cd)[0]} if cd else {}
+        got = record(name, call, name, atol, bound, **extra)
+        vs_k1 = compare(got, k1_out, name)[0]
+        out[name]["vs_k1_max_abs"] = vs_k1
+        print(f"  {name} route against K1{'-bf16' if cd else ''} on the same draws: {vs_k1:.3e} "
+              f"(atol {atol:g})")
+        check(vs_k1 <= atol, f"{name}: the route and K1 differ by {vs_k1:.3e}")
+    packed, rows, tile_gen, prep = sab.grouped_tiles(inp)
+    tiles_plain = lambda: (ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, rows, 32, 32,
+                                                     12, "rel"),)
+    plain_out["sorted_tiles"] = tiles_plain()
+    plain_ms["sorted_tiles"] = cuda_time_ms(tiles_plain, 4, warmup=1)
+    record("sorted_tiles", lambda: (ks.launch_sorted_tiles(prep),), "sorted_tiles",
+           KERNEL_ATOL, sorted_tiles_bound_ms(prep))
+    del inp, calls, plain_out, k1, k1_bf16
+    torch.cuda.empty_cache()
+    return {"sorted_route_cases": cases, "kernels": out}
+
+
+def hc_checks(got, want):
+    """K2-bf16's (abs, rel, hc) against the bf16 plain forward's: max abs
+    error, hc's max and mean abs error, whether every saved h is a bf16
+    value and the share of saved c that is one (an f32 c lands on a bf16
+    value about once in 2^16); ``ok`` if all lie within their limits."""
+    import torch
+
+    h, c = got[2][..., 0, :], got[2][..., 1, :]
+    r = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+         "hc_max_abs_err": float((got[2] - want[2]).abs().max()),
+         "hc_mean_abs_err": float((got[2] - want[2]).abs().mean()),
+         "h_is_bf16": bool(torch.equal(h, h.to(torch.bfloat16).float())),
+         "c_bf16_share": float((c == c.to(torch.bfloat16).float()).float().mean())}
+    r["ok"] = (r["max_abs_err"] <= BF16_ATOL and r["hc_mean_abs_err"] <= HC_MEAN_ATOL
+               and r["h_is_bf16"] and r["c_bf16_share"] < 0.01)
+    return r
+
+
+def phase_bf16_backward():
+    """K3 after K2-bf16 at the PM step's rows (4,096 x 4). K2-bf16's saved
+    (h, c) against the bf16 plain forward's (h rounded to bf16, c in f32;
+    the f32 forward's must fail); the whole route (K2-bf16 saving hc, then
+    K3) against the plain forward and reverse sweep (kink rows, and rows
+    where an h rounding flipped between the two forwards, reported apart
+    as in phase 3), and K3 alone against the plain sweep on the kernel's
+    residuals; the route on the f32 forward's residuals must fail those
+    limits; ``DecodeAll`` in bf16 under autograd gives K3's grads bit for
+    bit."""
+    import torch
+
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 5)
+    m = TRAIN_SCENES * PEDS
+    inputs = decode_all_case(m, 1, gen)
+    p16, p32 = kda.prepare(*inputs, 12, "rel", bf16), kda.prepare(*inputs, 12, "rel")
+    out16 = kda.launch_fwd(p16, save_hc=True)
+    out32 = kda.launch_fwd(p32, save_hc=True)
+    torch.cuda.synchronize()
+    plain16 = kda.decode_all_reference(*inputs, 12, "rel", save_hc=True, compute_dtype=bf16)
+    fwd, fwd_wrong = hc_checks(out16, plain16), hc_checks(out32, plain16)
+    cot = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g_abs = torch.randn(out16[0].shape, generator=cot, device="cuda")
+    g_rel = torch.randn(out16[1].shape, generator=cot, device="cuda")
+    after = kda.KERNEL_BWD_AFTER_BF16
+    got = kda.decode_all_bwd(*inputs, *out16, g_abs, g_rel, 12, "rel", after)
+    wrong = kda.decode_all_bwd(*inputs, *out32, g_abs, g_rel, 12, "rel")
+    torch.cuda.synchronize()
+    want = kda.decode_all_bwd_reference(*inputs, *plain16, g_abs, g_rel, 12, "rel")
+    want_k3 = kda.decode_all_bwd_reference(*inputs, *out16, g_abs, g_rel, 12, "rel")
+    kink_n = kink_rows(inputs, out16[2]) | kink_rows(inputs, plain16[2])
+    # rows where an h rounding flipped between the two forwards: other
+    # residuals, so against the plain route their per-row grads are
+    # reported apart, as kink rows are
+    flip_n = (out16[2][..., 0, :] != plain16[2][..., 0, :]).flatten(2).any(-1).any(0)
+    apart = kink_n | flip_n
+    ge, ge_wrong = (grad_errors(x, want, apart, apart) for x in (got, wrong))
+    ge_k3 = grad_errors(got, want_k3, kink_n, kink_n)
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    a, r = kda.DecodeAll.apply(*leaves, 12, "rel", bf16)
+    route = torch.autograd.grad((a * g_abs).sum() + (r * g_rel).sum(), leaves)
+    identical = all(torch.equal(x, y) for x, y in zip(route, got))
+    raw = kda.launch_bwd(p32, *out16, g_abs, g_rel, after)
+    ms = cuda_time_ms(lambda: kda.launch_bwd(p32, *out16, g_abs, g_rel, after), 20)
+    plain_ms = cuda_time_ms(lambda: kda.decode_all_bwd_reference(
+        *inputs, *out16, g_abs, g_rel, 12, "rel"), 4, warmup=1)
+    bound = decode_all_bwd_bound_ms(p32, (*out16, g_abs, g_rel), raw)
+    drop_ok = lambda d: {k: v for k, v in d.items() if k != "ok"}
+    res = {"n_rows": m, **drop_ok(ge),
+           "max_abs_err": max(ge["weight_grad_max_abs_err"], ge["row_grad_max_abs_err"]),
+           "kink_rows": int(kink_n.sum()), "flip_rows": int(flip_n.sum()),
+           "forward_vs_plain": fwd,
+           "f32_forward_vs_plain": fwd_wrong, "k3_on_kernel_residuals": drop_ok(ge_k3),
+           "f32_forward": drop_ok(ge_wrong),
+           "route_equals_k3_bit_for_bit": identical, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound[0], "bound_by": bound[1]}
+    print(f"decode_all_fwd_bf16 saving hc N={m} x G=4: (abs, rel, hc) max_abs_err "
+          f"{fwd['max_abs_err']:.3e} (hc {fwd['hc_max_abs_err']:.3e}; atol {BF16_ATOL:g}), hc "
+          f"mean {fwd['hc_mean_abs_err']:.3e} (limit {HC_MEAN_ATOL:g}), saved h all bf16 "
+          f"values: {fwd['h_is_bf16']}, share of saved c on bf16 values "
+          f"{fwd['c_bf16_share']:.2e}; the f32 forward's hc against the bf16 plain version: "
+          f"max {fwd_wrong['hc_max_abs_err']:.3e}, mean {fwd_wrong['hc_mean_abs_err']:.3e}, "
+          f"h all bf16 values: {fwd_wrong['h_is_bf16']} (must fail)")
+    print(f"decode_all_bwd_after_bf16 N={m} x G=4, the route against the plain route: per-row "
+          f"grads max_abs_err {ge['row_grad_max_abs_err']:.3e} ({ge['row_elements_beyond']} "
+          f"beyond rtol/atol {GRAD_RTOL:g}); {res['kink_rows']} kink rows and "
+          f"{res['flip_rows']} rows with a flipped h rounding, {ge['kink_elements_beyond']} "
+          f"elements beyond there, max {ge['kink_max_abs_err']:.3e}; "
+          f"weight grads {ge['weight_grad_err_over_max']:.2e} x max|grad| (limit {WGRAD_REL:g}); "
+          f"K3 alone on the kernel's residuals: per-row {ge_k3['row_grad_max_abs_err']:.3e} "
+          f"({ge_k3['row_elements_beyond']} beyond), weight grads "
+          f"{ge_k3['weight_grad_err_over_max']:.2e} x max|grad|; the f32 forward's grads: "
+          f"{ge_wrong['row_elements_beyond']} per-row elements beyond, weight grads "
+          f"{ge_wrong['weight_grad_err_over_max']:.2e} x max|grad| (must fail); DecodeAll bf16 "
+          f"route equals K3 bit for bit: {identical}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]}, library_ms null")
+    check(fwd["ok"], f"decode_all_fwd_bf16 saving hc: {fwd}")
+    check(fwd_wrong["hc_mean_abs_err"] > HC_MEAN_ATOL and not fwd_wrong["h_is_bf16"],
+          f"the f32 forward's hc passes the bf16 forward's checks: {fwd_wrong}")
+    check(ge["ok"], f"decode_all_bwd_after_bf16 against the plain route: {ge}")
+    check(ge_k3["ok"], f"decode_all_bwd_after_bf16 on the kernel's residuals: {ge_k3}")
+    check(not ge_wrong["ok"], "K3 after the f32 forward passes the bf16 backward's limits")
+    check(identical, "DecodeAll in bf16 does not give K3's grads on the bf16 residuals")
+    return res
+
+
+def phase_ablation_path(reps=5):
+    """The decoder ablation path, launch counts read around it: the two
+    entry points' timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``),
+    K5 and B1-f32 equal to K1 bit for bit there (K5-bf16 to K1-bf16), K4's
+    route within KERNEL_ATOL of K1 and its bf16 route within BF16_ATOL of
+    K1-bf16, and a bf16 gradient of ``decode_all`` at the PM step's rows
+    (K2-bf16, then K3 in f32). Then, outside the counts, B1-bf16, B1-lin
+    and B2 against their plain versions at those rows."""
+    import torch
+
+    from mggan_tpu_torch.ablations import N, decode_ablation as dab, make_inputs
+    from mggan_tpu_torch.ablations import sorted_select_ablation as sab
+    from mggan_tpu_torch.models import common
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.ops.kernels import decode_ablation as kab
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decode_sorted as ks
+    from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+    inp = make_inputs(N, SEED)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    m = TRAIN_SCENES * PEDS
+    stacked = tree_map(lambda x: x.cuda(), common.stacked_decoders_init(gen, 4, 16, 32, "rel", 32))
+    leaves = [x.requires_grad_() for x in tree_leaves(stacked)]
+    rows = [torch.randn(s, generator=gen).cuda() for s in ((m, 2), (m, 2), (m, 32), (m, 32))]
+    torch.cuda.synchronize()
+
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    dec_ms = dab.run(inp, reps)
+    sort_ms = sab.run(inp, reps)
+    calls = dab.variants(inp)
+    k1, k1_bf16 = calls["kernel_select"](), calls["kernel_select_bf16"]()
+    equal = {name: all(torch.equal(a, b) for a, b in zip(calls[name](), ref))
+             for name, ref in (("kernel_ilp", k1), ("kernel_f32", k1),
+                               ("kernel_ilp_bf16", k1_bf16))}
+    route = ks.decode_select_sorted(*sab.route_args(inp))
+    route16 = ks.decode_select_sorted(*sab.route_args(inp), compute_dtype=torch.bfloat16)
+    vs_k1 = max(float((a - b).abs().max()) for a, b in zip(route, k1))
+    vs_k1_bf16 = max(float((a - b).abs().max()) for a, b in zip(route16, k1_bf16))
+    a, r = kda.decode_all(stacked, rows[0], rows[1] * 0.3, rows[2], rows[3], 12, "rel",
+                          compute_dtype=torch.bfloat16)
+    grads = torch.autograd.grad(a.sum() + (r * r).sum(), leaves)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    warps = {**dab.resident_warps(inp),
+             **{f"sorted_{k}": v for k, v in sab.resident_warps(inp).items()}}
+    args, p32, p16 = dab.prepare(inp)
+    packed, grouped, tile_gen, tiles = sab.grouped_tiles(inp)
+    # B1-bf16, B1-lin and B2 against their plain versions at these rows
+    # (after the counts were read: these launches are not the path's)
+    at_n = {}
+    for name, call, plain, atol in (
+            ("kernel_bf16", calls["kernel_bf16"],
+             lambda: kab.decode_select_act_reference(*args[:7], "bf16"), B1_BF16_ATOL),
+            ("kernel_lin", calls["kernel_lin"],
+             lambda: kab.decode_select_act_reference(*args[:7], "lin"), KERNEL_ATOL),
+            ("kernel_only", lambda: (ks.launch_sorted_tiles(tiles),),
+             lambda: (ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, grouped, 32, 32, 12,
+                                                "rel"),), KERNEL_ATOL)):
+        got, want = call(), plain()
+        at_n[name] = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                      "atol": atol}
+        if name == "kernel_bf16":  # K1 must lie beyond B1-bf16's limit here too
+            at_n[name]["k1_vs_plain"] = max(float((a - b).abs().max())
+                                            for a, b in zip(k1, want))
+        del got, want
+    bounds = {"kernel_select": decode_select_bound_ms(p32),
+              "kernel_select_bf16": decode_select_bound_ms(p16, PEAK_BF16_FLOPS),
+              "kernel_only": sorted_tiles_bound_ms(tiles),
+              "route": sorted_route_bound_ms(args),
+              "route_bf16": sorted_route_bound_ms(args, torch.bfloat16, PEAK_BF16_FLOPS)}
+    bounds = {k: {"bound_ms": v[0], "bound_by": v[1]} for k, v in bounds.items()}
+    print(f"ablation path launches ({secs:.2f} s): {json.dumps(launches)}")
+    print("DECODEABL " + json.dumps({"rows": N, "ms": dec_ms, "warps_per_sm": warps}))
+    print("SORTEDPARTS " + json.dumps({"rows": N, "ms": sort_ms}))
+    print(f"ablation path at {N} rows: K5 == K1 {equal['kernel_ilp']}, B1-f32 == K1 "
+          f"{equal['kernel_f32']}, K5-bf16 == K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
+          f"against K1 {vs_k1:.3e} (atol {KERNEL_ATOL:g}), its bf16 route against K1-bf16 "
+          f"{vs_k1_bf16:.3e} (atol {BF16_ATOL:g}); bounds {json.dumps(bounds)}; "
+          f"bf16 decode_all grads finite {grads_finite}")
+    print(f"at {N} rows against their plain versions: {json.dumps(at_n)} (B1-bf16's "
+          f"k1_vs_plain must exceed {B1_BF16_ATOL:g})")
+    for name, same in equal.items():
+        check(same, f"ablation path: {name} differs from K1 at {N} rows")
+    check(vs_k1 <= KERNEL_ATOL, f"ablation path: K4's route and K1 differ by {vs_k1:.3e}")
+    check(vs_k1_bf16 <= BF16_ATOL,
+          f"ablation path: K4's bf16 route and K1-bf16 differ by {vs_k1_bf16:.3e}")
+    for name, r in at_n.items():
+        check(r["max_abs_err"] <= r["atol"], f"ablation path: {name} at {N} rows: {r}")
+    check(at_n["kernel_bf16"]["k1_vs_plain"] > B1_BF16_ATOL,
+          f"ablation path: K1 passes B1-bf16's limit at {N} rows")
+    check(grads_finite, "ablation path: non-finite bf16 grads")
+    del inp, calls, k1, k1_bf16, route, route16, args, p32, p16, packed, grouped, tiles
+    torch.cuda.empty_cache()
+    return {"rows": N, "seconds": secs, "launches": launches, "decodeabl_ms": dec_ms,
+            "sortedparts_ms": sort_ms, "warps_per_sm": warps, "bounds_1310720": bounds,
+            "equal_to_k1": equal, "route_vs_k1_max_abs": vs_k1,
+            "route_bf16_vs_k1_bf16_max_abs": vs_k1_bf16, "against_plain": at_n}
+
+
+def ablation_entries(checks, bwd16, path, by_path):
+    """The kernels line's entries of the ablation path's kernels."""
+    dec_ms, sort_ms, warps = path["decodeabl_ms"], path["sortedparts_ms"], path["warps_per_sm"]
+    bounds = path["bounds_1310720"]
+    no_library = ("no single PyTorch call runs a rollout that feeds back its own output")
+    table = (
+        # name, source, replaces, DECODEABL/SORTEDPARTS key, bounds key
+        ("decode_select_ilp", "decode_select.cu", "mggan_tpu/ops/pallas/decoder.py:199",
+         ("decodeabl", "kernel_ilp"), "kernel_select"),
+        ("decode_select_ilp_bf16", "decode_select.cu",
+         "mggan_tpu/ops/pallas/decoder.py:199 (compute_dtype=bfloat16)",
+         ("decodeabl", "kernel_ilp_bf16"), "kernel_select_bf16"),
+        ("decode_select_act_f32", "decode_ablation.cu", "benchmarks/decode_ablation.py:39 (f32)",
+         ("decodeabl", "kernel_f32"), "kernel_select"),
+        ("decode_select_act_bf16", "decode_ablation.cu",
+         "benchmarks/decode_ablation.py:39 (bf16)", ("decodeabl", "kernel_bf16"),
+         "kernel_select"),
+        ("decode_select_act_lin", "decode_ablation.cu", "benchmarks/decode_ablation.py:39 (lin)",
+         ("decodeabl", "kernel_lin"), "kernel_select"),
+        ("decode_sorted", "decode_sorted.cu", "mggan_tpu/ops/pallas/decoder.py:353",
+         ("sortedparts", "route"), "route"),
+        ("decode_sorted_bf16", "decode_sorted.cu",
+         "mggan_tpu/ops/pallas/decoder.py:353 (compute_dtype=bfloat16)",
+         ("sortedparts", "route_bf16"), "route_bf16"),
+        ("sorted_tiles", "decode_sorted.cu", "benchmarks/sorted_select_ablation.py:77",
+         ("sortedparts", "kernel_only"), "kernel_only"),
+    )
+    warps_key = {"route": "sorted_kernel_only", "route_bf16": "sorted_route_bf16",
+                 "kernel_only": "sorted_kernel_only"}
+    entries = []
+    for name, source, replaces, (line, key), bkey in table:
+        r = checks["kernels"][name]
+        ms_1m = (dec_ms if line == "decodeabl" else sort_ms)[key]
+        entries.append({
+            "name": name, "status": "ported (ablation path)", "route": "cuda",
+            "source": f"mggan_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": sum(by_path(name).values()), "launches_by_path": by_path(name),
+            **{k: v for k, v in r.items()},
+            "library_ms": None, "library_note": no_library,
+            "bench_shape": {"n_rows": path["rows"], "ms": ms_1m, **bounds[bkey],
+                            "warps_per_sm": warps[warps_key.get(key, key)],
+                            **path["against_plain"].get(key, {})},
+        })
+    entries.append({
+        "name": "decode_all_bwd_after_bf16", "status": "ported (ablation path)",
+        "route": "cuda", "source": "mggan_tpu_torch/csrc/decode_all.cu",
+        "replaces": "mggan_tpu/ops/pallas/decoder.py:696 (via _vjp_bwd :968 after _vjp_fwd "
+                    ":955 with compute_dtype=bfloat16)",
+        "launches": sum(by_path("decode_all_bwd_after_bf16").values()),
+        "launches_by_path": by_path("decode_all_bwd_after_bf16"),
+        **bwd16, "rtol": GRAD_RTOL, "atol": GRAD_ATOL, "weight_grad_rel": WGRAD_REL,
+        "library_ms": None, "library_note": no_library,
+    })
+    return entries
+
+
 def kernel_entries(kern, fwd, bwd, sel16, all16, paths):
     """The kernels line: one entry per ported kernel with its launches on
     each main path (``paths``: path -> launch counts) and the numbers
@@ -1146,6 +1632,9 @@ def main():
     sel16, all16 = phase_bf16_kernels()
     evaluation = phase_eval()
     bench = phase_bench_sampling()
+    abl_checks = phase_ablation_kernels()
+    bwd16 = phase_bf16_backward()
+    abl_path = phase_ablation_path()
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -1154,8 +1643,11 @@ def main():
 
     paths = {"serving": serving_launches, "train": train["launches"],
              **{f"eval_{mode}": r["launches"] for mode, r in evaluation["runs"].items()},
-             **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()}}
+             **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()},
+             "ablation": abl_path["launches"]}
+    by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths)
+    entries += ablation_entries(abl_checks, bwd16, abl_path, by_path)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was launched on no main path")
     print(json.dumps({
@@ -1170,6 +1662,8 @@ def main():
         "profile_train_step": {k: v for k, v in profile_train.items() if k != "by_name_ms"},
         "eval": evaluation,
         "bench_sampling": bench,
+        "ablation": {"sorted_route_cases": abl_checks["sorted_route_cases"],
+                     "path": {k: v for k, v in abl_path.items() if k != "launches"}},
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -7,8 +7,11 @@
 // For training it also stores each step's h and c as hc (G, N, T, 2, H), the
 // residuals K3 recomputes the gates from. Its bf16 variant
 // (mggan_decode_all_fwd_bf16, the TPU kernel's compute_dtype=bfloat16) runs
-// the same template on the bf16 weight image, forward only (no hc): no path
-// trains in bf16.
+// the same template on the bf16 weight image and may save hc too: h as the
+// bf16-rounded value the next step's product reads (in f32), c in f32, as
+// _fwd_kernel saves h.astype(f32) after .astype(compute_dtype). K3 then
+// sweeps in f32 on the f32 weights from those residuals, as _vjp_bwd does
+// after a bf16 forward.
 //
 // K3 replaces decoder.py::_bwd_kernel (via _decode_bwd and _vjp_bwd). From
 // the saved hc and outputs and the output cotangents g_abs/g_rel it sweeps
@@ -109,10 +112,7 @@ decode_all_fwd_kernel(const float* __restrict__ wpack,
                       int hid_dim, int in_dim, int pred_len, int fmt, int per_gen) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int total4 = num_gens * per_gen / 4;
-  const float4* wpack4 = reinterpret_cast<const float4*>(wpack);
-  for (int i = threadIdx.x; i < total4; i += blockDim.x) smem4[i] = wpack4[i];
-  __syncthreads();
+  stage_weights(smem4, wpack, num_gens * per_gen);
 
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -384,16 +384,10 @@ int launch_fwd(const void* wpack, const void* h0, const void* socb, const void* 
   const size_t smem = (size_t)num_gens * per_gen * sizeof(float);
   cudaError_t err = allow_smem(decode_all_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, decode_all_fwd_kernel<T>, kFwdThreads, smem)) != cudaSuccess)
+  long long blocks = 0;
+  if ((err = persistent_blocks(decode_all_fwd_kernel<T>, kFwdThreads, smem, n_rows * num_gens,
+                               &blocks)) != cudaSuccess)
     return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long warps = kFwdThreads / 32;
-  long long blocks = (n_rows * num_gens + warps - 1) / warps;
-  const long long resident = (long long)sms * per_sm;
-  if (blocks > resident) blocks = resident;
   decode_all_fwd_kernel<T><<<(unsigned)blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
       (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
       (const float*)dxdy0, (float*)out_abs, (float*)out_rel, (float*)hc,
@@ -429,13 +423,13 @@ int mggan_decode_all_fwd(const void* wpack, const void* h0, const void* socb,
                            per_gen, stream);
 }
 
-// K2 with the bf16 weight image (compute_dtype=bfloat16), forward only: no hc.
+// K2 with the bf16 weight image (compute_dtype=bfloat16); hc may be null.
 int mggan_decode_all_fwd_bf16(const void* wpack, const void* h0, const void* socb,
                               const void* xy0, const void* dxdy0, void* out_abs,
-                              void* out_rel, long long n_rows, long long m_rows,
+                              void* out_rel, void* hc, long long n_rows, long long m_rows,
                               int num_gens, int h_dim, int hid_dim, int in_dim,
                               int pred_len, int fmt, int per_gen, void* stream) {
-  return launch_fwd<__nv_bfloat16>(wpack, h0, socb, xy0, dxdy0, out_abs, out_rel, nullptr,
+  return launch_fwd<__nv_bfloat16>(wpack, h0, socb, xy0, dxdy0, out_abs, out_rel, hc,
                                    n_rows, m_rows, num_gens, h_dim, hid_dim, in_dim,
                                    pred_len, fmt, per_gen, stream);
 }

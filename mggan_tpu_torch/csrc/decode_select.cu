@@ -44,12 +44,22 @@
 // shared-memory bandwidth: every row re-reads its generator's weights every
 // step (about 17 KB per row-step at H=32), because rows of one warp belong
 // to one row only and rows next to each other have different generators.
-// Grouping rows by generator so a warp can reuse each weight load over
-// several rows is the next step (K4's idea); it is left for a later change.
+// Grouping rows by generator is K4 (decode_sorted.cu: a block holds one
+// generator's weights for a tile of rows sorted by generator); reusing each
+// weight load over several rows of a warp, or the tensor cores on such
+// groups, is the step after it.
 // The bf16 variant reads half the weight bytes per row-step but does the
 // same fp32 FMAs on converted operands, plus the conversions: bound by the
 // same pipes. Its products on the tensor cores (bf16, 989 TFLOP/s) would
 // need rows grouped by generator first, as above.
+//
+// K5 (mggan_decode_select_ilp, _bf16) replaces _fwd_select_kernel_ilp
+// (pallas_decode_select(ilp=True)): the same function, with one warp
+// advancing two rows at once (decoder_rollout.cuh::rollout_row2), so each
+// step's shuffles, shared-memory loads and FMAs of one row fill the other's
+// latency. Each row keeps K1's operations in K1's order, so the output is
+// bit-identical to K1's; with an odd N the last pair has one row. If K5 is
+// faster than K1, K1 is bound by latency rather than by an issue pipe.
 
 #include "decoder_rollout.cuh"
 
@@ -76,56 +86,99 @@ decode_select_kernel(const float* __restrict__ wpack,
                      int hid_dim, int in_dim, int pred_len, int fmt,
                      int per_gen) {
   extern __shared__ float4 smem4[];
+  const Layout L(h_dim, hid_dim, in_dim, pred_len, fmt);
+  select_rows<T>(smem4, wpack, h0, socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows, m_rows,
+                 num_gens, L, per_gen);
+}
+
+// K5: K1 with a warp per pair of rows (2p, 2p + 1). A pair whose second row
+// is missing (odd N) or has no generator runs its rows one by one through
+// rollout_row, the same arithmetic. A warp holds two rows' state, so it may
+// take twice K1's registers (one block of 16 warps an SM instead of two):
+// the rows in flight per SM stay K1's 32, now two to a warp.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_select_ilp_kernel(const float* __restrict__ wpack, const float* __restrict__ h0,
+                         const float* __restrict__ socb, const float* __restrict__ xy0,
+                         const float* __restrict__ dxdy0, const int32_t* __restrict__ idx,
+                         float* __restrict__ out_abs, float* __restrict__ out_rel,
+                         int64_t n_rows, int64_t m_rows, int num_gens, int h_dim,
+                         int hid_dim, int in_dim, int pred_len, int fmt, int per_gen) {
+  extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int total4 = num_gens * per_gen / 4;
-  const float4* wpack4 = reinterpret_cast<const float4*>(wpack);
-  for (int i = threadIdx.x; i < total4; i += blockDim.x) smem4[i] = wpack4[i];
-  __syncthreads();
+  stage_weights(smem4, wpack, num_gens * per_gen);
 
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const Layout L(h_dim, hid_dim, in_dim, pred_len, fmt);
   const float nan = __int_as_float(0x7fc00000);
+  const int64_t n_pairs = (n_rows + 1) / 2;
 
-  for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5);
-       row < n_rows; row += (int64_t)gridDim.x * warps) {
-    const int g = idx[row];
-    const int64_t m = row % m_rows;
-    float* abs_row = out_abs + row * pred_len * 2;
-    float* rel_row = out_rel + row * pred_len * 2;
-    if (g < 0 || g >= num_gens) {  // no generator selected: poison the row
-      for (int q = lane; q < pred_len * 2; q += 32) {
-        abs_row[q] = nan;
-        rel_row[q] = nan;
+  for (int64_t pair = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5);
+       pair < n_pairs; pair += (int64_t)gridDim.x * warps) {
+    int64_t row[2] = {2 * pair, 2 * pair + 1};
+    int g[2];
+    bool live[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      g[r] = row[r] < n_rows ? idx[row[r]] : -1;
+      live[r] = g[r] >= 0 && g[r] < num_gens;
+      if (row[r] < n_rows && !live[r]) {  // no generator selected: poison the row
+        for (int q = lane; q < pred_len * 2; q += 32) {
+          out_abs[row[r] * pred_len * 2 + q] = nan;
+          out_rel[row[r] * pred_len * 2 + q] = nan;
+        }
       }
-      continue;
     }
-    const float sb = lane < hid_dim ? socb[(m * num_gens + g) * hid_dim + lane] : 0.f;
-    const float h = lane < h_dim ? h0[row * h_dim + lane] : 0.f;
-    rollout_row<T>(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
-                   dxdy0[m * 2], dxdy0[m * 2 + 1], sb, abs_row, rel_row, nullptr);
+    const float* W[2];
+    float h[2], x[2], y[2], dx[2], dy[2], sb[2];
+    float* abs_row[2];
+    float* rel_row[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int gr = live[r] ? g[r] : 0;
+      const int64_t rr = live[r] ? row[r] : 0;
+      const int64_t m = rr % m_rows;
+      W[r] = smem + (int64_t)gr * per_gen;
+      h[r] = lane < h_dim ? h0[rr * h_dim + lane] : 0.f;
+      sb[r] = lane < hid_dim ? socb[(m * num_gens + gr) * hid_dim + lane] : 0.f;
+      x[r] = xy0[m * 2];
+      y[r] = xy0[m * 2 + 1];
+      dx[r] = dxdy0[m * 2];
+      dy[r] = dxdy0[m * 2 + 1];
+      abs_row[r] = out_abs + rr * pred_len * 2;
+      rel_row[r] = out_rel + rr * pred_len * 2;
+    }
+    if (live[0] && live[1]) {
+      rollout_row2<T>(W, L, lane, h, x, y, dx, dy, sb, abs_row, rel_row);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (live[r])
+          rollout_row<T>(W[r], L, lane, h[r], x[r], y[r], dx[r], dy[r], sb[r], abs_row[r],
+                         rel_row[r], nullptr);
+      }
+    }
   }
 }
 
-template <typename T>
+// Launch K1 (items = rows) or K5 (items = pairs of rows) as a persistent
+// grid on `stream`.
+template <typename T, bool kIlp>
 int launch(const void* wpack, const void* h0, const void* socb, const void* xy0,
            const void* dxdy0, const void* idx, void* out_abs, void* out_rel,
            long long n_rows, long long m_rows, int num_gens, int h_dim, int hid_dim,
            int in_dim, int pred_len, int fmt, int per_gen, void* stream) {
+  auto kernel = decode_select_kernel<T>;
+  if (kIlp) kernel = decode_select_ilp_kernel<T>;
   const size_t smem = (size_t)num_gens * per_gen * sizeof(float);
-  cudaError_t err = allow_smem(decode_select_kernel<T>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, decode_select_kernel<T>, kThreads, smem)) != cudaSuccess)
+  long long blocks = 0;
+  const long long items = kIlp ? (n_rows + 1) / 2 : n_rows;
+  if ((err = persistent_blocks(kernel, kThreads, smem, items, &blocks)) != cudaSuccess)
     return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long warps = kThreads / 32;
-  long long blocks = (n_rows + warps - 1) / warps;
-  const long long resident = (long long)sms * per_sm;
-  if (blocks > resident) blocks = resident;
-  decode_select_kernel<T><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
       (const float*)dxdy0, (const int32_t*)idx, (float*)out_abs, (float*)out_rel,
       (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim,
@@ -137,28 +190,37 @@ int launch(const void* wpack, const void* h0, const void* socb, const void* xy0,
 
 extern "C" {
 
-// Launch the rollout on `stream`, with the f32 weight image (mggan_decode_select)
-// or the bf16 one (mggan_decode_select_bf16). Return cudaGetLastError() after
-// the launch (0 on success); the caller checks shapes and sizes beforehand.
-int mggan_decode_select(const void* wpack, const void* h0, const void* socb,
-                        const void* xy0, const void* dxdy0, const void* idx,
-                        void* out_abs, void* out_rel, long long n_rows,
-                        long long m_rows, int num_gens, int h_dim, int hid_dim,
-                        int in_dim, int pred_len, int fmt, int per_gen,
-                        void* stream) {
-  return launch<float>(wpack, h0, socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows, m_rows,
-                       num_gens, h_dim, hid_dim, in_dim, pred_len, fmt, per_gen, stream);
-}
+#define MGGAN_SELECT_ENTRY(name, T, ilp)                                                      \
+  int name(const void* wpack, const void* h0, const void* socb, const void* xy0,              \
+           const void* dxdy0, const void* idx, void* out_abs, void* out_rel,                  \
+           long long n_rows, long long m_rows, int num_gens, int h_dim, int hid_dim,          \
+           int in_dim, int pred_len, int fmt, int per_gen, void* stream) {                    \
+    return launch<T, ilp>(wpack, h0, socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows,         \
+                          m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt, per_gen,   \
+                          stream);                                                            \
+  }
 
-int mggan_decode_select_bf16(const void* wpack, const void* h0, const void* socb,
-                             const void* xy0, const void* dxdy0, const void* idx,
-                             void* out_abs, void* out_rel, long long n_rows,
-                             long long m_rows, int num_gens, int h_dim, int hid_dim,
-                             int in_dim, int pred_len, int fmt, int per_gen,
-                             void* stream) {
-  return launch<__nv_bfloat16>(wpack, h0, socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows,
-                               m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
-                               per_gen, stream);
+// Launch the rollout on `stream`: K1 with the f32 weight image
+// (mggan_decode_select) or the bf16 one (mggan_decode_select_bf16), and K5,
+// a warp per pair of rows, with either (mggan_decode_select_ilp, _ilp_bf16).
+// Return cudaGetLastError() after the launch (0 on success); the caller
+// checks shapes and sizes beforehand.
+MGGAN_SELECT_ENTRY(mggan_decode_select, float, false)
+MGGAN_SELECT_ENTRY(mggan_decode_select_bf16, __nv_bfloat16, false)
+MGGAN_SELECT_ENTRY(mggan_decode_select_ilp, float, true)
+MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_bf16, __nv_bfloat16, true)
+
+// Resident warps per SM of variant 0 (K1), 1 (K1-bf16), 2 (K5), 3 (K5-bf16)
+// with `smem` bytes of weights a block; returns a CUDA error code.
+int mggan_decode_select_warps_per_sm(int variant, long long smem, int* warps) {
+  switch (variant) {
+    case 0: return (int)resident_warps(decode_select_kernel<float>, kThreads, smem, warps);
+    case 1: return (int)resident_warps(decode_select_kernel<__nv_bfloat16>, kThreads, smem, warps);
+    case 2: return (int)resident_warps(decode_select_ilp_kernel<float>, kThreads, smem, warps);
+    case 3:
+      return (int)resident_warps(decode_select_ilp_kernel<__nv_bfloat16>, kThreads, smem, warps);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mggan_cuda_error_string(int code) {

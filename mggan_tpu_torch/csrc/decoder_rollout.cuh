@@ -1,6 +1,7 @@
 // One warp's autoregressive decoder rollout, shared by the forward kernels
-// decode_select.cu (K1) and decode_all.cu (K2), and the helpers the reverse
-// sweep (K3) uses too.
+// decode_select.cu (K1, and K5 as rollout_row2), decode_all.cu (K2),
+// decode_sorted.cu (K4) and decode_ablation.cu (B1), and the helpers the
+// reverse sweep (K3) uses too.
 //
 // Per-generator weight block in shared memory (the wrapper packs it this
 // way, ops/kernels/decoder.py::kernel_weights), in one of two images:
@@ -37,6 +38,13 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Format { kRel = 0, kAbs = 1, kAbsRel = 2 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// The gate activations of the rollout: the kernels' own (sigmoid, tanhf).
+// decode_ablation.cu (B1) instantiates the rollout on other policies.
+struct ActExact {
+  static __device__ __forceinline__ float sig(float x) { return sigmoid(x); }
+  static __device__ __forceinline__ float tnh(float x) { return tanhf(x); }
+};
 
 __device__ __forceinline__ void fma4(float4& acc, float s, const float4& w) {
   acc.x = fmaf(s, w.x, acc.x);
@@ -153,8 +161,9 @@ __device__ __forceinline__ void add_input(float4& acc, const Q* wemb, const Layo
 //
 // Lane t keeps step t's outputs, so each row's outputs are one coalesced
 // store at the end. One sweep over the new h per step feeds both hidden2pos
-// (lanes < hid) and the next step's recurrent gates.
-template <typename T>
+// (lanes < hid) and the next step's recurrent gates. Act supplies sig and
+// tnh (ActExact: sigmoid and tanhf).
+template <typename T, typename Act = ActExact>
 __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int lane,
                                             float h, float x, float y, float dx, float dy,
                                             float sb, float* abs_row, float* rel_row,
@@ -183,8 +192,8 @@ __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int
     acc.x += bias.x; acc.y += bias.y; acc.z += bias.z; acc.w += bias.w;
     if (own) {
       add_input<T>(acc, w.wemb, L, lane, x, y, dx, dy);
-      c = sigmoid(acc.y) * c + sigmoid(acc.x) * tanhf(acc.z);
-      h = operand<T>(sigmoid(acc.w) * tanhf(c));
+      c = Act::sig(acc.y) * c + Act::sig(acc.x) * Act::tnh(acc.z);
+      h = operand<T>(Act::sig(acc.w) * Act::tnh(c));
       if (hc_row != nullptr) {
         hc_row[t * 2 * L.h + lane] = h;
         hc_row[t * 2 * L.h + L.h + lane] = c;
@@ -219,6 +228,158 @@ __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int
   }
 }
 
+// rollout_row for two rows r = 0, 1 at once, each on its own generator's
+// weights W[r] (K5, the TPU kernel _fwd_select_kernel_ilp): every operation
+// of a step is issued for both rows before the next, so the two rows'
+// independent shuffles, loads and FMAs interleave and each hides the
+// other's latency. Per row, the operations and their order are those of
+// rollout_row, so each row's output is bit-identical to it. No hc.
+template <typename T, typename Act = ActExact>
+__device__ __forceinline__ void rollout_row2(const float* const W[2], const Layout& L, int lane,
+                                             const float h0[2], const float x0[2],
+                                             const float y0[2], const float dx0[2],
+                                             const float dy0[2], const float sb[2],
+                                             float* const abs_row[2], float* const rel_row[2]) {
+  const bool own = lane < L.h;
+  const bool own_hid = lane < L.hid;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  Weights<T> w[2];
+  float4 bias[2], rec[2];
+  float w2x[2], w2y[2], b2x[2], b2y[2], c[2], h[2], x[2], y[2], dx[2], dy[2];
+  float keep_x[2], keep_y[2], keep_dx[2], keep_dy[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    w[r] = weights_at<T>(W[r], L);
+    bias[r] = own ? w[r].b[lane] : zero4;
+    w2x[r] = own_hid ? w[r].w2[lane * 2] : 0.f;
+    w2y[r] = own_hid ? w[r].w2[lane * 2 + 1] : 0.f;
+    b2x[r] = w[r].b2[0];
+    b2y[r] = w[r].b2[1];
+    c[r] = 0.f;
+    h[r] = operand<T>(h0[r]);
+    x[r] = x0[r]; y[r] = y0[r]; dx[r] = dx0[r]; dy[r] = dy0[r];
+    keep_x[r] = keep_y[r] = keep_dx[r] = keep_dy[r] = 0.f;
+    rec[r] = zero4;
+  }
+  for (int k = 0; k < L.h; ++k) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float hk = __shfl_sync(kFull, h[r], k);
+      if (own) fma4(rec[r], hk, to_f32(w[r].whh[k * L.h + lane]));
+    }
+  }
+
+  for (int t = 0; t < L.pred_len; ++t) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float4 acc = rec[r];
+      acc.x += bias[r].x; acc.y += bias[r].y; acc.z += bias[r].z; acc.w += bias[r].w;
+      if (own) {
+        add_input<T>(acc, w[r].wemb, L, lane, x[r], y[r], dx[r], dy[r]);
+        c[r] = Act::sig(acc.y) * c[r] + Act::sig(acc.x) * Act::tnh(acc.z);
+        h[r] = operand<T>(Act::sig(acc.w) * Act::tnh(c[r]));
+      }
+    }
+    const bool more = t + 1 < L.pred_len;
+    float a[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      a[r] = sb[r];
+      rec[r] = zero4;
+    }
+    for (int k = 0; k < L.h; ++k) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float hk = __shfl_sync(kFull, h[r], k);
+        if (own_hid) a[r] = fmaf(hk, to_f32(w[r].w1[k * L.hid + lane]), a[r]);
+        if (more && own) fma4(rec[r], hk, to_f32(w[r].whh[k * L.h + lane]));
+      }
+    }
+    float px[2], py[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      a[r] = operand<T>(a[r] > 0.f ? a[r] : 0.01f * a[r]);
+      px[r] = own_hid ? a[r] * w2x[r] : 0.f;
+      py[r] = own_hid ? a[r] * w2y[r] : 0.f;
+    }
+    for (int s = 16; s > 0; s >>= 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        px[r] += __shfl_xor_sync(kFull, px[r], s);
+        py[r] += __shfl_xor_sync(kFull, py[r], s);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dx[r] = px[r] + b2x[r];
+      dy[r] = py[r] + b2y[r];
+      x[r] += dx[r];
+      y[r] += dy[r];
+      if (lane == t) { keep_x[r] = x[r]; keep_y[r] = y[r]; keep_dx[r] = dx[r]; keep_dy[r] = dy[r]; }
+    }
+  }
+  if (lane < L.pred_len) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      reinterpret_cast<float2*>(abs_row[r])[lane] = make_float2(keep_x[r], keep_y[r]);
+      reinterpret_cast<float2*>(rel_row[r])[lane] = make_float2(keep_dx[r], keep_dy[r]);
+    }
+  }
+}
+
+// Copy `words` 4-byte words (a multiple of 4) of weights from device
+// memory into the block's shared memory, 16 bytes a thread at a time, and
+// wait for the whole block.
+__device__ __forceinline__ void stage_weights(float4* smem4, const float* src, int words) {
+  const float4* src4 = reinterpret_cast<const float4*>(src);
+  for (int i = threadIdx.x; i < words / 4; i += blockDim.x) smem4[i] = src4[i];
+  __syncthreads();
+}
+
+// The fused-selection row loop of K1 (decode_select.cu), also B1's
+// (decode_ablation.cu) on other activation policies: stage all G weight
+// blocks (num_gens * per_gen 4-byte words, either image of T) into shared
+// memory, then warps stride over rows; row n runs its sampled generator
+// idx[n] on row n % M of xy0, dxdy0 and socb. A row with no generator
+// (idx out of range) is poisoned with NaN.
+template <typename T, typename Act = ActExact>
+__device__ __forceinline__ void select_rows(float4* smem4, const float* __restrict__ wpack,
+                                            const float* __restrict__ h0,
+                                            const float* __restrict__ socb,
+                                            const float* __restrict__ xy0,
+                                            const float* __restrict__ dxdy0,
+                                            const int32_t* __restrict__ idx,
+                                            float* __restrict__ out_abs,
+                                            float* __restrict__ out_rel, int64_t n_rows,
+                                            int64_t m_rows, int num_gens, const Layout& L,
+                                            int per_gen) {
+  float* smem = reinterpret_cast<float*>(smem4);
+  stage_weights(smem4, wpack, num_gens * per_gen);
+
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const float nan = __int_as_float(0x7fc00000);
+
+  for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5);
+       row < n_rows; row += (int64_t)gridDim.x * warps) {
+    const int g = idx[row];
+    const int64_t m = row % m_rows;
+    float* abs_row = out_abs + row * L.pred_len * 2;
+    float* rel_row = out_rel + row * L.pred_len * 2;
+    if (g < 0 || g >= num_gens) {  // no generator selected: poison the row
+      for (int q = lane; q < L.pred_len * 2; q += 32) {
+        abs_row[q] = nan;
+        rel_row[q] = nan;
+      }
+      continue;
+    }
+    const float sb = lane < L.hid ? socb[(m * num_gens + g) * L.hid + lane] : 0.f;
+    const float h = lane < L.h ? h0[row * L.h + lane] : 0.f;
+    rollout_row<T, Act>(smem + (int64_t)g * per_gen, L, lane, h, xy0[m * 2], xy0[m * 2 + 1],
+                        dxdy0[m * 2], dxdy0[m * 2 + 1], sb, abs_row, rel_row, nullptr);
+  }
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel first.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -230,6 +391,38 @@ inline cudaError_t sm_count(int* sms) {
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+// Blocks of a persistent grid of `kernel` over `items` warp-sized work
+// items: one block per threads / 32 items, at most as many as fit on the
+// card at once. Fails if the kernel fits on no SM.
+template <typename Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem, long long items,
+                                     long long* blocks) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long warps = threads / 32;
+  const long long b = (items + warps - 1) / warps;
+  const long long resident = (long long)sms * per_sm;
+  *blocks = b > resident ? resident : b;
+  return cudaSuccess;
+}
+
+// Resident warps per SM of `kernel` at `threads` threads and `smem` bytes
+// of dynamic shared memory a block (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+template <typename Kernel>
+inline cudaError_t resident_warps(Kernel kernel, int threads, size_t smem, int* warps) {
+  int per_sm = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  *warps = per_sm * (threads / 32);
+  return err;
 }
 
 }  // namespace mggan

@@ -147,7 +147,8 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     autograd, its reverse sweep K3), on CPU tensors their plain versions
     (``ops/kernels/decode_all.py``). The per-agent inputs go in once; only
     ``h0`` has a row per sample. ``compute_dtype=torch.bfloat16`` is K2's
-    bf16 variant (forward only).
+    bf16 variant; its gradient is K3 in f32 from the bf16 forward's (h, c),
+    as in JAX.
 
     Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2).
     """

@@ -97,3 +97,17 @@ def load(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all()[stem]))
         _loaded[stem] = lib
     return lib
+
+
+def warps_per_sm(stem: str, query: str, variant: int, smem_bytes: int) -> int:
+    """Resident warps per SM of a kernel variant of ``csrc/<stem>.cu`` at
+    ``smem_bytes`` of shared memory a block, from the library's ``query``
+    function (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = getattr(load(stem), query)
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    rc = fn(variant, smem_bytes, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"{query}({variant}, {smem_bytes}) failed with CUDA error {rc}")
+    return warps.value

@@ -22,10 +22,13 @@ forward alone, without saving (h, c).
 
 ``compute_dtype=torch.bfloat16`` runs K2's bf16 variant (counted as
 ``decode_all_fwd_bf16``; plain version ``decode_all_reference`` with the
-same argument), with K1's bf16 numerics (``decoder.py``'s module note). It
-is forward only: under autograd it raises, as no path of the JAX package
-trains in bf16 (JAX's backward recomputes in f32 from the bf16 forward's
-(h, c); ROADMAP.md queue 2).
+same argument), with K1's bf16 numerics (``decoder.py``'s module note).
+Under autograd it saves (h, c) as the TPU kernel does (h the bf16-rounded
+value, c in f32), and the backward is K3 on the **f32** folded weights from
+those residuals and the bf16 forward's outputs, as JAX's ``_vjp_bwd`` after
+``pallas_decode_all(..., compute_dtype=bfloat16)`` (counted as
+``decode_all_bwd_after_bf16``; plain version ``decode_all_bwd_reference``
+on the same residuals).
 
 Row layout, as K1's: ``h0 (N, H)`` has a row per rollout; ``last_xy``,
 ``last_dxdy (M, 2)`` and ``socb (M, G, hid)`` have ``M`` rows with
@@ -49,6 +52,7 @@ SOURCE = "decode_all"  # csrc/decode_all.cu
 KERNEL_FWD = "decode_all_fwd"
 KERNEL_FWD_BF16 = "decode_all_fwd_bf16"
 KERNEL_BWD = "decode_all_bwd"
+KERNEL_BWD_AFTER_BF16 = "decode_all_bwd_after_bf16"  # K3 on a bf16 forward's residuals
 PACKED = kdec.PACKED
 BWD_WARPS = 8  # warps per K3 block (kBwdWarps in the source)
 
@@ -150,7 +154,7 @@ def _lib():
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.mggan_decode_all_fwd.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
     lib.mggan_decode_all_fwd.restype = i32
-    lib.mggan_decode_all_fwd_bf16.argtypes = [ptr] * 7 + [ll] * 2 + [i32] * 7 + [ptr]
+    lib.mggan_decode_all_fwd_bf16.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
     lib.mggan_decode_all_fwd_bf16.restype = i32
     lib.mggan_decode_all_bwd.argtypes = [ptr] * 16 + [ll] * 2 + [i32] * 8 + [ptr]
     lib.mggan_decode_all_bwd.restype = i32
@@ -180,10 +184,8 @@ def _raise_on(rc, name):
 
 def launch_fwd(args, save_hc: bool):
     """K2 (its f32 or bf16 variant, as the arguments say) on the current
-    stream -> ``(abs, rel, hc or None)``; the bf16 variant saves no hc."""
+    stream -> ``(abs, rel, hc or None)``."""
     tensors, dims, bf16 = args["tensors"], args["dims"], args["bf16"]
-    if bf16 and save_hc:
-        raise ValueError("K2's bf16 variant is forward only: it saves no (h, c)")
     n, _, g, h, _, _, t = dims[:7]
     dev = tensors[1].device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -194,11 +196,8 @@ def launch_fwd(args, save_hc: bool):
     ptrs = [x.data_ptr() for x in tensors] + [out_abs.data_ptr(), out_rel.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            rc = _lib().mggan_decode_all_fwd_bf16(*ptrs, *dims, stream)
-        else:
-            rc = _lib().mggan_decode_all_fwd(
-                *ptrs, hc.data_ptr() if save_hc else None, *dims, stream)
+        fn = _lib().mggan_decode_all_fwd_bf16 if bf16 else _lib().mggan_decode_all_fwd
+        rc = fn(*ptrs, hc.data_ptr() if save_hc else None, *dims, stream)
     name = KERNEL_FWD_BF16 if bf16 else KERNEL_FWD
     _raise_on(rc, name)
     kernels.launches[name] += 1
@@ -213,11 +212,15 @@ def bwd_blocks_per_gen(n: int, num_gens: int, device) -> int:
     return max(1, min(-(-sms // num_gens), -(-n // BWD_WARPS)))
 
 
-def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel):
+def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel, count_as=KERNEL_BWD):
     """K3 on the current stream: the reverse sweep and the fixed-order sum
-    of its blocks' weight grads. Returns the raw outputs ``(d_h0 (G,N,H),
-    d_xy0 (G,N,2), d_dxdy0 (G,N,2), d_socb (N,G,hid), dw (G,P))``."""
+    of its blocks' weight grads, counted under ``count_as``. ``args`` holds
+    the f32 weight image (K3 sweeps in f32 after either forward). Returns
+    the raw outputs ``(d_h0 (G,N,H), d_xy0 (G,N,2), d_dxdy0 (G,N,2),
+    d_socb (N,G,hid), dw (G,P))``."""
     tensors, dims = args["tensors"], args["dims"]
+    if args["bf16"]:
+        raise ValueError("K3 sweeps on the f32 weight image; prepare it without compute_dtype")
     n, _, g, h, hid, in_dim, t = dims[:7]
     dev = tensors[1].device
     for name, x, shape in (("abs", out_abs, (g, n, t, 2)), ("rel", out_rel, (g, n, t, 2)),
@@ -240,8 +243,8 @@ def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel):
             *(x.data_ptr() for x in (out_abs, out_rel, hc, g_abs, g_rel, d_h0, d_xy0,
                                      d_dxdy0, d_socb, partials, dw)),
             *dims, nb, stream)
-    _raise_on(rc, KERNEL_BWD)
-    kernels.launches[KERNEL_BWD] += 1
+    _raise_on(rc, count_as)
+    kernels.launches[count_as] += 1
     return d_h0, d_xy0, d_dxdy0, d_socb, dw
 
 
@@ -281,9 +284,10 @@ def decode_all_fwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
 
 def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
                    out_abs, out_rel, hc, g_abs, g_rel, pred_len: int,
-                   inp_format: str):
-    """K3 on CUDA tensors, its plain version on CPU tensors; returns the
-    grads of ``DecodeAll``'s tensor inputs."""
+                   inp_format: str, count_as=KERNEL_BWD):
+    """K3 on CUDA tensors (counted under ``count_as``), its plain version on
+    CPU tensors; returns the grads of ``DecodeAll``'s tensor inputs. The
+    residuals may come from either forward; the sweep is f32."""
     inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
     if h0.device.type == "cpu":
         return decode_all_bwd_reference(*inputs, out_abs, out_rel, hc, g_abs,
@@ -292,7 +296,7 @@ def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
         raise ValueError(f"decode_all: unsupported device {h0.device}")
     args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format)
     d_h0, d_xy0, d_dxdy0, d_socb, dw = launch_bwd(
-        args, out_abs, out_rel, hc, g_abs.contiguous(), g_rel.contiguous())
+        args, out_abs, out_rel, hc, g_abs.contiguous(), g_rel.contiguous(), count_as)
     m = last_xy.shape[0]
     h, hid, in_dim = w_hh.shape[1], w1h.shape[2], w_emb.shape[1]
     return (*weight_grads_from_image(dw, h, hid, in_dim), _untile(d_socb, m),
@@ -300,39 +304,37 @@ def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
 
 
 class DecodeAll(torch.autograd.Function):
-    """Forward K2 with (h, c) saved; backward K3 (see the module note)."""
+    """Forward K2 (f32 or bf16) with (h, c) saved; backward K3 in f32 (see
+    the module note)."""
 
     @staticmethod
     def forward(ctx, w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
-                pred_len, inp_format):
+                pred_len, inp_format, compute_dtype=None):
         inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
         out_abs, out_rel, hc = decode_all_fwd(*inputs, pred_len, inp_format,
-                                              save_hc=True)
+                                              save_hc=True, compute_dtype=compute_dtype)
         ctx.save_for_backward(*inputs, out_abs, out_rel, hc)
         ctx.pred_len, ctx.inp_format = pred_len, inp_format
+        ctx.count_as = KERNEL_BWD_AFTER_BF16 if kdec.is_bf16(compute_dtype) else KERNEL_BWD
         return out_abs, out_rel
 
     @staticmethod
     def backward(ctx, g_abs, g_rel):
         grads = decode_all_bwd(*ctx.saved_tensors, g_abs, g_rel, ctx.pred_len,
-                               ctx.inp_format)
-        return (*grads, None, None)
+                               ctx.inp_format, ctx.count_as)
+        return (*grads, None, None, None)
 
 
 def decode_all(stacked, last_xy, last_dxdy, social_feats, h0, pred_len: int,
                inp_format: str, compute_dtype=None):
     """Every generator's rollout on every row -> ``(abs, rel)``, each
     ``(G, N, pred_len, 2)``; differentiable through ``DecodeAll`` when a
-    gradient is needed (f32 only). See the module note for the row layout
-    and for ``compute_dtype``."""
+    gradient is needed. See the module note for the row layout and for
+    ``compute_dtype``."""
     packed = kdec.pack_decoder_params(stacked, inp_format)
     socb = kdec.social_bias(packed, social_feats)
     inputs = tuple(packed[k] for k in PACKED) + (socb, h0, last_xy, last_dxdy)
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        if kdec.is_bf16(compute_dtype):
-            raise NotImplementedError(
-                "decode_all in bf16 has no backward: K3 after a bf16 forward "
-                "is ROADMAP.md queue 2; train in f32")
-        return DecodeAll.apply(*inputs, pred_len, inp_format)
+        return DecodeAll.apply(*inputs, pred_len, inp_format, compute_dtype)
     return decode_all_fwd(*inputs, pred_len, inp_format, save_hc=False,
                           compute_dtype=compute_dtype)[:2]

@@ -20,6 +20,11 @@ biases, ``socb``, ``w2``, ``b2``, ``c`` and the position sums stay f32. On
 CUDA tensors it launches the kernel's bf16 variant (counted as
 ``decode_select_bf16``).
 
+``ilp=True`` is the TPU kernel's ILP variant K5 (``_fwd_select_kernel_ilp``):
+on CUDA tensors it launches ``mggan_decode_select_ilp`` (counted as
+``decode_select_ilp`` / ``decode_select_ilp_bf16``), a warp per pair of
+rows, bit-identical to K1; its plain version is K1's.
+
 Row layout: ``h0 (N, H)`` and ``gen_idx (N,)`` have a row per rollout;
 ``last_xy``, ``last_dxdy`` and ``social_feats`` have ``M`` rows with
 ``N % M == 0``, and rollout ``n`` reads row ``n % M``. The sampling path's
@@ -43,6 +48,8 @@ from mggan_tpu_torch.utils.pytree import tree_leaves
 
 KERNEL = "decode_select"
 KERNEL_BF16 = "decode_select_bf16"
+KERNEL_ILP = "decode_select_ilp"  # K5
+KERNEL_ILP_BF16 = "decode_select_ilp_bf16"
 FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
 PACKED = ("w_emb", "w_hh", "b", "w1h", "w2", "b2")  # the folded weights, in order
 MAX_SHARED_BYTES = 232448  # per block on the H100, as dynamic shared memory
@@ -127,16 +134,43 @@ def decoder_input(xy, nd, inp_format):
     return torch.cat([xy, nd], dim=-1)
 
 
+def _sig_bf16(x):
+    """sigmoid in bf16 arithmetic, rounded as ``benchmarks/decode_ablation.py``
+    rounds it: the input, exp, the add and the divide each to bf16."""
+    e = torch.exp(-x.to(torch.bfloat16))
+    return (1.0 / (1.0 + e)).float()
+
+
+def _tanh_bf16(x):
+    """tanh as ``(exp(2x) - 1) / (exp(2x) + 1)`` in bf16 arithmetic."""
+    xb = x.to(torch.bfloat16)
+    e = torch.exp(xb + xb)
+    return ((e - 1.0) / (e + 1.0)).float()
+
+
+# The gate activations (sigmoid, tanh) of the rollout: the kernels' own
+# ("f32") and the two stand-ins of the activation ablation B1
+# (``csrc/decode_ablation.cu``): "bf16" arithmetic and "lin", linear
+# functions with wrong numerics by design.
+ACTIVATIONS = {
+    "f32": (torch.sigmoid, torch.tanh),
+    "bf16": (_sig_bf16, _tanh_bf16),
+    "lin": (lambda x: x * 0.25 + 0.5, lambda x: x * 0.5),
+}
+
+
 def rollout_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
                       last_dxdy, pred_len: int, inp_format: str,
-                      save_hc: bool = False, compute_dtype=None):
+                      save_hc: bool = False, compute_dtype=None, act: str = "f32"):
     """The plain version of the rollout kernels: every generator's rollout
     on every row, the arithmetic of ``common.relative_decoder_apply`` on the
-    folded weights, in f32 or with the bf16 rounding of the module note.
+    folded weights, in f32 or with the bf16 rounding of the module note,
+    with the gate activations ``ACTIVATIONS[act]``.
 
     Returns ``(abs, rel, hc)``: abs/rel ``(G, N, T, 2)`` and, with
     ``save_hc``, each step's h and c as ``(G, N, T, 2, H)`` (else None).
     """
+    sig, tnh = ACTIVATIONS[act]
     op = (lambda x: x.to(torch.bfloat16).float()) if is_bf16(compute_dtype) \
         else (lambda x: x)
     w_emb, w_hh, w1h = op(w_emb), op(w_hh), op(w1h)
@@ -151,8 +185,8 @@ def rollout_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
         te = op(decoder_input(xy, nd, inp_format))
         gates = torch.bmm(te, w_emb) + torch.bmm(h, w_hh) + b[:, None]
         i, f, gg, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
-        h = op(torch.sigmoid(o) * torch.tanh(c))
+        c = sig(f) * c + sig(i) * tnh(gg)
+        h = op(sig(o) * tnh(c))
         hid = op(F.leaky_relu(torch.bmm(h, w1h) + sb, 0.01))
         nd = torch.bmm(hid, w2) + b2[:, None]
         xy = xy + nd
@@ -166,13 +200,14 @@ def rollout_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
 
 def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
                             gen_idx, pred_len: int, inp_format: str,
-                            compute_dtype=None):
+                            compute_dtype=None, act: str = "f32"):
     """Plain PyTorch version: all generators, then the per-row gather."""
     n = h0.shape[0]
     packed = pack_decoder_params(stacked, inp_format)
     abs_g, rel_g, _ = rollout_reference(
         *(packed[k] for k in PACKED), social_bias(packed, social_feats), h0,
         last_xy, last_dxdy, pred_len, inp_format, compute_dtype=compute_dtype,
+        act=act,
     )  # (G, N, T, 2)
     # as gather_samples' (K, G, S, P, T, 2) and (S, P, K) with K = S = 1
     idx = gen_idx.reshape(1, n, 1)
@@ -180,11 +215,15 @@ def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
     return pick(abs_g), pick(rel_g)
 
 
+SELECT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
+
+
 @functools.cache
-def _kernel_fn(bf16: bool):
+def _kernel_fn(bf16: bool, ilp: bool = False):
     lib = build.load(KERNEL)
-    fn = lib.mggan_decode_select_bf16 if bf16 else lib.mggan_decode_select
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = getattr(lib, "mggan_decode_select" + ("_ilp" if ilp else "") + ("_bf16" if bf16 else ""))
+    fn.argtypes = SELECT_ARGTYPES
     fn.restype = ctypes.c_int
     lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
@@ -250,10 +289,11 @@ def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
     return args
 
 
-def launch_decode_select(args):
+def launch_decode_select(args, ilp: bool = False):
     """Launch the K1 kernel (its f32 or bf16 variant, as the arguments
-    say) on the current stream with checked arguments from
-    ``prepare_decode_select``; returns ``(abs, rel)``."""
+    say; K5, a warp per pair of rows, with ``ilp``) on the current stream
+    with checked arguments from ``prepare_decode_select``; returns
+    ``(abs, rel)``."""
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
     dev = tensors[1].device
@@ -261,12 +301,13 @@ def launch_decode_select(args):
     out_rel = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out_abs, out_rel
-    fn, err_str = _kernel_fn(args["bf16"])
+    fn, err_str = _kernel_fn(args["bf16"], ilp)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in tensors), out_abs.data_ptr(),
                 out_rel.data_ptr(), *dims, stream)
-    name = KERNEL_BF16 if args["bf16"] else KERNEL
+    name = ((KERNEL_ILP_BF16 if ilp else KERNEL_BF16) if args["bf16"]
+            else (KERNEL_ILP if ilp else KERNEL))
     if rc:
         raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()} ({rc})")
     kernels.launches[name] += 1
@@ -274,31 +315,39 @@ def launch_decode_select(args):
 
 
 def decode_select_cuda(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
-                       pred_len: int, inp_format: str, compute_dtype=None):
-    """The K1 kernel's route; see the module note."""
+                       pred_len: int, inp_format: str, compute_dtype=None,
+                       ilp: bool = False):
+    """The K1 (or, with ``ilp``, K5) kernel's route; see the module note."""
     return launch_decode_select(prepare_decode_select(
         stacked, last_xy, last_dxdy, social_feats, h0, gen_idx, pred_len,
-        inp_format, compute_dtype))
+        inp_format, compute_dtype), ilp)
+
+
+def refuse_autograd(name, stacked, *tensors):
+    """Raise if autograd would differentiate a forward-only selection
+    kernel's call: the kernels have no backward on any device."""
+    leaves = tree_leaves(stacked) + list(tensors)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves):
+        raise RuntimeError(
+            f"{name} has no backward; under autograd decode all "
+            "generators and gather (decode_select(..., fuse_select=False))")
 
 
 def decode_select(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
-                  pred_len: int, inp_format: str, compute_dtype=None):
+                  pred_len: int, inp_format: str, compute_dtype=None,
+                  ilp: bool = False):
     """Rollout of each row's sampled generator -> ``(abs, rel)``, each
-    ``(N, pred_len, 2)``. CUDA tensors go to the kernel, CPU tensors to the
-    plain version; there is no other route.
+    ``(N, pred_len, 2)``. CUDA tensors go to the kernel (K5 with ``ilp``),
+    CPU tensors to the plain version; there is no other route.
 
     The kernel has no backward, so a call that autograd would differentiate
     raises on every device: a gradient path decodes all generators and
     gathers (``generator.decode_select(fuse_select=False)``)."""
-    leaves = tree_leaves(stacked) + [last_xy, last_dxdy, social_feats, h0]
-    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves):
-        raise RuntimeError(
-            "decode_select has no backward; under autograd decode all "
-            "generators and gather (decode_select(..., fuse_select=False))")
+    refuse_autograd("decode_select", stacked, last_xy, last_dxdy, social_feats, h0)
     if h0.device.type == "cuda":
         return decode_select_cuda(stacked, last_xy, last_dxdy, social_feats,
                                   h0, gen_idx, pred_len, inp_format,
-                                  compute_dtype)
+                                  compute_dtype, ilp)
     if h0.device.type == "cpu":
         return decode_select_reference(stacked, last_xy, last_dxdy,
                                        social_feats, h0, gen_idx, pred_len,

@@ -245,10 +245,14 @@ def test_bf16_predictor_matches_the_jax_kernels(flagship, interpret):
 
 
 def test_bf16_has_no_backward():
+    """K1's bf16 variant has no backward (a gradient path decodes all
+    generators, whose bf16 backward is K3 in f32:
+    tests/test_torch_port_ablation.py)."""
     st = common.stacked_decoders_init(torch.Generator().manual_seed(0), 2, 4, 8, "rel", 4)
     st = tree_unflatten(st, [x.requires_grad_() for x in tree_leaves(st)])
     rows = (torch.randn(4, 2), torch.randn(4, 2), torch.randn(4, 4), torch.randn(8, 8))
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        kda.decode_all(st, *rows, T, "rel", compute_dtype=BF16)
+    idx = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kdec.decode_select(st, *rows, idx, T, "rel", compute_dtype=BF16)
     with pytest.raises(ValueError, match="compute_dtype"):
         kdec.kernel_weights(kdec.pack_decoder_params(st, "rel"), torch.float16)

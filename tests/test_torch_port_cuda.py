@@ -12,7 +12,9 @@ import torch
 
 from mggan_tpu_torch.models import common
 from mggan_tpu_torch.ops import kernels
+from mggan_tpu_torch.ops.kernels import decode_ablation as kab
 from mggan_tpu_torch.ops.kernels import decode_all as kda
+from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 from mggan_tpu_torch.utils.pytree import tree_leaves
 
@@ -140,3 +142,148 @@ def test_bf16_kernels_match_reference(cuda, inp_format, h_dim):
     rows_n = torch.arange(idx.shape[0], device=cuda)
     for a, b in zip(sel, every):
         assert torch.equal(a, b[idx.to(cuda).long(), rows_n])
+
+
+def _select_case(n_agents, k, seed, feat=32):
+    stacked, rows = _decode_all_case("rel", 32, m=n_agents, k=k, seed=seed)
+    idx = torch.from_numpy(np.random.RandomState(seed).randint(0, 4, n_agents * k)
+                           .astype(np.int32))
+    return stacked, rows, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("k", [20, 7])  # 7 x 37 rows: odd, the last pair has one row
+def test_ilp_equals_k1_bit_for_bit(cuda, compute_dtype, k):
+    """K5 keeps K1's operations per row, so its output has K1's bits; so
+    does B1's f32 variant (K1's activations)."""
+    stacked, rows, idx = _select_case(37, k, seed=5)
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    before = dict(kernels.launches)
+    k1 = kdec.decode_select(*on, T, "rel", compute_dtype=compute_dtype)
+    k5 = kdec.decode_select(*on, T, "rel", compute_dtype=compute_dtype, ilp=True)
+    torch.cuda.synchronize()
+    name = kdec.KERNEL_ILP_BF16 if compute_dtype else kdec.KERNEL_ILP
+    assert kernels.launches[name] == before.get(name, 0) + 1
+    for a, b in zip(k1, k5):
+        assert torch.equal(a, b)
+    if compute_dtype is None:
+        b1 = kab.decode_select_act(*on, T, "f32")
+        for a, b in zip(k1, b1):
+            assert torch.equal(a, b)
+
+
+# B1-bf16 against its plain version: hexp and __hdiv against torch's exp
+# and division, each rounded to bf16; chip_smoke.py's limit (read 3.9e-4
+# at 20,480 rows on an H100).
+B1_BF16_ATOL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["f32", "bf16", "lin"])
+def test_activation_variants_match_reference(cuda, act):
+    stacked, rows, idx = _select_case(37, 20, seed=6)
+    got = kab.decode_select_act(*[_on(x, cuda) for x in (stacked, *rows, idx)], T, act)
+    torch.cuda.synchronize()
+    want = kab.decode_select_act_reference(stacked, *rows, idx, T, act)
+    atol = B1_BF16_ATOL if act == "bf16" else ATOL
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format,feat,skew", [
+    ("rel", 32, False), ("abs", 32, False), ("abs_rel", 32, False), ("rel", 0, False),
+    ("abs_rel", 32, True)])
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_sorted_route_matches_reference(cuda, inp_format, feat, skew, compute_dtype):
+    """K4's route on the card against its plain version on the CPU (the
+    same layout), and against K1 on the same draws."""
+    gen = torch.Generator().manual_seed(7)
+    stacked = common.stacked_decoders_init(gen, 4, 16, 32, inp_format, feat)
+    rng = np.random.RandomState(7)
+    f32 = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    m, k = 61, 9
+    rows = (f32(m, 2), f32(m, 2) * 0.3, f32(m, feat), f32(m * k, 32))
+    idx = torch.from_numpy((np.full(m * k, 2) if skew else rng.randint(0, 4, m * k))
+                           .astype(np.int32))
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    before = dict(kernels.launches)
+    got = ks.decode_select_sorted(*on, T, inp_format, compute_dtype)
+    torch.cuda.synchronize()
+    name = ks.KERNEL_BF16 if compute_dtype else ks.KERNEL
+    assert kernels.launches[name] == before.get(name, 0) + 1
+    want = ks.decode_select_sorted(stacked, *rows, idx, T, inp_format, compute_dtype)
+    k1 = kdec.decode_select(*on, T, inp_format, compute_dtype=compute_dtype)
+    atol = BF16_ATOL if compute_dtype else ATOL
+    for a, b, c in zip(got, want, k1):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=atol)
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), atol=atol)
+
+
+# K2-bf16's saved (h, c) against the bf16 plain forward's: a flip of one h's
+# bf16 rounding moves it by one bf16 step, up to 2^-8 (3.9e-3) below 1, and
+# such flips are rare (chip_smoke.py's phase 11 on an H100 80GB HBM3 at
+# 700 W: mean abs difference 1.3e-8, the f32 forward's hc 1.6e-4; PERF.md).
+HC_ATOL, HC_MEAN_ATOL = 4e-3, 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format", ["rel", "abs_rel"])
+def test_bf16_grads_match_plain_sweep(cuda, inp_format):
+    """K2-bf16's saved (h, c) against the bf16 plain forward's (h rounded to
+    bf16, c in f32; the f32 forward's lies beyond the limits), the route
+    (K2-bf16 saving hc, then K3 through DecodeAll with
+    compute_dtype=bfloat16) against the plain forward and reverse sweep,
+    K3 alone against the plain sweep on the kernel's residuals, and the
+    route's grads equal K3 on those residuals bit for bit."""
+    stacked, rows = _decode_all_case(inp_format, 32, seed=8)
+    bf16 = torch.bfloat16
+    packed = kdec.pack_decoder_params(_on(stacked, cuda), inp_format)
+    inputs = [packed[k].contiguous() for k in kda.PACKED] + [
+        kdec.social_bias(packed, rows[2].to(cuda)).contiguous(), rows[3].to(cuda),
+        rows[0].to(cuda), rows[1].to(cuda)]
+    out = kda.decode_all_fwd(*inputs, T, inp_format, save_hc=True, compute_dtype=bf16)
+    out32 = kda.decode_all_fwd(*inputs, T, inp_format, save_hc=True)
+    plain = kda.decode_all_reference(*inputs, T, inp_format, save_hc=True, compute_dtype=bf16)
+    for a, b in zip(out[:2], plain[:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=BF16_ATOL)
+    np.testing.assert_allclose(out[2].cpu().numpy(), plain[2].cpu().numpy(), atol=HC_ATOL)
+    assert float((out[2] - plain[2]).abs().mean()) <= HC_MEAN_ATOL
+    h, c = out[2][..., 0, :], out[2][..., 1, :]
+    assert torch.equal(h, h.to(bf16).float())
+    assert float((c == c.to(bf16).float()).float().mean()) < 0.01
+    h32 = out32[2][..., 0, :]
+    assert float((out32[2] - plain[2]).abs().mean()) > HC_MEAN_ATOL
+    assert not torch.equal(h32, h32.to(bf16).float())
+    out_abs, out_rel, hc = out
+    g_abs, g_rel = torch.randn_like(out_abs), torch.randn_like(out_rel)
+    saved = (*inputs, out_abs, out_rel, hc, g_abs, g_rel)
+    before = dict(kernels.launches)
+    got = kda.decode_all_bwd(*saved, T, inp_format, kda.KERNEL_BWD_AFTER_BF16)
+    torch.cuda.synchronize()
+    assert kernels.launches[kda.KERNEL_BWD_AFTER_BF16] == \
+        before.get(kda.KERNEL_BWD_AFTER_BF16, 0) + 1
+    want = kda.decode_all_bwd_reference(*saved, T, inp_format)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    # the whole route against the plain one: a row where an h rounding
+    # flipped between the two forwards has other residuals, so its per-row
+    # grads are not held; the weight grads sum over every row, flips
+    # included, and are held as chip_smoke.py holds K3's (1e-3 x max|grad|)
+    route_want = kda.decode_all_bwd_reference(*inputs, *plain, g_abs, g_rel, T, inp_format)
+    flip = (h != plain[2][..., 0, :]).flatten(2).any(-1).any(0)  # (N,)
+    m = rows[0].shape[0]
+    same = {"n": ~flip, "m": ~flip.reshape(-1, m).any(0)}
+    for i, (a, b) in enumerate(zip(got, route_want)):
+        if i < 6:
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+        else:  # socb, h0 (N rows), last_xy, last_dxdy
+            keep = same["n" if i == 7 else "m"]
+            np.testing.assert_allclose(a[keep].cpu().numpy(), b[keep].cpu().numpy(),
+                                       rtol=2e-4, atol=2e-4)
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    a, r = kda.DecodeAll.apply(*leaves, T, inp_format, bf16)
+    route = torch.autograd.grad((a * g_abs).sum() + (r * g_rel).sum(), leaves)
+    for x, y in zip(route, got):
+        assert torch.equal(x, y)
