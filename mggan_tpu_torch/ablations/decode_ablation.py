@@ -10,7 +10,8 @@ its time into causes:
 * ``kernel_f32`` / ``kernel_bf16`` / ``kernel_lin``: B1, K1 with its gate
   activations exact, in bf16 arithmetic, or linear (wrong by design);
 * ``kernel_ilp``: K5, a warp per pair of rows (bit-identical to K1);
-* ``kernel_select_bf16`` / ``kernel_ilp_bf16``: K1 and K5 on the bf16 image.
+* ``kernel_select_bf16``: K1-bf16 (the tensor-core kernel of the bf16 route);
+* ``kernel_ilp_bf16``: K5 on the bf16 image (warp per pair of rows).
 
     python -m mggan_tpu_torch.ablations.decode_ablation [--rows N] [--reps R]
 
@@ -64,7 +65,7 @@ def resident_warps(inputs):
     sel, act = "mggan_decode_select_warps_per_sm", "mggan_decode_select_act_warps_per_sm"
     return {
         "kernel_select": q("decode_select", sel, 0, p32),
-        "kernel_select_bf16": q("decode_select", sel, 1, p16),
+        "kernel_select_bf16": kdec.mma_warps_per_sm(p16["dims"][2]),
         "kernel_ilp": q("decode_select", sel, 2, p32),
         "kernel_ilp_bf16": q("decode_select", sel, 3, p16),
         **{f"kernel_{a}": q("decode_ablation", act, i, p32) for i, a in enumerate(kab.ACTS)},

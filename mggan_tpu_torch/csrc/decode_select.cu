@@ -15,7 +15,7 @@
 // generator runs, 1/G of the arithmetic for the same output.
 //
 // Two variants, as the TPU kernel's compute_dtype: f32, and bf16
-// (mggan_decode_select_bf16), where te, h and hid are rounded to bf16 before
+// (mggan_decode_select_bf16_warp), where te, h and hid are rounded to bf16 before
 // their products with the bf16 weights Wemb', Whh and W1h, and c, the
 // biases, W2 and every sum stay f32 (decoder_rollout.cuh::rollout_row). The
 // bf16 weight image is half the f32 one (~40 KB for G=4 at H=32).
@@ -48,10 +48,14 @@
 // generator's weights for a tile of rows sorted by generator); reusing each
 // weight load over several rows of a warp, or the tensor cores on such
 // groups, is the step after it.
-// The bf16 variant reads half the weight bytes per row-step but does the
-// same fp32 FMAs on converted operands, plus the conversions: bound by the
-// same pipes. Its products on the tensor cores (bf16, 989 TFLOP/s) would
-// need rows grouped by generator first, as above.
+// The bf16 instantiation reads half the weight bytes per row-step but does
+// the same fp32 FMAs on converted operands, plus the conversions: bound by
+// the same pipes, and slower than f32. The bf16 route of decode_select
+// therefore runs decode_select_mma.cu (rows grouped by generator inside a
+// tile, the products on the tensor cores); this warp-per-row bf16 kernel
+// stays as mggan_decode_select_bf16_warp, launched only to compare the two
+// on the card, and as the bf16 K5's reference (K5-bf16 equals it bit for
+// bit).
 //
 // K5 (mggan_decode_select_ilp, _bf16) replaces _fwd_select_kernel_ilp
 // (pallas_decode_select(ilp=True)): the same function, with one warp
@@ -201,16 +205,18 @@ extern "C" {
   }
 
 // Launch the rollout on `stream`: K1 with the f32 weight image
-// (mggan_decode_select) or the bf16 one (mggan_decode_select_bf16), and K5,
-// a warp per pair of rows, with either (mggan_decode_select_ilp, _ilp_bf16).
+// (mggan_decode_select) or, warp per row, the bf16 one
+// (mggan_decode_select_bf16_warp), and K5, a warp per pair of rows, with
+// either (mggan_decode_select_ilp, _ilp_bf16).
 // Return cudaGetLastError() after the launch (0 on success); the caller
 // checks shapes and sizes beforehand.
 MGGAN_SELECT_ENTRY(mggan_decode_select, float, false)
-MGGAN_SELECT_ENTRY(mggan_decode_select_bf16, __nv_bfloat16, false)
+MGGAN_SELECT_ENTRY(mggan_decode_select_bf16_warp, __nv_bfloat16, false)
 MGGAN_SELECT_ENTRY(mggan_decode_select_ilp, float, true)
 MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_bf16, __nv_bfloat16, true)
 
-// Resident warps per SM of variant 0 (K1), 1 (K1-bf16), 2 (K5), 3 (K5-bf16)
+// Resident warps per SM of variant 0 (K1), 1 (the warp-per-row bf16 K1), 2 (K5),
+// 3 (K5-bf16)
 // with `smem` bytes of weights a block; returns a CUDA error code.
 int mggan_decode_select_warps_per_sm(int variant, long long smem, int* warps) {
   switch (variant) {

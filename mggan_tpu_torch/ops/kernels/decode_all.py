@@ -53,8 +53,11 @@ KERNEL_FWD = "decode_all_fwd"
 KERNEL_FWD_BF16 = "decode_all_fwd_bf16"
 KERNEL_BWD = "decode_all_bwd"
 KERNEL_BWD_AFTER_BF16 = "decode_all_bwd_after_bf16"  # K3 on a bf16 forward's residuals
+# the warp-per-row reverse sweep that K3's tiled design replaced, kept for
+# comparison on the card (chip_smoke.py, the card tests); no path launches it
+KERNEL_BWD_WARP = "decode_all_bwd_warp"
 PACKED = kdec.PACKED
-BWD_WARPS = 8  # warps per K3 block (kBwdWarps in the source)
+BWD_ROWS = 8  # K3 takes at most one block per 8 rows (the warp-per-row sweep's warps)
 
 
 def _untile(x, m):
@@ -156,12 +159,15 @@ def _lib():
     lib.mggan_decode_all_fwd.restype = i32
     lib.mggan_decode_all_fwd_bf16.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
     lib.mggan_decode_all_fwd_bf16.restype = i32
-    lib.mggan_decode_all_bwd.argtypes = [ptr] * 16 + [ll] * 2 + [i32] * 8 + [ptr]
-    lib.mggan_decode_all_bwd.restype = i32
+    for fn in (lib.mggan_decode_all_bwd, lib.mggan_decode_all_bwd_warp):
+        fn.argtypes = [ptr] * 16 + [ll] * 2 + [i32] * 8 + [ptr]
+        fn.restype = i32
     lib.mggan_decode_all_grad_floats.argtypes = [i32] * 3
     lib.mggan_decode_all_grad_floats.restype = i32
-    lib.mggan_decode_all_bwd_smem.argtypes = [i32] * 4
-    lib.mggan_decode_all_bwd_smem.restype = ll
+    lib.mggan_decode_all_bwd_config.argtypes = [i32] * 5 + [ctypes.POINTER(i32),
+                                                            ctypes.POINTER(ll),
+                                                            ctypes.POINTER(i32)]
+    lib.mggan_decode_all_bwd_config.restype = i32
     lib.mggan_cuda_error_string.argtypes = [i32]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -209,7 +215,22 @@ def bwd_blocks_per_gen(n: int, num_gens: int, device) -> int:
     generators, at most one block per 8 rows. Fixed for a card and shape,
     so the weight grads' summation order is too."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-sms // num_gens), -(-n // BWD_WARPS)))
+    return max(1, min(-(-sms // num_gens), -(-n // BWD_ROWS)))
+
+
+def bwd_config(args, warp: bool = False):
+    """K3's launch shape for these arguments (the tiled sweep, or with
+    ``warp`` the warp-per-row baseline): ``{"warps_per_block",
+    "smem_bytes", "warps_per_sm"}``; raises if no block fits."""
+    _, _, _, h, hid, in_dim = args["dims"][:6]
+    i32, ll = ctypes.c_int, ctypes.c_longlong
+    warps, smem, per_sm = i32(0), ll(0), i32(0)
+    rc = _lib().mggan_decode_all_bwd_config(int(warp), h, hid, in_dim, args["dims"][8],
+                                            ctypes.byref(warps), ctypes.byref(smem),
+                                            ctypes.byref(per_sm))
+    _raise_on(rc, KERNEL_BWD_WARP if warp else KERNEL_BWD)
+    return {"warps_per_block": warps.value, "smem_bytes": smem.value,
+            "warps_per_sm": per_sm.value}
 
 
 def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel, count_as=KERNEL_BWD):
@@ -218,6 +239,19 @@ def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel, count_as=KERNEL_BWD):
     the f32 weight image (K3 sweeps in f32 after either forward). Returns
     the raw outputs ``(d_h0 (G,N,H), d_xy0 (G,N,2), d_dxdy0 (G,N,2),
     d_socb (N,G,hid), dw (G,P))``."""
+    return _launch_bwd(_lib().mggan_decode_all_bwd, args, out_abs, out_rel, hc, g_abs,
+                       g_rel, count_as)
+
+
+def launch_bwd_warp(args, out_abs, out_rel, hc, g_abs, g_rel):
+    """The warp-per-row sweep that K3's tiled design replaced, as
+    ``launch_bwd``: the same function and outputs, for comparing the two on
+    the card; counted as ``decode_all_bwd_warp``."""
+    return _launch_bwd(_lib().mggan_decode_all_bwd_warp, args, out_abs, out_rel, hc, g_abs,
+                       g_rel, KERNEL_BWD_WARP)
+
+
+def _launch_bwd(fn, args, out_abs, out_rel, hc, g_abs, g_rel, count_as):
     tensors, dims = args["tensors"], args["dims"]
     if args["bf16"]:
         raise ValueError("K3 sweeps on the f32 weight image; prepare it without compute_dtype")
@@ -229,20 +263,16 @@ def launch_bwd(args, out_abs, out_rel, hc, g_abs, g_rel, count_as=KERNEL_BWD):
         kdec.check_arg(name, x, shape, torch.float32, dev)
     lib = _lib()
     size = lib.mggan_decode_all_grad_floats(h, hid, in_dim)
-    smem = lib.mggan_decode_all_bwd_smem(h, hid, in_dim, dims[8])
-    if smem > kdec.MAX_SHARED_BYTES:
-        raise ValueError(f"K3 needs {smem} bytes of shared memory per block")
     nb = bwd_blocks_per_gen(n, g, dev)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     d_h0, d_xy0, d_dxdy0 = new(g, n, h), new(g, n, 2), new(g, n, 2)
     d_socb, partials, dw = new(n, g, hid), new(g, nb, size), new(g, size)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mggan_decode_all_bwd(
-            *(x.data_ptr() for x in tensors),
-            *(x.data_ptr() for x in (out_abs, out_rel, hc, g_abs, g_rel, d_h0, d_xy0,
-                                     d_dxdy0, d_socb, partials, dw)),
-            *dims, nb, stream)
+        rc = fn(*(x.data_ptr() for x in tensors),
+                *(x.data_ptr() for x in (out_abs, out_rel, hc, g_abs, g_rel, d_h0, d_xy0,
+                                         d_dxdy0, d_socb, partials, dw)),
+                *dims, nb, stream)
     _raise_on(rc, count_as)
     kernels.launches[count_as] += 1
     return d_h0, d_xy0, d_dxdy0, d_socb, dw
@@ -295,10 +325,19 @@ def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
     if h0.device.type != "cuda":
         raise ValueError(f"decode_all: unsupported device {h0.device}")
     args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format)
-    d_h0, d_xy0, d_dxdy0, d_socb, dw = launch_bwd(
-        args, out_abs, out_rel, hc, g_abs.contiguous(), g_rel.contiguous(), count_as)
-    m = last_xy.shape[0]
-    h, hid, in_dim = w_hh.shape[1], w1h.shape[2], w_emb.shape[1]
+    raw = launch_bwd(args, out_abs, out_rel, hc, g_abs.contiguous(), g_rel.contiguous(),
+                     count_as)
+    return grads_from_raw(raw, last_xy.shape[0])
+
+
+def grads_from_raw(raw, m: int):
+    """K3's raw outputs (``launch_bwd``) -> the grads of ``DecodeAll``'s
+    tensor inputs, the per-row ones summed over generators and over the
+    copies of the ``m``-row inputs."""
+    d_h0, d_xy0, d_dxdy0, d_socb, dw = raw
+    g, _, h = d_h0.shape
+    hid = d_socb.shape[2]
+    in_dim = (dw.shape[1] - (h * h * 4 + h * 4 + hid * h + hid * 2 + 2)) // (h * 4)
     return (*weight_grads_from_image(dw, h, hid, in_dim), _untile(d_socb, m),
             d_h0.sum(0), _untile(d_xy0.sum(0), m), _untile(d_dxdy0.sum(0), m))
 

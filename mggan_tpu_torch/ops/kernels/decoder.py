@@ -17,8 +17,13 @@ rounds at other places): the folded ``w_emb``, ``w_hh`` and ``w1h`` and the
 operands of their products (``te``, ``h0``, every step's ``h`` and ``hid``
 before ``@ w2``) are rounded to bf16; the products accumulate in f32, and the
 biases, ``socb``, ``w2``, ``b2``, ``c`` and the position sums stay f32. On
-CUDA tensors it launches the kernel's bf16 variant (counted as
-``decode_select_bf16``).
+CUDA tensors it launches ``csrc/decode_select_mma.cu`` (counted as
+``decode_select_bf16``): rows grouped by generator inside a tile, the
+products on the tensor cores, weights as the fragment image
+``mma_weights``. The warp-per-row bf16 kernel it replaced stays in
+``csrc/decode_select.cu`` for comparison on the card
+(``launch_decode_select_bf16_warp``, counted as ``decode_select_bf16_warp``);
+no path launches it.
 
 ``ilp=True`` is the TPU kernel's ILP variant K5 (``_fwd_select_kernel_ilp``):
 on CUDA tensors it launches ``mggan_decode_select_ilp`` (counted as
@@ -48,6 +53,9 @@ from mggan_tpu_torch.utils.pytree import tree_leaves
 
 KERNEL = "decode_select"
 KERNEL_BF16 = "decode_select_bf16"
+KERNEL_BF16_WARP = "decode_select_bf16_warp"  # the warp-per-row bf16 kernel, for comparison
+MMA_SOURCE = "decode_select_mma"  # csrc/decode_select_mma.cu, K1-bf16
+MMA_TILES = (256, 128, 64, 32)  # rows of one K1-bf16 tile, largest first
 KERNEL_ILP = "decode_select_ilp"  # K5
 KERNEL_ILP_BF16 = "decode_select_ilp_bf16"
 FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
@@ -119,6 +127,72 @@ def kernel_weights(packed, compute_dtype=None):
         flat = torch.cat([whh, wemb, bias, w1, w2, b2], dim=1)
     flat = F.pad(flat, (0, -flat.shape[1] % 4))
     return flat.contiguous().reshape(-1), flat.shape[1]
+
+
+# Lane l of a warp is (row l // 4, quad l % 4) in mma.sync's fragments.
+_LANE_ROW = torch.arange(32) // 4
+_LANE_QUAD = torch.arange(32) % 4
+# k of each bf16 value of a lane's m16n8k16 B fragments for k-tiles 0 and 1:
+# (lane, word: b0b1 and b2b3 of k-tile 0, then of k-tile 1, half).
+_K16 = (16 * (torch.arange(4) // 2)[None, :, None] + 8 * (torch.arange(4) % 2)[None, :, None]
+        + 2 * _LANE_QUAD[:, None, None] + torch.arange(2)[None, None, :])
+# k of each bf16 value of a lane's m16n8k8 B fragment: (lane, half).
+_K8 = 2 * _LANE_QUAD[:, None] + torch.arange(2)[None, :]
+
+
+def _words(x):
+    """bf16 pairs on the last axis -> float32 words (the first of a pair in
+    the low 16 bits), flattened per generator."""
+    x = x.to(torch.bfloat16).contiguous()
+    return x.view(torch.float32).reshape(x.shape[0], -1)
+
+
+def mma_weights(packed):
+    """K1-bf16's shared-memory image (``csrc/decode_select_mma.cu``) per
+    generator, ``(G, 3268)`` float32 words: the bf16 B fragments of
+    ``w_hh``, ``w_emb`` and ``w1h`` in the order a warp's lanes load them,
+    then ``b``, ``w2`` and ``b2`` in f32.
+
+    Gate columns are reordered as (unit group u of 8 hidden units, gate,
+    unit): n-tile ``4u + gate`` holds gate ``gate`` of units ``8u..8u+7``.
+    Hidden units are padded to 32, hidden2pos columns to 32 and the input to
+    8 rows, all with zeros. Lane (row r, quad q) of the B fragment of n-tile
+    nt holds column ``8nt + r`` at k = 2q, 2q+1 (and + 8 in a k16 tile):
+    * ``whh [u][gate][lane][4 words]``: k-tile 0 (b0b1, b2b3), k-tile 1;
+    * ``wemb [u][lane][gate]``: one m16n8k8 word per gate;
+    * ``w1 [nt][lane][4 words]``: as ``whh``, n-tile nt of hidden2pos;
+    * ``b [u][gate][8]``, ``w2 [32][2]``, ``b2`` padded to 4 (f32).
+    """
+    g, in_dim, four_h = packed["w_emb"].shape
+    h, hid = four_h // 4, packed["w1h"].shape[2]
+    if h > 32 or hid > 32 or in_dim > 8:
+        raise ValueError(f"K1-bf16 takes H, hid <= 32 and in <= 8; got {h}, {hid}, {in_dim}")
+
+    def gate_tiles(w, k_pad):  # (G, K, 4H) -> (G, u, gate, k_pad, n)
+        k = w.shape[1]
+        w = F.pad(w.reshape(g, k, 4, h), (0, 32 - h, 0, 0, 0, k_pad - k))
+        return w.reshape(g, k_pad, 4, 4, 8).permute(0, 3, 2, 1, 4)
+
+    whh = gate_tiles(packed["w_hh"], 32)[:, :, :, _K16, _LANE_ROW[:, None, None]]
+    wemb = gate_tiles(packed["w_emb"], 8)[:, :, :, _K8, _LANE_ROW[:, None]]
+    w1 = F.pad(packed["w1h"], (0, 32 - hid, 0, 32 - h)).reshape(g, 32, 4, 8).permute(0, 2, 1, 3)
+    w1 = w1[:, :, _K16, _LANE_ROW[:, None, None]]
+    bias = F.pad(packed["b"].reshape(g, 4, h), (0, 32 - h)).reshape(g, 4, 4, 8).transpose(1, 2)
+    return torch.cat([
+        _words(whh), _words(wemb.permute(0, 1, 3, 2, 4)), _words(w1),
+        bias.reshape(g, -1), F.pad(packed["w2"], (0, 0, 0, 32 - hid)).reshape(g, -1),
+        F.pad(packed["b2"], (0, 2)),
+    ], dim=1).contiguous()
+
+
+def mma_tile_rows(n: int, sms: int) -> int:
+    """Rows of one K1-bf16 tile for ``n`` rows on ``sms`` SMs: the largest
+    of ``MMA_TILES`` that still gives every SM a tile (fewer rows per tile
+    pad more of each generator's bucket to 16), else the smallest."""
+    for tile in MMA_TILES:
+        if -(-n // tile) >= sms:
+            return tile
+    return MMA_TILES[-1]
 
 
 def tile_rows(x, n):
@@ -220,9 +294,11 @@ SELECT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_in
 
 
 @functools.cache
-def _kernel_fn(bf16: bool, ilp: bool = False):
-    lib = build.load(KERNEL)
-    fn = getattr(lib, "mggan_decode_select" + ("_ilp" if ilp else "") + ("_bf16" if bf16 else ""))
+def _kernel_fn(stem: str, name: str):
+    """``name`` of the library built from ``csrc/<stem>.cu`` with the
+    rollout kernels' argument types, and the library's error strings."""
+    lib = build.load(stem)
+    fn = getattr(lib, name)
     fn.argtypes = SELECT_ARGTYPES
     fn.restype = ctypes.c_int
     lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
@@ -286,6 +362,12 @@ def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
                            inp_format, compute_dtype)
     check_arg("gen_idx", gen_idx, (h0.shape[0],), torch.int32, h0.device)
     args["tensors"] += (gen_idx,)
+    if args["bf16"]:  # K1-bf16's fragment image (the warp image stays for K5-bf16)
+        image = mma_weights(packed)
+        if image.numel() * 4 > MAX_SHARED_BYTES:  # G <= 17 at any width
+            raise ValueError(f"{image.shape[0]} generators' K1-bf16 images exceed one "
+                             "block's shared memory")
+        args["mma_wpack"] = image.reshape(-1)
     return args
 
 
@@ -294,6 +376,40 @@ def launch_decode_select(args, ilp: bool = False):
     say; K5, a warp per pair of rows, with ``ilp``) on the current stream
     with checked arguments from ``prepare_decode_select``; returns
     ``(abs, rel)``."""
+    if args["bf16"] and not ilp:
+        return _launch(args, MMA_SOURCE, "mggan_decode_select_bf16", KERNEL_BF16)
+    if ilp:
+        name = KERNEL_ILP_BF16 if args["bf16"] else KERNEL_ILP
+    else:
+        name = KERNEL
+    return _launch(args, KERNEL, "mggan_" + name, name)
+
+
+def mma_warps_per_sm(num_gens: int) -> int:
+    """Resident warps per SM of K1-bf16's kernel with ``num_gens``
+    generators' images in shared memory."""
+    lib = build.load(MMA_SOURCE)
+    fn = lib.mggan_decode_select_bf16_warps_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    rc = fn(num_gens, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"mggan_decode_select_bf16_warps_per_sm failed with CUDA error {rc}")
+    return warps.value
+
+
+def launch_decode_select_bf16_warp(args):
+    """The warp-per-row bf16 kernel that K1-bf16's tensor-core design
+    replaced, on bf16 arguments from ``prepare_decode_select``: the same
+    function, for comparing the two on the card (counted as
+    ``decode_select_bf16_warp``)."""
+    if not args["bf16"]:
+        raise ValueError("the warp-per-row bf16 kernel takes bf16 arguments")
+    return _launch(args, KERNEL, "mggan_decode_select_bf16_warp", KERNEL_BF16_WARP)
+
+
+def _launch(args, stem, symbol, count_as):
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
     dev = tensors[1].device
@@ -301,16 +417,18 @@ def launch_decode_select(args, ilp: bool = False):
     out_rel = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out_abs, out_rel
-    fn, err_str = _kernel_fn(args["bf16"], ilp)
+    fn, err_str = _kernel_fn(stem, symbol)
+    if stem == MMA_SOURCE:  # the fragment image, and rows per tile for the last argument
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tensors = (args["mma_wpack"],) + tensors[1:]
+        dims = dims[:8] + (mma_tile_rows(n, sms),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in tensors), out_abs.data_ptr(),
                 out_rel.data_ptr(), *dims, stream)
-    name = ((KERNEL_ILP_BF16 if ilp else KERNEL_BF16) if args["bf16"]
-            else (KERNEL_ILP if ilp else KERNEL))
     if rc:
-        raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()} ({rc})")
-    kernels.launches[name] += 1
+        raise RuntimeError(f"{count_as} launch failed: {err_str(rc).decode()} ({rc})")
+    kernels.launches[count_as] += 1
     return out_abs, out_rel
 
 

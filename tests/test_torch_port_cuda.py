@@ -122,8 +122,8 @@ BF16_ATOL = 2e-3  # bf16 operands: a rounding of h can flip between the card and
 @pytest.mark.parametrize("h_dim", [32, 20])
 def test_bf16_kernels_match_reference(cuda, inp_format, h_dim):
     """K1's and K2's bf16 variants against their bf16 plain versions, and
-    K1-bf16 equal to K2-bf16 on the selected rows bit for bit (one rollout
-    template, one arithmetic)."""
+    the warp-per-row K1-bf16 equal to K2-bf16 on the selected rows bit for
+    bit (one rollout template, one arithmetic)."""
     stacked, rows = _decode_all_case(inp_format, h_dim, seed=3)
     idx = torch.from_numpy(np.random.RandomState(3).randint(0, 4, rows[3].shape[0])
                            .astype(np.int32))
@@ -140,7 +140,9 @@ def test_bf16_kernels_match_reference(cuda, inp_format, h_dim):
     for a, b in zip(sel + every, want_sel + want_all):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=BF16_ATOL)
     rows_n = torch.arange(idx.shape[0], device=cuda)
-    for a, b in zip(sel, every):
+    warp = kdec.launch_decode_select_bf16_warp(kdec.prepare_decode_select(
+        *on, T, inp_format, compute_dtype=bf16))
+    for a, b in zip(warp, every):
         assert torch.equal(a, b[idx.to(cuda).long(), rows_n])
 
 
@@ -155,12 +157,17 @@ def _select_case(n_agents, k, seed, feat=32):
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("k", [20, 7])  # 7 x 37 rows: odd, the last pair has one row
 def test_ilp_equals_k1_bit_for_bit(cuda, compute_dtype, k):
-    """K5 keeps K1's operations per row, so its output has K1's bits; so
-    does B1's f32 variant (K1's activations)."""
+    """K5 keeps K1's operations per row, so its output has K1's bits (in
+    bf16 the warp-per-row K1-bf16's); so does B1's f32 variant (K1's
+    activations)."""
     stacked, rows, idx = _select_case(37, k, seed=5)
     on = [_on(x, cuda) for x in (stacked, *rows, idx)]
     before = dict(kernels.launches)
-    k1 = kdec.decode_select(*on, T, "rel", compute_dtype=compute_dtype)
+    if compute_dtype is None:
+        k1 = kdec.decode_select(*on, T, "rel")
+    else:
+        k1 = kdec.launch_decode_select_bf16_warp(kdec.prepare_decode_select(
+            *on, T, "rel", compute_dtype=compute_dtype))
     k5 = kdec.decode_select(*on, T, "rel", compute_dtype=compute_dtype, ilp=True)
     torch.cuda.synchronize()
     name = kdec.KERNEL_ILP_BF16 if compute_dtype else kdec.KERNEL_ILP
@@ -214,7 +221,11 @@ def test_sorted_route_matches_reference(cuda, inp_format, feat, skew, compute_dt
     name = ks.KERNEL_BF16 if compute_dtype else ks.KERNEL
     assert kernels.launches[name] == before.get(name, 0) + 1
     want = ks.decode_select_sorted(stacked, *rows, idx, T, inp_format, compute_dtype)
-    k1 = kdec.decode_select(*on, T, inp_format, compute_dtype=compute_dtype)
+    if compute_dtype is None:
+        k1 = kdec.decode_select(*on, T, inp_format)
+    else:  # the warp-per-row K1-bf16: K4's rollout
+        k1 = kdec.launch_decode_select_bf16_warp(kdec.prepare_decode_select(
+            *on, T, inp_format, compute_dtype=compute_dtype))
     atol = BF16_ATOL if compute_dtype else ATOL
     for a, b, c in zip(got, want, k1):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=atol)
@@ -287,3 +298,101 @@ def test_bf16_grads_match_plain_sweep(cuda, inp_format):
     route = torch.autograd.grad((a * g_abs).sum() + (r * g_rel).sum(), leaves)
     for x, y in zip(route, got):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The two kernels redesigned for the H100: K3 with rows of one generator
+# tiled per warp (8 rows a tile: 740 rows leave a partial tile) and K1-bf16
+# on the tensor cores (rows bucketed by generator, 16 to an mma).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format", ["rel", "abs_rel"])
+def test_tiled_k3_matches_warp_baseline(cuda, inp_format):
+    """K3 against the plain sweep and against the warp-per-row sweep it
+    replaced, at 37 x 20 = 740 rows: per-row grads at rtol/atol 2e-4,
+    weight grads within 1e-3 x max|grad| (chip_smoke.py's limits); two
+    launches give the same bits."""
+    stacked, rows = _decode_all_case(inp_format, 32, seed=9)
+    packed = kdec.pack_decoder_params(_on(stacked, cuda), inp_format)
+    inputs = [packed[k].contiguous() for k in kda.PACKED] + [
+        kdec.social_bias(packed, rows[2].to(cuda)).contiguous(), rows[3].to(cuda),
+        rows[0].to(cuda), rows[1].to(cuda)]
+    args = kda.prepare(*inputs, T, inp_format)
+    out = kda.launch_fwd(args, save_hc=True)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    g_abs = torch.randn(out[0].shape, generator=gen, device=cuda)
+    g_rel = torch.randn(out[1].shape, generator=gen, device=cuda)
+    before = dict(kernels.launches)
+    first = kda.launch_bwd(args, *out, g_abs, g_rel)
+    second = kda.launch_bwd(args, *out, g_abs, g_rel)
+    base = kda.launch_bwd_warp(args, *out, g_abs, g_rel)
+    torch.cuda.synchronize()
+    assert kernels.launches[kda.KERNEL_BWD] == before.get(kda.KERNEL_BWD, 0) + 2
+    assert kernels.launches[kda.KERNEL_BWD_WARP] == before.get(kda.KERNEL_BWD_WARP, 0) + 1
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    m = rows[0].shape[0]
+    got = kda.grads_from_raw(first, m)
+    plain = kda.decode_all_bwd_reference(*inputs, *out, g_abs, g_rel, T, inp_format)
+    for want in (plain, kda.grads_from_raw(base, m)):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if i < 6:
+                assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+            else:
+                np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-4,
+                                           atol=2e-4)
+
+
+def _mma_case(idx_rule, seed=10, m=37, k=20):
+    stacked, rows = _decode_all_case("rel", 32, m=m, k=k, seed=seed)
+    rng = np.random.RandomState(seed)
+    idx = idx_rule(rng.randint(0, 4, m * k)).astype(np.int32)
+    return stacked, rows, torch.from_numpy(idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "generator 1 absent", "all on generator 3",
+                                  "rows without a generator"])
+def test_bf16_tensor_core_kernel_matches_reference(cuda, case):
+    """K1-bf16 on the tensor cores at 740 rows against its bf16 plain
+    version (2e-3, the CPU tests' bf16 limit at this size) and against the
+    warp-per-row bf16 kernel it replaced (4e-3, chip_smoke.py's limit);
+    rows whose generator is out of range come back NaN."""
+    rules = {"random": lambda i: i, "generator 1 absent": lambda i: np.where(i == 1, 0, i),
+             "all on generator 3": lambda i: np.full_like(i, 3),
+             "rows without a generator": lambda i: np.where(np.arange(i.size) % 13 == 0,
+                                                            np.where(i % 2 == 0, -1, 4), i)}
+    stacked, rows, idx = _mma_case(rules[case])
+    bf16 = torch.bfloat16
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    before = dict(kernels.launches)
+    got = kdec.decode_select(*on, T, "rel", compute_dtype=bf16)
+    warp = kdec.launch_decode_select_bf16_warp(kdec.prepare_decode_select(
+        *on, T, "rel", compute_dtype=bf16))
+    torch.cuda.synchronize()
+    assert kernels.launches[kdec.KERNEL_BF16] == before.get(kdec.KERNEL_BF16, 0) + 1
+    bad = ((idx < 0) | (idx >= 4)).numpy()
+    want = kdec.decode_select_reference(stacked, *rows, idx.clamp(0, 3), T, "rel", bf16)
+    for a, b, w in zip(got, want, warp):
+        a, b, w = a.cpu().numpy(), b.numpy(), w.cpu().numpy()
+        assert np.isnan(a[bad]).all() and np.isfinite(a[~bad]).all()
+        np.testing.assert_allclose(a[~bad], b[~bad], atol=BF16_ATOL)
+        np.testing.assert_allclose(a[~bad], w[~bad], atol=4e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format,h_dim", [("abs", 20), ("abs_rel", 32)])
+def test_bf16_tensor_core_kernel_widths_and_formats(cuda, inp_format, h_dim):
+    """K1-bf16 with hidden units and hidden2pos columns that do not fill
+    the fragments (h=20, hid=10) and with every input format; M < N rows
+    (k=20 samples of each agent's inputs)."""
+    stacked, rows = _decode_all_case(inp_format, h_dim, seed=11)
+    idx = torch.from_numpy(np.random.RandomState(11).randint(0, 4, rows[3].shape[0])
+                           .astype(np.int32))
+    got = kdec.decode_select(*[_on(x, cuda) for x in (stacked, *rows, idx)], T, inp_format,
+                             compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    want = kdec.decode_select_reference(stacked, *rows, idx, T, inp_format, torch.bfloat16)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=BF16_ATOL)
