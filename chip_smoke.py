@@ -41,10 +41,10 @@ Phases, in order; any failure exits nonzero before the result line:
  10. ablation kernels: K4's route (``decode_select_sorted``) against its
      plain version in the three input formats, with F=0 and with every row
      on one generator, f32 (atol 1e-4) and bf16 (atol 4e-3) at 4,096 rows;
-     at 20,480 rows K5 and B1-f32 equal to K1 bit for bit (K5-bf16 to the
-     warp-per-row K1-bf16), K5, B1 (f32, bf16, lin), K4's route and B2
-     against their plain versions, each timed beside its plain version and
-     its bound, K4's route against K1;
+     at 20,480 rows K5 and B1-f32 equal to the warp-per-row K1 bit for bit
+     (K5-bf16 to the warp-per-row K1-bf16), K5, B1 (f32, bf16, lin), K4's
+     route and B2 against their plain versions, each timed beside its plain
+     version and its bound, K4's route against K1;
  11. K3 after a bf16 forward at the PM step's 4,096 x 4 rows: K2-bf16's
      saved (h, c) against the bf16 plain forward's (atol 4e-3, mean 1e-6,
      h rounded to bf16, c not; the f32 forward's hc must fail), the whole
@@ -55,18 +55,29 @@ Phases, in order; any failure exits nonzero before the result line:
      limits; ``DecodeAll`` in bf16 gives K3's grads bit for bit;
  12. the ablation path, launch counts read around it: the entry points'
      timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``, with each
-     kernel's resident warps per SM and bounds), K5 and B1-f32 equal to K1
-     bit for bit there, K4's route within 1e-4 of K1 (bf16: 4e-3 of the
-     warp-per-row K1-bf16), a bf16 gradient of ``decode_all``; then
+     kernel's resident warps per SM and bounds), K5, B1-f32 and the tiled K1
+     equal to the warp-per-row K1 bit for bit there (after the counts), K4's
+     route within 1e-4 of K1 (bf16: 4e-3 of the warp-per-row K1-bf16), a
+     bf16 gradient of ``decode_all``; then
      B1-bf16, B1-lin and B2 against their plain versions at those rows;
- 13. the two kernels redesigned for the H100, each against its plain
-     version and timed beside the kernel it replaced (kept in the sources
-     for this; no path launches it), with registers and resident warps:
-     K3 (rows of one generator tiled per warp) at 4,096 x 4 and 81,920 x 4
-     rows, K1-bf16 (tensor cores) at 9,728 and 1,310,720 rows with a mean
-     limit and, at 9,728, skewed, partial and missing generator choices;
- 14. a JSON line listing every ported kernel, then the result line
+ 13. the kernels redesigned for the H100, each against its plain version
+     and timed beside the kernel it replaced (kept in the sources for this;
+     no path launches it), with registers and resident warps: K3 (rows of
+     one generator tiled per warp) at 4,096 x 4 and 81,920 x 4 rows,
+     K1-bf16 (tensor cores) at 9,728 and 1,310,720 rows with a mean limit
+     and, at 9,728, skewed, partial and missing generator choices; the f32
+     K1 and K2 (rows of one generator tiled per warp) at every main-path
+     shape (K1: 960, 4,096, 9,728, 20,480 and 1,310,720 rows; K2: 4,096 x 4,
+     9,728 x 4 and 81,920 x 4 with hc), bit for bit against the
+     warp-per-row kernels;
+ 14. a JSON line listing every ported kernel (the replaced f32 K1 and K2
+     under their successors' ``baseline``), then the result line
      ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --sweep`` instead runs phases 1 and 2 and then
+times the tiled K1 and K2 at every launch shape their wrappers can pick, at
+the main paths' row counts (``SWEEP`` line), the data behind the launch
+rules.
 
 Imports neither JAX nor the JAX package ``mggan_tpu``.
 """
@@ -1099,7 +1110,8 @@ def phase_bench_sampling(reps=3):
                               f"sampling {mode}, {s} scenes x {p} peds, k={NUM}", "call")
         # one K1 variant runs per mode; the profiler names it by its kernel
         k1_ms = sum(v for name, v in prof["by_name_ms"].items()
-                    if "decode_select_kernel" in name or "decode_select_mma_kernel" in name)
+                    if any(k in name for k in ("decode_select_kernel", "decode_select_tiled_kernel",
+                                               "decode_select_mma_kernel")))
         p50 = float(np.median(times))
         out[mode] = {"p50_ms": p50, "times_ms": times, "traj_per_s": s * p * NUM / p50 * 1e3,
                      "launches": launches, "peak_gib": peak, "k1_device_ms": k1_ms,
@@ -1147,7 +1159,8 @@ def phase_ablation_kernels():
     (launches here are not the path's): K4's route in the three input
     formats, with F=0 and with every row on one generator, f32 and bf16;
     then, on the benchmarks' inputs at ABL_ROWS rows, K5 and B1-f32 against
-    K1 bit for bit, each new kernel against its plain version and timed
+    the warp-per-row K1 bit for bit, each new kernel against its plain
+    version and timed
     beside it and its bound, K4's route against K1 and B2 on grouped rows."""
     import torch
 
@@ -1201,8 +1214,9 @@ def phase_ablation_kernels():
     inp = make_inputs(ABL_ROWS, SEED)
     args, p32, p16 = dab.prepare(inp)
     calls = dab.variants(inp)
-    # K5-bf16 and K4-bf16 keep the warp-per-row rollout: held to that K1-bf16
-    k1, k1_bf16 = calls["kernel_select"](), kdec.launch_decode_select_bf16_warp(p16)
+    # K5, B1 and K4 keep the warp-per-row rollout: held to the warp-per-row
+    # K1 and K1-bf16
+    k1, k1_bf16 = kdec.launch_decode_select_warp(p32), kdec.launch_decode_select_bf16_warp(p16)
     torch.cuda.synchronize()
     plain = {"f32": lambda: kdec.decode_select_reference(*args),
              "bf16": lambda: kdec.decode_select_reference(*args, compute_dtype=bf16),
@@ -1387,8 +1401,8 @@ def phase_bf16_backward():
 def phase_ablation_path(reps=5):
     """The decoder ablation path, launch counts read around it: the two
     entry points' timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``),
-    K5 and B1-f32 equal to K1 bit for bit there (K5-bf16 to the warp-per-row
-    K1-bf16, after the counts), K4's
+    K5, B1-f32 and the tiled K1 equal to the warp-per-row K1 bit for bit
+    there (K5-bf16 to the warp-per-row K1-bf16; after the counts), K4's
     route within KERNEL_ATOL of K1 and its bf16 route within BF16_ATOL of
     K1-bf16, and a bf16 gradient of ``decode_all`` at the PM step's rows
     (K2-bf16, then K3 in f32). Then, outside the counts, B1-bf16, B1-lin
@@ -1419,8 +1433,6 @@ def phase_ablation_path(reps=5):
     sort_ms = sab.run(inp, reps)
     calls = dab.variants(inp)
     k1 = calls["kernel_select"]()
-    equal = {name: all(torch.equal(a, b) for a, b in zip(calls[name](), k1))
-             for name in ("kernel_ilp", "kernel_f32")}
     route = ks.decode_select_sorted(*sab.route_args(inp))
     route16 = ks.decode_select_sorted(*sab.route_args(inp), compute_dtype=torch.bfloat16)
     vs_k1 = max(float((a - b).abs().max()) for a, b in zip(route, k1))
@@ -1435,8 +1447,12 @@ def phase_ablation_path(reps=5):
     warps = {**dab.resident_warps(inp),
              **{f"sorted_{k}": v for k, v in sab.resident_warps(inp).items()}}
     args, p32, p16 = dab.prepare(inp)
-    # after the counts: K5-bf16 and K4's bf16 route against the warp-per-row
-    # K1-bf16 (the same rollout), which no path launches
+    # after the counts: K5, B1-f32 and the tiled K1 against the warp-per-row
+    # K1, K5-bf16 and K4's bf16 route against the warp-per-row K1-bf16 (the
+    # rollouts they share), which no path launches
+    k1_warp = kdec.launch_decode_select_warp(p32)
+    equal = {name: all(torch.equal(a, b) for a, b in zip(calls[name](), k1_warp))
+             for name in ("kernel_ilp", "kernel_f32", "kernel_select")}
     k1_bf16 = kdec.launch_decode_select_bf16_warp(p16)
     equal["kernel_ilp_bf16"] = all(torch.equal(a, b)
                                    for a, b in zip(calls["kernel_ilp_bf16"](), k1_bf16))
@@ -1469,8 +1485,9 @@ def phase_ablation_path(reps=5):
     print(f"ablation path launches ({secs:.2f} s): {json.dumps(launches)}")
     print("DECODEABL " + json.dumps({"rows": N, "ms": dec_ms, "warps_per_sm": warps}))
     print("SORTEDPARTS " + json.dumps({"rows": N, "ms": sort_ms}))
-    print(f"ablation path at {N} rows: K5 == K1 {equal['kernel_ilp']}, B1-f32 == K1 "
-          f"{equal['kernel_f32']}, K5-bf16 == K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
+    print(f"ablation path at {N} rows, against the warp-per-row K1: K5 {equal['kernel_ilp']}, "
+          f"B1-f32 {equal['kernel_f32']}, the tiled K1 {equal['kernel_select']} (bit for bit); "
+          f"K5-bf16 == K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
           f"against K1 {vs_k1:.3e} (atol {KERNEL_ATOL:g}), its bf16 route against K1-bf16 "
           f"{vs_k1_bf16:.3e} (atol {BF16_ATOL:g}); bounds {json.dumps(bounds)}; "
           f"bf16 decode_all grads finite {grads_finite}")
@@ -1486,7 +1503,7 @@ def phase_ablation_path(reps=5):
     check(at_n["kernel_bf16"]["k1_vs_plain"] > B1_BF16_ATOL,
           f"ablation path: K1 passes B1-bf16's limit at {N} rows")
     check(grads_finite, "ablation path: non-finite bf16 grads")
-    del inp, calls, k1, k1_bf16, route, route16, args, p32, p16, packed, grouped, tiles
+    del inp, calls, k1, k1_warp, k1_bf16, route, route16, args, p32, p16, packed, grouped, tiles
     torch.cuda.empty_cache()
     return {"rows": N, "seconds": secs, "launches": launches, "decodeabl_ms": dec_ms,
             "sortedparts_ms": sort_ms, "warps_per_sm": warps, "bounds_1310720": bounds,
@@ -1681,7 +1698,232 @@ def phase_redesigned():
         del case, args, p16, p32, got, warp, f32, want
         torch.cuda.empty_cache()
     print(f"K1-bf16 launch shapes (registers per thread from nvcc): {json.dumps(sel['config'])}")
-    return {"decode_all_bwd": k3, "decode_select_bf16": sel}
+    return {"decode_all_bwd": k3, "decode_select_bf16": sel, **redesigned_tiled(gen)}
+
+
+K1_SWEEP_ROWS = (320, 960, 2_560, 4_096, 9_728, 20_480, 1_310_720)
+K2_SWEEP_ROWS = (4_096, 9_728, 81_920)
+
+
+def phase_launch_sweep(reps=5):
+    """``python3 chip_smoke.py --sweep``: the tiled K1 and K2 timed at
+    every launch shape their wrappers can pick, at the main paths' row
+    counts (the rule's pick marked), beside the warp-per-row kernels, and
+    each launch checked bit for bit against them. Prints one ``SWEEP``
+    JSON line; not part of the default run."""
+    import torch
+
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 8)
+    on = lambda x: ({key: on(v) for key, v in x.items()} if isinstance(x, dict)
+                    else x.to("cuda"))
+    out = {"k1": {}, "k2": {}, "sms": sms}
+    for n in K1_SWEEP_ROWS:
+        num = NUM if n % (PEDS * NUM) == 0 else 1  # else one row per agent
+        case = on(decode_select_case(n // (PEDS * num), gen, num=num))
+        args = (case["stacked"], case["xy"], case["dxdy"], case["soc"], case["h0"],
+                case["idx"], 12, "rel")
+        p = kdec.prepare_decode_select(*args)
+        base = kdec.launch_decode_select_warp(p)
+        warp_ms = cuda_time_ms(lambda: kdec.launch_decode_select_warp(p), reps)
+        pick = kdec.tiled_launch(n, sms)
+        res = {"warp_ms": warp_ms, "rule": pick, "shapes": {}}
+        for r in kdec.TILED_ROWS:
+            for tile in kdec.TILED_TILES:
+                blocks = max(1, min(-(-n // tile), sms * kdec.TILED_BLOCKS_PER_SM))
+                shape = (r, tile, blocks)
+                got = kdec.launch_decode_select(p, shape=shape)
+                same = all(torch.equal(a, b) for a, b in zip(got, base))
+                check(same, f"sweep: tiled K1 {shape} at {n} rows differs from the warp kernel")
+                res["shapes"][f"{r}/{tile}"] = cuda_time_ms(
+                    lambda: kdec.launch_decode_select(p, shape=shape), reps)
+        best = min(res["shapes"], key=res["shapes"].get)
+        print(f"sweep K1 N={n}: warp-per-row {warp_ms:.4f} ms; rule R/tile {pick[0]}/{pick[1]} "
+              f"{res['shapes'][f'{pick[0]}/{pick[1]}']:.4f} ms; best {best} "
+              f"{res['shapes'][best]:.4f} ms")
+        out["k1"][n] = res
+        del case, args, p, base
+    for n in K2_SWEEP_ROWS:
+        inputs = decode_all_case(n, 1, gen)
+        p = kda.prepare(*inputs, 12, "rel")
+        hc = n == K2_SWEEP_ROWS[-1]  # the G step saves (h, c)
+        base = kda.launch_fwd_warp(p, hc)
+        warp_ms = cuda_time_ms(lambda: kda.launch_fwd_warp(p, hc), reps)
+        pick = kda.fwd_launch(n, 4, sms)
+        res = {"warp_ms": warp_ms, "save_hc": hc, "rule": pick, "shapes": {}}
+        for r in kdec.TILED_ROWS:
+            groups = -(-n // (kda.FWD_WARPS * r))
+            for per_gen in sorted({max(1, min(groups, b)) for b in (8, 17, 33, 66, 132, 264)}):
+                shape = (r, per_gen)
+                got = kda.launch_fwd(p, hc, shape=shape)
+                same = all(torch.equal(a, b) for a, b in zip(got, base) if a is not None)
+                check(same, f"sweep: tiled K2 {shape} at {n} x 4 differs from the warp kernel")
+                res["shapes"][f"{r}/{per_gen}"] = cuda_time_ms(
+                    lambda: kda.launch_fwd(p, hc, shape=shape), reps)
+        best = min(res["shapes"], key=res["shapes"].get)
+        print(f"sweep K2 N={n} x 4 (hc {hc}): warp-per-row {warp_ms:.4f} ms; rule R/blocks "
+              f"{pick[0]}/{pick[1]} {res['shapes'][f'{pick[0]}/{pick[1]}']:.4f} ms; best {best} "
+              f"{res['shapes'][best]:.4f} ms")
+        out["k2"][n] = res
+        del inputs, p, base
+    torch.cuda.empty_cache()
+    print("SWEEP " + json.dumps(out))
+    return out
+
+
+def kernel_device_ms(fn, needle, reps=10):
+    """Mean device time of one kernel whose name holds ``needle``, over
+    ``reps`` calls of ``fn`` that launch one each (torch.profiler): the
+    kernel alone, without the host's launch cost, which CUDA events around
+    back-to-back calls include once it exceeds the kernel's own time. The
+    mean is over the kernel records the profiler kept, which may be fewer
+    than ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA and needle in ev.name]
+    check(us, f"the profiler kept no record of a kernel named *{needle}*")
+    return sum(us) / len(us) / 1e3
+
+
+# phase 13's shapes of the tiled f32 K1 and K2: (label, scenes, samples)
+# and (label, agents, samples, saving hc), those of the main paths
+K1_TILED_SHAPES = (("serving small", 3, NUM), ("D step", TRAIN_SCENES, 1),
+                   ("eval", EVAL_BATCH, EVAL_K), ("serving", BUCKETS[-1], NUM),
+                   ("bench", BENCH_SCENES, NUM))
+K2_TILED_SHAPES = (("pm", TRAIN_SCENES * PEDS, 1, False), ("eval", EVAL_BATCH * PEDS, EVAL_K, False),
+                   ("g", TRAIN_SCENES * PEDS, NUM, True))
+
+
+def redesigned_tiled(gen):
+    """Phase 13, the f32 K1 and K2 with rows of one generator tiled per
+    warp: at every main-path shape, bit for bit against the warp-per-row
+    kernels they replaced (kept for this; no path launches them), max abs
+    error against the plain version (KERNEL_ATOL), both timed in turns,
+    with the launch the rule picked, registers and resident warps."""
+    import torch
+
+    from mggan_tpu_torch.ops.kernels import build
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    on = lambda x: ({key: on(v) for key, v in x.items()} if isinstance(x, dict)
+                    else x.to("cuda"))
+    err = lambda a_, b_: max(float((x - y).abs().max()) for x, y in zip(a_, b_))
+    sel = {"shapes": {}}
+    for label, scenes, k in K1_TILED_SHAPES:
+        case = on(decode_select_case(scenes, gen, num=k))
+        args = (case["stacked"], case["xy"], case["dxdy"], case["soc"], case["h0"],
+                case["idx"], 12, "rel")
+        p = kdec.prepare_decode_select(*args)
+        n = p["dims"][0]
+        got, base = kdec.launch_decode_select(p), kdec.launch_decode_select_warp(p)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, base))
+        want = kdec.decode_select_reference(*args)
+        e_new, e_old = err(got, want), err(base, want)
+        reps = 5 if n > 100_000 else 20
+        old_ms, new_ms = alternate_ms(lambda: kdec.launch_decode_select_warp(p),
+                                      lambda: kdec.launch_decode_select(p), reps)
+        plain_ms = cuda_time_ms(lambda: kdec.decode_select_reference(*args), 2, warmup=1)
+        dev_new = kernel_device_ms(lambda: kdec.launch_decode_select(p),
+                                   "decode_select_tiled_kernel")
+        dev_old = kernel_device_ms(lambda: kdec.launch_decode_select_warp(p),
+                                   "decode_select_kernel")
+        b = decode_select_bound_ms(p)
+        launch = kdec.tiled_launch(n, sms)
+        sel["shapes"][label] = {
+            "n_rows": n, "bit_identical_to_warp_baseline": same, "max_abs_err": e_new,
+            "warp_baseline_max_abs_err": e_old, "ms": new_ms, "warp_baseline_ms": old_ms,
+            "device_ms": dev_new, "warp_baseline_device_ms": dev_old,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "rows_per_warp": launch[0], "tile_rows": launch[1], "blocks": launch[2]}
+        print(f"K1 tiled [{label}] N={n} (R={launch[0]}, tiles of {launch[1]} rows, "
+              f"{launch[2]} blocks): equal to the warp-per-row K1 bit for bit {same}; max_abs_err "
+              f"{e_new:.3e} (atol {KERNEL_ATOL:g}; warp-per-row {e_old:.3e}); kernel "
+              f"{new_ms:.4f} ms, warp-per-row {old_ms:.4f} ms (same call, in turns; device time "
+              f"alone {dev_new:.4f} and {dev_old:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{b[0]:.4f} ms by {b[1]}")
+        check(same, f"K1 tiled {label}: differs from the warp-per-row K1")
+        check(e_new <= KERNEL_ATOL, f"K1 tiled {label}: max abs err {e_new:.3e}")
+        if label == "eval":
+            smem = nbytes_of(p["tensors"][0])
+            sel["config"] = {
+                "new": {f"R={r}": {"warps_per_sm": kdec.tiled_warps_per_sm(p, r),
+                                   "registers": ptxas_registers(
+                                       "decode_select_tiled",
+                                       f"decode_select_tiled_kernelILi{r}ELi32ELi16E")}
+                        for r in kdec.TILED_ROWS},
+                "warp_baseline": {
+                    "warps_per_sm": build.warps_per_sm(
+                        "decode_select", "mggan_decode_select_warps_per_sm", 0, smem),
+                    "registers": ptxas_registers("decode_select", "decode_select_kernelIfE")}}
+        del case, args, p, got, base, want
+        torch.cuda.empty_cache()
+    print(f"K1 tiled launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(sel['config'])}")
+
+    every = {"shapes": {}}
+    for label, m, k, save_hc in K2_TILED_SHAPES:
+        inputs = decode_all_case(m, k, gen)
+        p = kda.prepare(*inputs, 12, "rel")
+        n = m * k
+        got, base = kda.launch_fwd(p, True), kda.launch_fwd_warp(p, True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, base))
+        want = kda.decode_all_reference(*inputs, 12, "rel", save_hc=True)
+        e_new, e_old = err(got, want), err(base, want)
+        reps = 5 if n > 50_000 else 20
+        old_ms, new_ms = alternate_ms(lambda: kda.launch_fwd_warp(p, save_hc),
+                                      lambda: kda.launch_fwd(p, save_hc), reps)
+        plain_ms = cuda_time_ms(lambda: kda.decode_all_reference(
+            *inputs, 12, "rel", save_hc=save_hc), 2, warmup=1)
+        dev_new = kernel_device_ms(lambda: kda.launch_fwd(p, save_hc),
+                                   "decode_all_fwd_tiled_kernel")
+        dev_old = kernel_device_ms(lambda: kda.launch_fwd_warp(p, save_hc),
+                                   "decode_all_fwd_kernel")
+        b = decode_all_bound_ms(p, got if save_hc else got[:2])
+        launch = kda.fwd_launch(n, 4, sms)
+        every["shapes"][label] = {
+            "n_rows": n, "save_hc": save_hc, "bit_identical_to_warp_baseline": same,
+            "max_abs_err": e_new, "warp_baseline_max_abs_err": e_old, "ms": new_ms,
+            "warp_baseline_ms": old_ms, "device_ms": dev_new, "warp_baseline_device_ms": dev_old,
+            "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "rows_per_warp": launch[0], "blocks_per_gen": launch[1]}
+        print(f"K2 tiled [{label}] N={n} x G=4{' saving hc' if save_hc else ''} (R={launch[0]}, "
+              f"{launch[1]} blocks per generator): (abs, rel, hc) equal to the warp-per-row K2 "
+              f"bit for bit {same}; max_abs_err {e_new:.3e} (atol {KERNEL_ATOL:g}; warp-per-row "
+              f"{e_old:.3e}); kernel {new_ms:.4f} ms, warp-per-row {old_ms:.4f} ms (same call, "
+              f"in turns; device time alone {dev_new:.4f} and {dev_old:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]}")
+        check(same, f"K2 tiled {label}: differs from the warp-per-row K2")
+        check(e_new <= KERNEL_ATOL, f"K2 tiled {label}: max abs err {e_new:.3e}")
+        if label == "pm":
+            every["config"] = {
+                "new": {f"R={r}": {"warps_per_sm": kda.fwd_warps_per_sm(p, r),
+                                   "registers": ptxas_registers(
+                                       "decode_all", f"decode_all_fwd_tiled_kernelILi{r}ELi32ELi16E")}
+                        for r in kdec.TILED_ROWS},
+                "warp_baseline": {"warps_per_sm": kda.fwd_warps_per_sm(p),
+                                  "registers": ptxas_registers("decode_all",
+                                                               "decode_all_fwd_kernelIfE")}}
+        del inputs, p, got, base, want
+        torch.cuda.empty_cache()
+    print(f"K2 tiled launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(every['config'])}")
+    return {"decode_select": sel, "decode_all_fwd": every}
 
 
 def ablation_entries(checks, bwd16, path, by_path):
@@ -1740,11 +1982,32 @@ def ablation_entries(checks, bwd16, path, by_path):
     return entries
 
 
+def baseline_entry(name, source, line, shapes, main, by_path):
+    """A kept warp-per-row kernel as a kernels-line entry: phase 13's
+    readings of it beside its successor (``shapes``), its times at the
+    ``main`` shape's row count, launches on the paths (none)."""
+    r = shapes[main]
+    return {
+        "name": name, "status": "replaced design, kept as the yardstick (no path launches it)",
+        "route": "cuda", "source": f"mggan_tpu_torch/csrc/{source}",
+        "replaces": f"mggan_tpu/ops/pallas/decoder.py:{line}",
+        "launches": sum(by_path(name).values()),
+        "max_abs_err": max(v["warp_baseline_max_abs_err"] for v in shapes.values()),
+        "ms": r["warp_baseline_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "n_rows": r["n_rows"],
+        "shapes": {label: {"n_rows": v["n_rows"], "ms": v["warp_baseline_ms"],
+                           "max_abs_err": v["warp_baseline_max_abs_err"]}
+                   for label, v in shapes.items()},
+    }
+
+
 def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
     """The kernels line: one entry per ported kernel with its launches on
     each main path (``paths``: path -> launch counts) and the numbers
-    measured in this run; the two redesigned kernels (K3, K1-bf16) also
-    carry phase 13's readings, their baselines' times among them."""
+    measured in this run; the redesigned kernels (K3, K1-bf16, K1, K2) also
+    carry phase 13's readings, their baselines' times among them, and K1's
+    and K2's the kept warp-per-row kernels' entries (``baseline``: on no
+    path, so 0 launches)."""
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     serving, bench = kern["serving"], kern["bench"]
     shapes = lambda res: {label: {k: v for k, v in r.items() if k not in ("flops", "bytes")}
@@ -1754,7 +2017,7 @@ def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
         "name": "decode_select",
         "status": "ported (f32)",
         "route": "cuda",
-        "source": "mggan_tpu_torch/csrc/decode_select.cu",
+        "source": "mggan_tpu_torch/csrc/decode_select_tiled.cu",
         "replaces": "mggan_tpu/ops/pallas/decoder.py:140",
         "launches": sum(by_path("decode_select").values()),
         "launches_by_path": by_path("decode_select"),
@@ -1769,6 +2032,9 @@ def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
         "atol": KERNEL_ATOL,
         "bench_shape": {k: bench[k] for k in ("n_rows", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "smi_under_load")},
+        "redesign": redesigned["decode_select"],
+        "baseline": baseline_entry("decode_select_warp", "decode_select.cu", 140,
+                                   redesigned["decode_select"]["shapes"], "serving", by_path),
     }]
     for name, res, line, atol in (
             ("decode_all_fwd", fwd, 573, {"atol": KERNEL_ATOL}),
@@ -1796,6 +2062,10 @@ def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
         })
         if name == "decode_all_bwd":
             entries[-1]["redesign"] = redesigned[name]
+        else:
+            entries[-1].update(redesign=redesigned[name], baseline=baseline_entry(
+                "decode_all_fwd_warp", "decode_all.cu", 573, redesigned[name]["shapes"], "g",
+                by_path))
     for name, res, source, line in (
             ("decode_select_bf16", sel16, "decode_select.cu", 140),
             ("decode_all_fwd_bf16", all16, "decode_all.cu", 573)):
@@ -1842,6 +2112,9 @@ def main():
     t_start = time.perf_counter()
     phase_card()
     build_s = phase_build()
+    if sys.argv[1:] == ["--sweep"]:
+        phase_launch_sweep()
+        return 0
     kern = phase_kernels()
     fwd, bwd = phase_decode_all_kernels()
     serving_launches, latency, e2e_err, model, (obs, pat) = phase_main_path()
@@ -1871,6 +2144,9 @@ def main():
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was launched on no main path")
+    for name in ("decode_select_warp", "decode_all_fwd_warp", "decode_select_bf16_warp",
+                 "decode_all_bwd_warp"):  # the kept yardsticks stay off every path
+        check(not by_path(name), f"{name} was launched on a path: {by_path(name)}")
     print(json.dumps({
         "build_s": build_s,
         "serving_p50_ms": {str(b): v["p50_ms"] for b, v in latency.items()},

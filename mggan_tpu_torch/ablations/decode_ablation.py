@@ -6,9 +6,10 @@ its time into causes:
 
 * ``prod_select``: ``decoder.decode_select`` as the sampling path calls it
   (weight folding, the hoisted social bias, K1);
-* ``kernel_select``: K1 alone on prepared arguments;
-* ``kernel_f32`` / ``kernel_bf16`` / ``kernel_lin``: B1, K1 with its gate
-  activations exact, in bf16 arithmetic, or linear (wrong by design);
+* ``kernel_select``: K1 alone on prepared arguments (the tiled kernel);
+* ``kernel_f32`` / ``kernel_bf16`` / ``kernel_lin``: B1, the warp-per-row
+  K1 with its gate activations exact, in bf16 arithmetic, or linear (wrong
+  by design);
 * ``kernel_ilp``: K5, a warp per pair of rows (bit-identical to K1);
 * ``kernel_select_bf16``: K1-bf16 (the tensor-core kernel of the bf16 route);
 * ``kernel_ilp_bf16``: K5 on the bf16 image (warp per pair of rows).
@@ -64,7 +65,8 @@ def resident_warps(inputs):
     q = lambda stem, fn, v, p: build.warps_per_sm(stem, fn, v, smem(p))
     sel, act = "mggan_decode_select_warps_per_sm", "mggan_decode_select_act_warps_per_sm"
     return {
-        "kernel_select": q("decode_select", sel, 0, p32),
+        "kernel_select": kdec.tiled_warps_per_sm(
+            p32, kdec.tiled_launch(p32["dims"][0], kdec.sm_count(p32["tensors"][1].device))[0]),
         "kernel_select_bf16": kdec.mma_warps_per_sm(p16["dims"][2]),
         "kernel_ilp": q("decode_select", sel, 2, p32),
         "kernel_ilp_bf16": q("decode_select", sel, 3, p16),

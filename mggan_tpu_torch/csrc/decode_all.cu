@@ -26,12 +26,22 @@
 // of an M-row input, as the VJP of that broadcast.
 //
 // Design.
-// * K2: a warp per (row, generator), K1's design with the generator taken
-//   from the work index instead of a sampled index: lane j owns hidden unit
-//   j, h is broadcast by __shfl_sync, all G generators' folded weights sit in
-//   shared memory as [k][j][gate], the grid is persistent. The TPU kernel's
-//   lane-packed block-diagonal layout was a vector-register choice and is
-//   not carried over. With hc, each step adds two coalesced 128-byte stores.
+// * K2 in f32 (decode_all_fwd_tiled_kernel): a block per (generator, slice
+//   of rows) holds that generator's weights as [k][j][gate] and runs
+//   kFwdWarps warps, each on R consecutive rows at a time
+//   (rollout_tile.cuh): lane j owns hidden unit j for the R rows, so every
+//   weight read from shared memory serves R rows, and the new h reaches the
+//   other lanes through a per-warp staging buffer. With hc, each step stores
+//   every row's h and c as two coalesced 128-byte rows, in the sweep (the
+//   stores do not wait). Per (row, generator) the fmaf chains are those of
+//   the warp-per-row K2, so abs, rel and hc are bit-identical to it and K3's
+//   recomputed gates pick LeakyReLU's slope as the forward did. The TPU
+//   kernel's lane-packed block-diagonal layout was a vector-register choice
+//   and is not carried over.
+// * The warp-per-row K2 (decode_all_fwd_kernel: a warp per (row,
+//   generator), h broadcast by __shfl_sync, all G generators' weights in
+//   shared memory, a persistent grid) stays as the f32 yardstick
+//   (mggan_decode_all_fwd_warp) and is still K2-bf16's kernel.
 // * K3 (decode_all_bwd_kernel): a block per (generator, slice of rows)
 //   runs 16 warps in lockstep, each on a tile of kBwdRows rows of that
 //   generator, so every weight value a lane reads from shared memory serves
@@ -56,12 +66,12 @@
 // What bounds them on the H100. Both are bound by operations in the roofline
 // sense (K2 at 81,920 rows x 4 generators moves ~1.0 GB of hc for ~39 GFLOP;
 // K3 reads it back for ~110 GFLOP of fp32 FMA work, 67 TFLOP/s on the CUDA
-// cores). K2 is bound first by the shared-memory/shuffle pipe: every
-// row-step re-reads its generator's weights (~17 KB). K3's tiles cut its
-// weight reads per row-step R-fold; what is left is the FMA issue itself,
-// the activations and the broadcasts of h and dgates.
+// cores). The warp-per-row K2 is bound first by the shared-memory/shuffle
+// pipe: every row-step re-reads its generator's weights (~17 KB). The
+// tiles of K2 and K3 cut the weight reads per row-step R-fold; what is left
+// is the FMA issue itself, the activations and the broadcasts of h.
 
-#include "decoder_rollout.cuh"
+#include "rollout_tile.cuh"
 
 namespace {
 
@@ -134,6 +144,59 @@ decode_all_fwd_kernel(const float* __restrict__ wpack,
                    dxdy0[m * 2], dxdy0[m * 2 + 1], sb, out_abs + gn * pred_len * 2,
                    out_rel + gn * pred_len * 2,
                    hc == nullptr ? nullptr : hc + gn * pred_len * 2 * h_dim);
+  }
+}
+
+// K2 in f32 with R rows of one generator per warp. grid (blocks_per_gen,
+// G), kFwdThreads threads; block (b, g) holds generator g's weights and
+// takes row groups b, b + blocks_per_gen, ... of kFwdWarps * R rows, warp w
+// the R rows from (group * kFwdWarps + w) * R. kH, kHid > 0 fix H and hid
+// at compile time (the flagship's 32 and 16), 0 takes them from the
+// arguments.
+constexpr int kFwdWarps = 8;
+constexpr int kFwdTiledThreads = kFwdWarps * 32;
+
+template <int R, int kH, int kHid>
+__global__ void __launch_bounds__(kFwdTiledThreads, 2)
+decode_all_fwd_tiled_kernel(const float* __restrict__ wpack,
+                            const float* __restrict__ h0,      // (N, H)
+                            const float* __restrict__ socb,    // (M, G, hid)
+                            const float* __restrict__ xy0,     // (M, 2)
+                            const float* __restrict__ dxdy0,   // (M, 2)
+                            float* __restrict__ out_abs,       // (G, N, T, 2)
+                            float* __restrict__ out_rel,       // (G, N, T, 2)
+                            float* __restrict__ hc,            // (G, N, T, 2, H) or null
+                            int64_t n_rows, int64_t m_rows, int num_gens, int h_dim,
+                            int hid_dim, int in_dim, int pred_len, int fmt, int per_gen) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int g = blockIdx.y;
+  stage_weights(smem4, wpack + (int64_t)g * per_gen, per_gen);
+  const int H = kH > 0 ? kH : h_dim, hid = kHid > 0 ? kHid : hid_dim;
+  const Layout L(H, hid, in_dim, pred_len, fmt);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* stage = smem + per_gen + warp * tile_stage_floats(R, H, pred_len);
+  const int64_t groups = (n_rows + kFwdWarps * R - 1) / (kFwdWarps * R);
+  for (int64_t grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const int64_t row0 = (grp * kFwdWarps + warp) * R;
+    if (row0 >= n_rows) continue;  // the ragged last group: no row for this warp
+    float h[R], x[R], y[R], dx[R], dy[R], sb[R];
+    int64_t out_row[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool live = row0 + r < n_rows;
+      const int64_t row = live ? row0 + r : row0;
+      const int64_t m = row % m_rows;
+      out_row[r] = live ? (int64_t)g * n_rows + row : -1;
+      h[r] = live && lane < H ? h0[row * H + lane] : 0.f;
+      x[r] = live ? xy0[m * 2] : 0.f;
+      y[r] = live ? xy0[m * 2 + 1] : 0.f;
+      dx[r] = live ? dxdy0[m * 2] : 0.f;
+      dy[r] = live ? dxdy0[m * 2 + 1] : 0.f;
+      sb[r] = live && lane < hid ? socb[(m * num_gens + g) * hid + lane] : 0.f;
+    }
+    rollout_tile<R, kH, kHid>(smem, L, lane, stage, h, x, y, dx, dy, sb, out_row, out_abs,
+                              out_rel, hc);
   }
 }
 
@@ -934,6 +997,26 @@ int launch_fwd(const void* wpack, const void* h0, const void* socb, const void* 
 }
 
 
+using FwdKernel = decltype(&decode_all_fwd_tiled_kernel<1, 0, 0>);
+
+// The tiled K2 for R rows a warp (1, 2 or 4), the flagship's widths fixed at
+// compile time where they apply; null for another R.
+inline FwdKernel fwd_tiled_kernel(int rows_per_warp, int h, int hid) {
+  const bool flagship = h == 32 && hid == 16;
+  switch (rows_per_warp) {
+    case 1: return flagship ? decode_all_fwd_tiled_kernel<1, 32, 16> : decode_all_fwd_tiled_kernel<1, 0, 0>;
+    case 2: return flagship ? decode_all_fwd_tiled_kernel<2, 32, 16> : decode_all_fwd_tiled_kernel<2, 0, 0>;
+    case 4: return flagship ? decode_all_fwd_tiled_kernel<4, 32, 16> : decode_all_fwd_tiled_kernel<4, 0, 0>;
+    default: return nullptr;
+  }
+}
+
+inline size_t fwd_tiled_smem(int rows_per_warp, int h, int pred_len, int per_gen) {
+  return sizeof(float) *
+         ((size_t)per_gen + (size_t)kFwdWarps * tile_stage_floats(rows_per_warp, h, pred_len));
+}
+
+
 using BwdKernel = decltype(&decode_all_bwd_warp_kernel);
 
 // K3's kernel for variant 0 (tiled: the flagship widths' instantiation
@@ -1018,17 +1101,56 @@ int mggan_decode_all_bwd_config(int variant, int h_dim, int hid_dim, int in_dim,
   return (int)resident_warps(kernel, *warps * 32, (size_t)*smem, warps_per_sm);
 }
 
-// K2 on `stream` with the f32 weight image; hc may be null (no residuals).
-// Returns cudaGetLastError() after the launch (0 on success); the caller
-// checks shapes beforehand.
+// K2 on `stream` with the f32 weight image: the tiled kernel over
+// (blocks_per_gen, G) blocks, rows_per_warp (1, 2 or 4) rows a warp; hc may
+// be null (no residuals). Returns cudaGetLastError() after the launch (0 on
+// success); the caller checks shapes and picks the launch
+// (decode_all.py::fwd_launch).
 int mggan_decode_all_fwd(const void* wpack, const void* h0, const void* socb,
                          const void* xy0, const void* dxdy0, void* out_abs,
                          void* out_rel, void* hc, long long n_rows, long long m_rows,
                          int num_gens, int h_dim, int hid_dim, int in_dim,
-                         int pred_len, int fmt, int per_gen, void* stream) {
+                         int pred_len, int fmt, int per_gen, int rows_per_warp,
+                         int blocks_per_gen, void* stream) {
+  const FwdKernel kernel = fwd_tiled_kernel(rows_per_warp, h_dim, hid_dim);
+  if (kernel == nullptr || blocks_per_gen < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_tiled_smem(rows_per_warp, h_dim, pred_len, per_gen);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)blocks_per_gen, (unsigned)num_gens);
+  kernel<<<grid, kFwdTiledThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
+      (const float*)dxdy0, (float*)out_abs, (float*)out_rel, (float*)hc, (int64_t)n_rows,
+      (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt, per_gen);
+  return (int)cudaGetLastError();
+}
+
+// Resident warps per SM of the tiled K2 for R = rows_per_warp at these
+// widths; returns a CUDA error code.
+int mggan_decode_all_fwd_warps_per_sm(int rows_per_warp, int h_dim, int hid_dim, int pred_len,
+                                      int per_gen, int* warps) {
+  const FwdKernel kernel = fwd_tiled_kernel(rows_per_warp, h_dim, hid_dim);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)resident_warps(kernel, kFwdTiledThreads,
+                             fwd_tiled_smem(rows_per_warp, h_dim, pred_len, per_gen), warps);
+}
+
+// The warp-per-row K2 that the tiled one replaced, with the f32 weight
+// image (the yardstick; no path launches it); hc may be null.
+int mggan_decode_all_fwd_warp(const void* wpack, const void* h0, const void* socb,
+                              const void* xy0, const void* dxdy0, void* out_abs,
+                              void* out_rel, void* hc, long long n_rows, long long m_rows,
+                              int num_gens, int h_dim, int hid_dim, int in_dim,
+                              int pred_len, int fmt, int per_gen, void* stream) {
   return launch_fwd<float>(wpack, h0, socb, xy0, dxdy0, out_abs, out_rel, hc, n_rows,
                            m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
                            per_gen, stream);
+}
+
+// Resident warps per SM of the warp-per-row K2 with the f32 image.
+int mggan_decode_all_fwd_warp_warps_per_sm(int num_gens, int per_gen, int* warps) {
+  return (int)resident_warps(decode_all_fwd_kernel<float>, kFwdThreads,
+                             (size_t)num_gens * per_gen * sizeof(float), warps);
 }
 
 // K2 with the bf16 weight image (compute_dtype=bfloat16); hc may be null.

@@ -1,4 +1,7 @@
-// Fused-selection decoder rollout (K1) for Hopper (sm_90a).
+// Fused-selection decoder rollout (K1), warp per row, for Hopper (sm_90a):
+// the first design of K1, kept as the yardstick of the tiled K1
+// (decode_select_tiled.cu, which the f32 route of decode_select launches)
+// and as the rollout K5 and B1 are checked against bit for bit.
 //
 // Replaces mggan_tpu/ops/pallas/decoder.py::_fwd_select_kernel (wrapped by
 // pallas_decode_select). For each row n with sampled generator g = idx[n] it
@@ -14,48 +17,40 @@
 // weights and masks the result with a one-hot; here only the selected
 // generator runs, 1/G of the arithmetic for the same output.
 //
-// Two variants, as the TPU kernel's compute_dtype: f32, and bf16
-// (mggan_decode_select_bf16_warp), where te, h and hid are rounded to bf16 before
-// their products with the bf16 weights Wemb', Whh and W1h, and c, the
-// biases, W2 and every sum stay f32 (decoder_rollout.cuh::rollout_row). The
-// bf16 weight image is half the f32 one (~40 KB for G=4 at H=32).
+// Two variants, as the TPU kernel's compute_dtype: f32
+// (mggan_decode_select_warp), and bf16 (mggan_decode_select_bf16_warp),
+// where te, h and hid are rounded to bf16 before their products with the
+// bf16 weights Wemb', Whh and W1h, and c, the biases, W2 and every sum stay
+// f32 (decoder_rollout.cuh::rollout_row). The bf16 weight image is half the
+// f32 one (~40 KB for G=4 at H=32).
 //
 // Row inputs: h0 and idx have N rows. xy0, dxdy0 and socb have M rows with
 // N % M == 0, and row n reads row n % M: the sampling path flattens rows
 // (k, s, p)-major and those inputs do not depend on the sample k, so the
 // caller passes them once instead of K copies.
 //
-// Design (a simple one that is right first). One warp per row; lane j owns
-// hidden unit j (H <= 32). Each lane keeps its four gate pre-activations in a
-// float4 and walks k over the hidden units, taking h_k from lane k with
-// __shfl_sync. The same walk over the new h feeds both hidden2pos (lanes
-// < hid) and the next step's recurrent gates, so each step does one sweep of
-// H shuffles. nd is a warp reduction. Lane t keeps step t's outputs and the
-// warp stores them at the end, so each row's output is one coalesced store.
-// All G generators' folded weights (~20 KB each at H=32) sit in dynamic
-// shared memory, laid out [k][j][gate] so a lane's four gate weights are one
-// 16-byte load and a warp's loads are conflict-free. The grid is persistent
-// (as many blocks as fit at once) and warps stride over rows, so the weights
-// are staged once per block, not once per row.
+// Design. One warp per row; lane j owns hidden unit j (H <= 32). Each lane
+// keeps its four gate pre-activations in a float4 and walks k over the
+// hidden units, taking h_k from lane k with __shfl_sync. The same walk over
+// the new h feeds both hidden2pos (lanes < hid) and the next step's
+// recurrent gates, so each step does one sweep of H shuffles. nd is a warp
+// reduction. Lane t keeps step t's outputs and the warp stores them at the
+// end, so each row's output is one coalesced store. All G generators'
+// folded weights (~20 KB each at H=32) sit in dynamic shared memory, laid
+// out [k][j][gate] so a lane's four gate weights are one 16-byte load and a
+// warp's loads are conflict-free. The grid is persistent (as many blocks as
+// fit at once) and warps stride over rows, so the weights are staged once
+// per block, not once per row.
 //
 // What bounds it on the H100: not device memory (about 0.4 KB moved per row
-// against about 118 kFLOP per row over 12 steps). The arithmetic bound is
-// fp32 FMA on the CUDA cores (67 TFLOP/s), but this design is bound first by
-// shared-memory bandwidth: every row re-reads its generator's weights every
-// step (about 17 KB per row-step at H=32), because rows of one warp belong
-// to one row only and rows next to each other have different generators.
-// Grouping rows by generator is K4 (decode_sorted.cu: a block holds one
-// generator's weights for a tile of rows sorted by generator); reusing each
-// weight load over several rows of a warp, or the tensor cores on such
-// groups, is the step after it.
-// The bf16 instantiation reads half the weight bytes per row-step but does
-// the same fp32 FMAs on converted operands, plus the conversions: bound by
-// the same pipes, and slower than f32. The bf16 route of decode_select
-// therefore runs decode_select_mma.cu (rows grouped by generator inside a
-// tile, the products on the tensor cores); this warp-per-row bf16 kernel
-// stays as mggan_decode_select_bf16_warp, launched only to compare the two
-// on the card, and as the bf16 K5's reference (K5-bf16 equals it bit for
-// bit).
+// against about 118 kFLOP per row over 12 steps), nor the fp32 FMA rate of
+// the CUDA cores (67 TFLOP/s), but the shared-memory pipe and instruction
+// issue: every row re-reads its generator's weights every step (about 17 KB
+// per row-step at H=32), because a warp holds one row only and rows next
+// to each other have different generators. The tiled K1 shares each weight
+// load across rows of one generator; the bf16 route runs decode_select_mma.cu
+// (the products on the tensor cores). The bf16 instantiation here stays as
+// the bf16 K5's reference (K5-bf16 equals it bit for bit).
 //
 // K5 (mggan_decode_select_ilp, _bf16) replaces _fwd_select_kernel_ilp
 // (pallas_decode_select(ilp=True)): the same function, with one warp
@@ -204,19 +199,19 @@ extern "C" {
                           stream);                                                            \
   }
 
-// Launch the rollout on `stream`: K1 with the f32 weight image
-// (mggan_decode_select) or, warp per row, the bf16 one
+// Launch the rollout on `stream`: the warp-per-row K1 with the f32 weight
+// image (mggan_decode_select_warp) or the bf16 one
 // (mggan_decode_select_bf16_warp), and K5, a warp per pair of rows, with
 // either (mggan_decode_select_ilp, _ilp_bf16).
 // Return cudaGetLastError() after the launch (0 on success); the caller
 // checks shapes and sizes beforehand.
-MGGAN_SELECT_ENTRY(mggan_decode_select, float, false)
+MGGAN_SELECT_ENTRY(mggan_decode_select_warp, float, false)
 MGGAN_SELECT_ENTRY(mggan_decode_select_bf16_warp, __nv_bfloat16, false)
 MGGAN_SELECT_ENTRY(mggan_decode_select_ilp, float, true)
 MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_bf16, __nv_bfloat16, true)
 
-// Resident warps per SM of variant 0 (K1), 1 (the warp-per-row bf16 K1), 2 (K5),
-// 3 (K5-bf16)
+// Resident warps per SM of variant 0 (the warp-per-row K1), 1 (the
+// warp-per-row bf16 K1), 2 (K5), 3 (K5-bf16)
 // with `smem` bytes of weights a block; returns a CUDA error code.
 int mggan_decode_select_warps_per_sm(int variant, long long smem, int* warps) {
   switch (variant) {

@@ -48,7 +48,7 @@
 // fragments now replace. Rows of one generator share every weight load and
 // every broadcast of h, 16 at a time.
 
-#include "decoder_rollout.cuh"
+#include "tile_buckets.cuh"
 
 namespace {
 
@@ -59,7 +59,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kGroup = 16;      // rows of one mma (M)
 constexpr int kMaxTile = 256;   // rows of a tile, at most
 constexpr int kMaxGens = 32;    // generators a block can bucket (a warp's lanes)
-constexpr int kChunks = kMaxTile / 32;
 
 // One generator's image, in 32-bit words (decoder.py::mma_weights):
 //   whh  [u 4][gate 4][lane 32][4]  bf16 pairs: k-tile 0 (b0b1, b2b3), k-tile 1
@@ -77,30 +76,10 @@ constexpr int kImageWords = kWhhWords + kWembWords + kW1Words + kBiasWords + kW2
 
 // The tile's bucketing in shared memory, after the G images (sized for G,
 // so that four blocks fit on an SM at G = 4).
-struct Buckets {
-  int* slots;      // [kMaxTile + kGroup G]: bucketed slot -> row in tile, -1 padding
-  int* group_gen;  // [kMaxTile / kGroup + G]
-  int* count;      // [kChunks][G]: rows of each generator in a 32-row chunk
-  int* offset;     // [kChunks][G]: where a chunk's rows of a generator go
-  int* groups;     // [1]
-};
-
-__host__ __device__ inline int bucket_ints(int num_gens) {
-  return kMaxTile + kGroup * num_gens + kMaxTile / kGroup + num_gens + 2 * kChunks * num_gens + 1;
-}
-
-__device__ inline Buckets buckets_at(int* p, int num_gens) {
-  Buckets b;
-  b.slots = p;
-  b.group_gen = b.slots + kMaxTile + kGroup * num_gens;
-  b.count = b.group_gen + kMaxTile / kGroup + num_gens;
-  b.offset = b.count + kChunks * num_gens;
-  b.groups = b.offset + kChunks * num_gens;
-  return b;
-}
+using Buckets = TileBuckets<kWarps, kMaxTile, kGroup>;
 
 __host__ __device__ inline size_t smem_bytes(int num_gens) {
-  return ((size_t)num_gens * kImageWords + bucket_ints(num_gens)) * sizeof(float);
+  return ((size_t)num_gens * kImageWords + Buckets::ints(num_gens)) * sizeof(float);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -129,70 +108,6 @@ __device__ __forceinline__ void mma_k8(float (&d)[4], uint32_t a0, uint32_t a1, 
       "{%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// Bucket the tile's rows [base, base + rows) by generator: slots holds, per
-// generator in order and padded to kGroup, the rows' offsets in the tile
-// (stable), -1 in padding; group_gen the generator of every kGroup slots.
-// Rows with no generator are poisoned here. Ends with __syncthreads.
-__device__ void bucket_tile(const Buckets& s, const int32_t* __restrict__ idx, int64_t base,
-                            int rows, int num_gens, int pred_len, float* __restrict__ out_abs,
-                            float* __restrict__ out_rel) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  const int chunks = (rows + 31) / 32;
-  for (int i = threadIdx.x; i < kMaxTile + kGroup * num_gens; i += kThreads) s.slots[i] = -1;
-  int gen[kChunks / kWarps];
-#pragma unroll
-  for (int c = 0; c < kChunks / kWarps; ++c) {
-    const int chunk = warp + c * kWarps, i = chunk * 32 + lane;
-    gen[c] = chunk < chunks && i < rows ? idx[base + i] : -1;
-    if (chunk < chunks && i < rows && (gen[c] < 0 || gen[c] >= num_gens)) {
-      const float nan = __int_as_float(0x7fc00000);
-      for (int q = 0; q < pred_len * 2; ++q) {
-        out_abs[(base + i) * pred_len * 2 + q] = nan;
-        out_rel[(base + i) * pred_len * 2 + q] = nan;
-      }
-    }
-    if (chunk < chunks)
-      for (int g = 0; g < num_gens; ++g) {
-        const int n = __popc(__ballot_sync(kFull, gen[c] == g));
-        if (lane == g) s.count[chunk * num_gens + g] = n;
-      }
-  }
-  __syncthreads();
-  if (warp == 0) {  // lane g: offsets of generator g's rows, chunk by chunk
-    int total = 0;
-    if (lane < num_gens)
-      for (int c = 0; c < chunks; ++c) total += s.count[c * num_gens + lane];
-    const int padded = (total + kGroup - 1) / kGroup * kGroup;
-    int start = padded;  // exclusive prefix over generators
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(kFull, start, d);
-      if (lane >= d) start += v;
-    }
-    start -= padded;
-    if (lane < num_gens) {
-      int at = start;
-      for (int c = 0; c < chunks; ++c) {
-        s.offset[c * num_gens + lane] = at;
-        at += s.count[c * num_gens + lane];
-      }
-      for (int q = start / kGroup; q < (start + padded) / kGroup; ++q) s.group_gen[q] = lane;
-    }
-    if (lane == 31) *s.groups = (start + padded) / kGroup;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kChunks / kWarps; ++c) {
-    const int chunk = warp + c * kWarps;
-    if (chunk >= chunks) continue;
-    const bool live = gen[c] >= 0 && gen[c] < num_gens;
-    const unsigned same = __match_any_sync(kFull, live ? gen[c] : -1);
-    if (live)
-      s.slots[s.offset[chunk * num_gens + gen[c]] + __popc(same & below)] = chunk * 32 + lane;
-  }
-  __syncthreads();
 }
 
 // Roll out the 16 rows of one bucketed group on generator image Wg. Lane
@@ -347,7 +262,7 @@ decode_select_mma_kernel(const float* __restrict__ wpack,  // (G, kImageWords)
   extern __shared__ float4 smem4[];
   stage_weights(smem4, wpack, num_gens * kImageWords);
   const uint32_t* images = reinterpret_cast<const uint32_t*>(smem4);
-  const Buckets s = buckets_at(
+  const Buckets s = Buckets::at(
       reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) + (size_t)num_gens * kImageWords),
       num_gens);
   const Layout L(h_dim, hid_dim, in_dim, pred_len, fmt);
@@ -356,7 +271,7 @@ decode_select_mma_kernel(const float* __restrict__ wpack,  // (G, kImageWords)
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int64_t base = tile * tile_rows;
     const int rows = (int)(n_rows - base < tile_rows ? n_rows - base : tile_rows);
-    bucket_tile(s, idx, base, rows, num_gens, pred_len, out_abs, out_rel);
+    s.bucket(idx, base, rows, num_gens, pred_len, out_abs, out_rel);
     for (int grp = warp; grp < *s.groups; grp += kWarps) {
       const int gen = s.group_gen[grp];
       rollout_group(images + (size_t)gen * kImageWords, s.slots + grp * kGroup, gen, base, h0,

@@ -18,7 +18,11 @@ On CUDA tensors the forward launches K2 and the backward K3
 (``csrc/decode_all.cu``), or they raise; on CPU tensors they run the plain
 versions ``decode_all_reference`` and ``decode_all_bwd_reference``. There
 is no other route. Without a gradient to take, ``decode_all`` runs the
-forward alone, without saving (h, c).
+forward alone, without saving (h, c). K2 in f32 is the tiled kernel: a
+block per (generator, slice of rows), R rows of one generator a warp (R
+and the blocks from ``fwd_launch``), bit-identical to the warp-per-row K2,
+which stays compiled as its yardstick (``launch_fwd_warp``, counted as
+``decode_all_fwd_warp``; no path launches it).
 
 ``compute_dtype=torch.bfloat16`` runs K2's bf16 variant (counted as
 ``decode_all_fwd_bf16``; plain version ``decode_all_reference`` with the
@@ -50,6 +54,9 @@ from mggan_tpu_torch.ops.kernels import decoder as kdec
 
 SOURCE = "decode_all"  # csrc/decode_all.cu
 KERNEL_FWD = "decode_all_fwd"
+# the warp-per-row f32 forward that K2's tiled design replaced, kept for
+# comparison on the card (chip_smoke.py, the card tests); no path launches it
+KERNEL_FWD_WARP = "decode_all_fwd_warp"
 KERNEL_FWD_BF16 = "decode_all_fwd_bf16"
 KERNEL_BWD = "decode_all_bwd"
 KERNEL_BWD_AFTER_BF16 = "decode_all_bwd_after_bf16"  # K3 on a bf16 forward's residuals
@@ -58,6 +65,8 @@ KERNEL_BWD_AFTER_BF16 = "decode_all_bwd_after_bf16"  # K3 on a bf16 forward's re
 KERNEL_BWD_WARP = "decode_all_bwd_warp"
 PACKED = kdec.PACKED
 BWD_ROWS = 8  # K3 takes at most one block per 8 rows (the warp-per-row sweep's warps)
+FWD_WARPS = 8  # warps of a tiled K2 block (csrc/decode_all.cu::kFwdWarps)
+FWD_BLOCKS_PER_SM = 2  # tiled K2 blocks an SM holds (registers: 128 a thread)
 
 
 def _untile(x, m):
@@ -155,10 +164,15 @@ def decode_all_bwd_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
 def _lib():
     lib = build.load(SOURCE)
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.mggan_decode_all_fwd.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
+    lib.mggan_decode_all_fwd.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 9 + [ptr]
     lib.mggan_decode_all_fwd.restype = i32
-    lib.mggan_decode_all_fwd_bf16.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
-    lib.mggan_decode_all_fwd_bf16.restype = i32
+    for fn in (lib.mggan_decode_all_fwd_warp, lib.mggan_decode_all_fwd_bf16):
+        fn.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
+        fn.restype = i32
+    lib.mggan_decode_all_fwd_warps_per_sm.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+    lib.mggan_decode_all_fwd_warps_per_sm.restype = i32
+    lib.mggan_decode_all_fwd_warp_warps_per_sm.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
+    lib.mggan_decode_all_fwd_warp_warps_per_sm.restype = i32
     for fn in (lib.mggan_decode_all_bwd, lib.mggan_decode_all_bwd_warp):
         fn.argtypes = [ptr] * 16 + [ll] * 2 + [i32] * 8 + [ptr]
         fn.restype = i32
@@ -188,10 +202,55 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} launch failed: {err} ({rc})")
 
 
-def launch_fwd(args, save_hc: bool):
+def fwd_launch(n: int, num_gens: int, sms: int):
+    """The tiled K2's launch for ``n`` rows of ``num_gens`` generators on
+    ``sms`` SMs: ``(rows_per_warp, blocks_per_gen)``. R rows a warp: the
+    largest of ``decoder.TILED_ROWS`` that still gives every resident warp
+    R (row, generator) pairs, else 1; blocks per generator: one per group
+    of ``FWD_WARPS`` x R rows, at most one wave of resident blocks over all
+    generators (the grid is persistent)."""
+    resident = sms * FWD_BLOCKS_PER_SM
+    rows = next((r for r in kdec.TILED_ROWS if n * num_gens >= r * resident * FWD_WARPS), 1)
+    groups = -(-n // (FWD_WARPS * rows))
+    return rows, max(1, min(groups, -(-resident // max(num_gens, 1))))
+
+
+def launch_fwd(args, save_hc: bool, shape=None):
     """K2 (its f32 or bf16 variant, as the arguments say) on the current
-    stream -> ``(abs, rel, hc or None)``."""
-    tensors, dims, bf16 = args["tensors"], args["dims"], args["bf16"]
+    stream -> ``(abs, rel, hc or None)``. ``shape`` replaces
+    ``fwd_launch``'s pick for the tiled f32 kernel, ``(rows_per_warp,
+    blocks_per_gen)``: for comparing launch shapes on the card."""
+    if args["bf16"]:
+        return _launch_fwd(_lib().mggan_decode_all_fwd_bf16, args, save_hc, KERNEL_FWD_BF16)
+    return _launch_fwd(_lib().mggan_decode_all_fwd, args, save_hc, KERNEL_FWD, shape)
+
+
+def launch_fwd_warp(args, save_hc: bool):
+    """The warp-per-row f32 K2 that the tiled design replaced, as
+    ``launch_fwd``: the same function, bit for bit, for comparing the two on
+    the card; counted as ``decode_all_fwd_warp``."""
+    if args["bf16"]:
+        raise ValueError("the warp-per-row f32 kernel takes f32 arguments")
+    return _launch_fwd(_lib().mggan_decode_all_fwd_warp, args, save_hc, KERNEL_FWD_WARP)
+
+
+def fwd_warps_per_sm(args, rows_per_warp=None) -> int:
+    """Resident warps per SM of the tiled K2 for ``rows_per_warp`` rows a
+    warp at these f32 arguments' widths, or with None of the warp-per-row
+    K2."""
+    _, _, g, h, hid, _, t, _, per_gen = args["dims"]
+    warps = ctypes.c_int(0)
+    if rows_per_warp is None:
+        rc = _lib().mggan_decode_all_fwd_warp_warps_per_sm(g, per_gen, ctypes.byref(warps))
+    else:
+        rc = _lib().mggan_decode_all_fwd_warps_per_sm(rows_per_warp, h, hid, t, per_gen,
+                                                      ctypes.byref(warps))
+    _raise_on(rc, KERNEL_FWD)
+    return warps.value
+
+
+def _launch_fwd(fn, args, save_hc, count_as, shape=None):
+    tensors, dims = args["tensors"], args["dims"]
     n, _, g, h, _, _, t = dims[:7]
     dev = tensors[1].device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -199,14 +258,14 @@ def launch_fwd(args, save_hc: bool):
     hc = new(g, n, t, 2, h) if save_hc else None
     if n == 0:
         return out_abs, out_rel, hc
+    if count_as == KERNEL_FWD:  # rows a warp and blocks per generator after per_gen
+        dims = dims + tuple(shape or fwd_launch(n, g, kdec.sm_count(dev)))
     ptrs = [x.data_ptr() for x in tensors] + [out_abs.data_ptr(), out_rel.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = _lib().mggan_decode_all_fwd_bf16 if bf16 else _lib().mggan_decode_all_fwd
         rc = fn(*ptrs, hc.data_ptr() if save_hc else None, *dims, stream)
-    name = KERNEL_FWD_BF16 if bf16 else KERNEL_FWD
-    _raise_on(rc, name)
-    kernels.launches[name] += 1
+    _raise_on(rc, count_as)
+    kernels.launches[count_as] += 1
     return out_abs, out_rel, hc
 
 
@@ -214,7 +273,7 @@ def bwd_blocks_per_gen(n: int, num_gens: int, device) -> int:
     """K3's blocks per generator: one wave of one block per SM over all
     generators, at most one block per 8 rows. Fixed for a card and shape,
     so the weight grads' summation order is too."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = kdec.sm_count(device)
     return max(1, min(-(-sms // num_gens), -(-n // BWD_ROWS)))
 
 

@@ -4,8 +4,13 @@ Counterpart of ``mggan_tpu/ops/pallas/decoder.py::pallas_decode_select``
 (kernel ``_fwd_select_kernel``). ``decode_select`` rolls out only each
 row's sampled generator and returns its ``(abs, rel)``:
 
-* on CUDA tensors it launches ``csrc/decode_select.cu`` (built at first use)
-  or raises;
+* on CUDA tensors it launches ``csrc/decode_select_tiled.cu`` (built at
+  first use) or raises: a block buckets each tile of rows by generator, and
+  a warp rolls out R rows of one generator at a time (R and the tile from
+  ``tiled_launch``), bit-identical to the warp-per-row K1 of
+  ``csrc/decode_select.cu``, which stays compiled as its yardstick
+  (``launch_decode_select_warp``, counted as ``decode_select_warp``; no
+  path launches it);
 * on CPU tensors it runs ``decode_select_reference``, the plain PyTorch
   version: every generator's rollout on the folded weights
   (``rollout_reference``, also K2's plain version) followed by
@@ -51,11 +56,21 @@ from mggan_tpu_torch.ops import kernels, sampling
 from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.utils.pytree import tree_leaves
 
-KERNEL = "decode_select"
+KERNEL = "decode_select"  # K1 in f32: csrc/decode_select_tiled.cu
+TILED_SOURCE = "decode_select_tiled"
+KERNEL_WARP = "decode_select_warp"  # the warp-per-row f32 K1, for comparison
+WARP_SOURCE = "decode_select"  # csrc/decode_select.cu: the warp-per-row K1, K5
 KERNEL_BF16 = "decode_select_bf16"
 KERNEL_BF16_WARP = "decode_select_bf16_warp"  # the warp-per-row bf16 kernel, for comparison
 MMA_SOURCE = "decode_select_mma"  # csrc/decode_select_mma.cu, K1-bf16
 MMA_TILES = (256, 128, 64, 32)  # rows of one K1-bf16 tile, largest first
+# The tiled K1's launch (csrc/decode_select_tiled.cu): rows of one generator
+# a warp, largest first; rows of a tile, largest first; warps a block and
+# blocks an SM (two fit in shared memory at G = 4, H = 32).
+TILED_ROWS = (4, 2, 1)
+TILED_TILES = (1024, 512, 256, 128, 64, 32, 16, 8)
+TILED_WARPS = 8
+TILED_BLOCKS_PER_SM = 2
 KERNEL_ILP = "decode_select_ilp"  # K5
 KERNEL_ILP_BF16 = "decode_select_ilp_bf16"
 FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
@@ -195,6 +210,35 @@ def mma_tile_rows(n: int, sms: int) -> int:
     return MMA_TILES[-1]
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA ``device``, queried once per device: the launch rules
+    run on every launch, and the query costs more host time than a small
+    kernel takes on the card."""
+    device = torch.device(device)
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def tiled_launch(n: int, sms: int):
+    """The tiled K1's launch for ``n`` rows on ``sms`` SMs:
+    ``(rows_per_warp, tile_rows, blocks)``. R rows of one generator a warp:
+    the largest of ``TILED_ROWS`` that gives every resident warp at least 4
+    groups of R rows, else 1 (a group's latency hardly grows with R, so
+    below that R only pads buckets and leaves warps idle). Rows of a tile:
+    the largest of ``TILED_TILES`` that gives every resident block at least
+    2 tiles, else the smallest. Blocks: one per tile, at most the resident
+    ones (the grid is persistent). Picked from the launch sweep of
+    ``chip_smoke.py --sweep`` on an H100."""
+    resident = sms * TILED_BLOCKS_PER_SM
+    rows = next((r for r in TILED_ROWS if n >= 4 * r * resident * TILED_WARPS), 1)
+    tile = next((t for t in TILED_TILES if -(-n // t) >= 2 * resident), TILED_TILES[-1])
+    return rows, tile, max(1, min(-(-n // tile), resident))
+
+
 def tile_rows(x, n):
     """``(M, ...)`` -> ``(N, ...)`` with row n = row n % M."""
     return x.repeat((n // x.shape[0],) + (1,) * (x.dim() - 1))
@@ -291,6 +335,8 @@ def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
 
 SELECT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
+# the tiled K1 takes rows a warp, rows a tile and blocks after per_gen
+TILED_ARGTYPES = SELECT_ARGTYPES[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -299,7 +345,7 @@ def _kernel_fn(stem: str, name: str):
     rollout kernels' argument types, and the library's error strings."""
     lib = build.load(stem)
     fn = getattr(lib, name)
-    fn.argtypes = SELECT_ARGTYPES
+    fn.argtypes = TILED_ARGTYPES if stem == TILED_SOURCE else SELECT_ARGTYPES
     fn.restype = ctypes.c_int
     lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
@@ -371,18 +417,44 @@ def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
     return args
 
 
-def launch_decode_select(args, ilp: bool = False):
+def launch_decode_select(args, ilp: bool = False, shape=None):
     """Launch the K1 kernel (its f32 or bf16 variant, as the arguments
     say; K5, a warp per pair of rows, with ``ilp``) on the current stream
     with checked arguments from ``prepare_decode_select``; returns
-    ``(abs, rel)``."""
-    if args["bf16"] and not ilp:
-        return _launch(args, MMA_SOURCE, "mggan_decode_select_bf16", KERNEL_BF16)
+    ``(abs, rel)``. ``shape`` replaces ``tiled_launch``'s pick for the
+    tiled f32 K1, ``(rows_per_warp, tile_rows, blocks)``: for comparing
+    launch shapes on the card."""
     if ilp:
         name = KERNEL_ILP_BF16 if args["bf16"] else KERNEL_ILP
-    else:
-        name = KERNEL
-    return _launch(args, KERNEL, "mggan_" + name, name)
+        return _launch(args, WARP_SOURCE, "mggan_" + name, name)
+    if args["bf16"]:
+        return _launch(args, MMA_SOURCE, "mggan_decode_select_bf16", KERNEL_BF16)
+    return _launch(args, TILED_SOURCE, "mggan_decode_select", KERNEL, shape)
+
+
+def tiled_warps_per_sm(args, rows_per_warp: int) -> int:
+    """Resident warps per SM of the tiled K1 for ``rows_per_warp`` rows a
+    warp at these f32 arguments' widths."""
+    lib = build.load(TILED_SOURCE)
+    fn = lib.mggan_decode_select_tiled_warps_per_sm
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _, _, g, h, hid, _, t, _, per_gen = args["dims"]
+    warps = ctypes.c_int(0)
+    rc = fn(rows_per_warp, g, per_gen, h, hid, t, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"mggan_decode_select_tiled_warps_per_sm failed with CUDA error {rc}")
+    return warps.value
+
+
+def launch_decode_select_warp(args):
+    """The warp-per-row f32 K1 that the tiled design replaced, on f32
+    arguments from ``prepare_decode_select``: the same function, bit for
+    bit, for comparing the two on the card (counted as
+    ``decode_select_warp``)."""
+    if args["bf16"]:
+        raise ValueError("the warp-per-row f32 kernel takes f32 arguments")
+    return _launch(args, WARP_SOURCE, "mggan_decode_select_warp", KERNEL_WARP)
 
 
 def mma_warps_per_sm(num_gens: int) -> int:
@@ -406,10 +478,10 @@ def launch_decode_select_bf16_warp(args):
     ``decode_select_bf16_warp``)."""
     if not args["bf16"]:
         raise ValueError("the warp-per-row bf16 kernel takes bf16 arguments")
-    return _launch(args, KERNEL, "mggan_decode_select_bf16_warp", KERNEL_BF16_WARP)
+    return _launch(args, WARP_SOURCE, "mggan_decode_select_bf16_warp", KERNEL_BF16_WARP)
 
 
-def _launch(args, stem, symbol, count_as):
+def _launch(args, stem, symbol, count_as, shape=None):
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
     dev = tensors[1].device
@@ -419,9 +491,11 @@ def _launch(args, stem, symbol, count_as):
         return out_abs, out_rel
     fn, err_str = _kernel_fn(stem, symbol)
     if stem == MMA_SOURCE:  # the fragment image, and rows per tile for the last argument
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sms = sm_count(dev)
         tensors = (args["mma_wpack"],) + tensors[1:]
         dims = dims[:8] + (mma_tile_rows(n, sms),)
+    elif stem == TILED_SOURCE:  # rows a warp, rows a tile and blocks after per_gen
+        dims = dims + tuple(shape or tiled_launch(n, sm_count(dev)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in tensors), out_abs.data_ptr(),

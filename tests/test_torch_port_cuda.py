@@ -157,17 +157,17 @@ def _select_case(n_agents, k, seed, feat=32):
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("k", [20, 7])  # 7 x 37 rows: odd, the last pair has one row
 def test_ilp_equals_k1_bit_for_bit(cuda, compute_dtype, k):
-    """K5 keeps K1's operations per row, so its output has K1's bits (in
-    bf16 the warp-per-row K1-bf16's); so does B1's f32 variant (K1's
-    activations)."""
+    """K5 keeps the warp-per-row K1's operations per row, so its output
+    has that kernel's bits (in bf16 the warp-per-row K1-bf16's); so does
+    B1's f32 variant (K1's activations)."""
     stacked, rows, idx = _select_case(37, k, seed=5)
     on = [_on(x, cuda) for x in (stacked, *rows, idx)]
     before = dict(kernels.launches)
+    prepared = kdec.prepare_decode_select(*on, T, "rel", compute_dtype=compute_dtype)
     if compute_dtype is None:
-        k1 = kdec.decode_select(*on, T, "rel")
+        k1 = kdec.launch_decode_select_warp(prepared)
     else:
-        k1 = kdec.launch_decode_select_bf16_warp(kdec.prepare_decode_select(
-            *on, T, "rel", compute_dtype=compute_dtype))
+        k1 = kdec.launch_decode_select_bf16_warp(prepared)
     k5 = kdec.decode_select(*on, T, "rel", compute_dtype=compute_dtype, ilp=True)
     torch.cuda.synchronize()
     name = kdec.KERNEL_ILP_BF16 if compute_dtype else kdec.KERNEL_ILP
@@ -396,3 +396,96 @@ def test_bf16_tensor_core_kernel_widths_and_formats(cuda, inp_format, h_dim):
     want = kdec.decode_select_reference(stacked, *rows, idx, T, inp_format, torch.bfloat16)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=BF16_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 in f32, redesigned with R rows of one generator tiled per warp:
+# bit for bit against the warp-per-row kernels they replaced, at every R
+# the launch rules can pick (decoder.TILED_ROWS), as each row keeps the
+# warp-per-row rollout's operations in its order.
+
+
+def _tiled_k1_case(case, inp_format, h_dim, seed=12):
+    """(stacked, rows, idx) with M = 37 agents and K = 20 samples (M < N),
+    or the edge case named."""
+    m, k = (1, 1) if case == "one row" else (37, 7) if case == "ragged" else (37, 20)
+    stacked, rows = _decode_all_case(inp_format, h_dim, m=m, k=k, seed=seed)
+    idx = np.random.RandomState(seed).randint(0, 4, m * k)
+    idx = {"generator 1 absent": np.where(idx == 1, 2, idx),
+           "all on generator 0": np.zeros_like(idx),
+           "rows without a generator": np.where(np.arange(idx.size) % 11 == 0,
+                                                np.where(idx % 2 == 0, -1, 4), idx)
+           }.get(case, idx)
+    return stacked, rows, torch.from_numpy(idx.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,inp_format,h_dim", [
+    ("random", "rel", 32), ("random", "abs", 32), ("random", "abs_rel", 32),
+    ("random", "rel", 20), ("random", "abs_rel", 20),
+    ("one row", "rel", 32), ("ragged", "rel", 32), ("ragged", "abs", 20),
+    ("generator 1 absent", "rel", 32), ("all on generator 0", "rel", 32),
+    ("rows without a generator", "abs_rel", 32)])
+def test_tiled_k1_equals_warp_baseline(cuda, case, inp_format, h_dim):
+    """The tiled K1 at R = 1, 2, 4 and tiles of 8 and 32 rows (and the
+    rule's pick, through decode_select) equals the warp-per-row K1 bit for
+    bit in abs and rel; rows without a generator come back NaN in both.
+    37 x 20 = 740 rows (M < N), 37 x 7 = 259 (not a multiple of R or a
+    tile), one row."""
+    stacked, rows, idx = _tiled_k1_case(case, inp_format, h_dim)
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    prepared = kdec.prepare_decode_select(*on, T, inp_format)
+    before = dict(kernels.launches)
+    base = kdec.launch_decode_select_warp(prepared)
+    got = {"rule": kdec.decode_select(*on, T, inp_format)}
+    n = idx.shape[0]
+    for r in kdec.TILED_ROWS:
+        for tile in (8, 32):
+            got[(r, tile)] = kdec.launch_decode_select(prepared, shape=(r, tile, -(-n // tile)))
+    got[(4, 32, 1)] = kdec.launch_decode_select(prepared, shape=(4, 32, 1))  # one block
+    torch.cuda.synchronize()
+    assert kernels.launches[kdec.KERNEL] == before.get(kdec.KERNEL, 0) + len(got)
+    assert kernels.launches[kdec.KERNEL_WARP] == before.get(kdec.KERNEL_WARP, 0) + 1
+    bad = ((idx < 0) | (idx >= 4)).to(cuda)
+    for b in base:
+        assert bool(torch.isnan(b[bad]).all()) and bool(torch.isfinite(b[~bad]).all())
+    for shape, out in got.items():
+        for a, b in zip(out, base):
+            assert torch.equal(a[~bad], b[~bad]), shape
+            assert bool(torch.isnan(a[bad]).all()), shape
+    want = kdec.decode_select_reference(stacked, *rows, idx.clamp(0, 3), T, inp_format)
+    for a, b in zip(base, want):
+        np.testing.assert_allclose(a[~bad].cpu().numpy(), b[~bad.cpu()].numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format,h_dim,m,k", [
+    ("rel", 32, 37, 20), ("abs", 32, 37, 20), ("abs_rel", 32, 37, 20), ("rel", 20, 37, 20),
+    ("abs_rel", 20, 37, 7), ("rel", 32, 37, 7), ("rel", 32, 1, 1), ("rel", 32, 0, 1)])
+def test_tiled_k2_equals_warp_baseline(cuda, inp_format, h_dim, m, k):
+    """The tiled K2 at R = 1, 2, 4 and 1 or 3 blocks per generator (and the
+    rule's pick) equals the warp-per-row K2 bit for bit in abs, rel and hc,
+    with and without saving hc: 740 rows, 259 (a ragged last warp), 1 and
+    0 rows."""
+    stacked, rows = _decode_all_case(inp_format, h_dim, m=max(m, 1), k=k, seed=13)
+    packed = kdec.pack_decoder_params(_on(stacked, cuda), inp_format)
+    inputs = [packed[key].contiguous() for key in kda.PACKED] + [
+        kdec.social_bias(packed, rows[2][:m].to(cuda)).contiguous(), rows[3][:m * k].to(cuda),
+        rows[0][:m].to(cuda), rows[1][:m].to(cuda)]
+    if m == 0:  # N = 0 rows: M = 1 input row, so that N % M == 0
+        inputs[6:] = [inputs[6][:0].new_zeros((1,) + inputs[6].shape[1:]), inputs[7],
+                      rows[0][:1].to(cuda), rows[1][:1].to(cuda)]
+    args = kda.prepare(*inputs, T, inp_format)
+    for save_hc in (True, False):
+        base = kda.launch_fwd_warp(args, save_hc)
+        outs = [kda.launch_fwd(args, save_hc)] + [
+            kda.launch_fwd(args, save_hc, shape=(r, b)) for r in kdec.TILED_ROWS for b in (1, 3)]
+        torch.cuda.synchronize()
+        for out in outs:
+            for a, b in zip(out, base):
+                assert (a is None and b is None) or torch.equal(a, b)
+    if m:
+        want = kda.decode_all_reference(*inputs, T, inp_format, save_hc=True)
+        got = kda.launch_fwd(args, True)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=ATOL)
