@@ -25,9 +25,9 @@ Phases, in order; any failure exits nonzero before the result line:
   6. device profiles of a 64-scene request and of a train step;
   7. bf16 kernels: K1's and K2's bf16 variants against their bf16 plain
      versions on the card (atol 4e-3) at the eval batch's 9,728 rows (x 4
-     generators for K2) and K1's at 1,310,720 rows, the warp-per-row
-     K1-bf16 equal to K2-bf16 on the selected rows bit for bit, each timed
-     beside its bounds;
+     generators for K2) and K1's at 1,310,720 rows, the tensor-core
+     K1-bf16 equal to K2-bf16 on the selected rows bit for bit (one
+     rollout, ``csrc/rollout_mma.cuh``), each timed beside its bounds;
   8. eval path: the synthetic dataset (512 windows of up to 16 peds) in
      batches of 32 through ``get_predictions_multi`` with the six
      multi-generator strategies in f32 and ``sampling`` + ``expected`` in
@@ -42,11 +42,13 @@ Phases, in order; any failure exits nonzero before the result line:
      plain version in the three input formats, with F=0 and with every row
      on one generator, f32 (atol 1e-4) and bf16 (atol 4e-3) at 4,096 rows;
      at 20,480 rows K5 and B1-f32 equal to the warp-per-row K1 bit for bit
-     (K5-bf16 to the warp-per-row K1-bf16), K5, B1 (f32, bf16, lin), K4's
-     route and B2 against their plain versions, each timed beside its plain
-     version and its bound, K4's route against K1;
+     (K5-bf16 to the warp-per-row K1-bf16), K5, B1 (f32, bf16, lin; the
+     tiled K1 with other activations), K4's route and B2 against their
+     plain versions, each timed beside its plain version and its bound, K4's
+     route against K1;
  11. K3 after a bf16 forward at the PM step's 4,096 x 4 rows: K2-bf16's
-     saved (h, c) against the bf16 plain forward's (atol 4e-3, mean 1e-6,
+     (tensor cores) saved (h, c) against the bf16 plain forward's (atol
+     4e-3, mean 1e-6,
      h rounded to bf16, c not; the f32 forward's hc must fail), the whole
      route (K2-bf16, then K3) against the plain forward and reverse sweep
      and K3 alone against the plain sweep on the kernel's residuals (kink
@@ -55,8 +57,10 @@ Phases, in order; any failure exits nonzero before the result line:
      limits; ``DecodeAll`` in bf16 gives K3's grads bit for bit;
  12. the ablation path, launch counts read around it: the entry points'
      timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``, with each
-     kernel's resident warps per SM and bounds), K5, B1-f32 and the tiled K1
-     equal to the warp-per-row K1 bit for bit there (after the counts), K4's
+     kernel's resident warps per SM and bounds), the activations' share of
+     K1 (1 - B1-lin / K1, both tiled), K5, B1-f32 and the tiled K1 equal to
+     the warp-per-row K1 bit for bit there and the tiled B1-f32 to the tiled
+     K1 (after the counts), K4's
      route within 1e-4 of K1 (bf16: 4e-3 of the warp-per-row K1-bf16), a
      bf16 gradient of ``decode_all``; then
      B1-bf16, B1-lin and B2 against their plain versions at those rows;
@@ -69,15 +73,20 @@ Phases, in order; any failure exits nonzero before the result line:
      K1 and K2 (rows of one generator tiled per warp) at every main-path
      shape (K1: 960, 4,096, 9,728, 20,480 and 1,310,720 rows; K2: 4,096 x 4,
      9,728 x 4 and 81,920 x 4 with hc), bit for bit against the
-     warp-per-row kernels;
- 14. a JSON line listing every ported kernel (the replaced f32 K1 and K2
-     under their successors' ``baseline``), then the result line
-     ``{"ok": true, "device": {...}}``.
+     warp-per-row kernels; K2-bf16 (tensor cores) at 9,728 x 4 and 4,096 x
+     4 with hc, bit for bit against K1-bf16 on the selected rows (and the
+     kept warp-per-row K2-bf16 against the warp-per-row K1-bf16); B1 (the
+     tiled rollout) at 20,480 and 1,310,720 rows, each variant bit for bit
+     against its warp-per-row kernel and B1-f32 against the tiled K1, with
+     the activations' share of K1 from the profiler's device times;
+ 14. a JSON line listing every ported kernel (the replaced f32 K1 and K2,
+     K2-bf16 and B1 under their successors' ``baseline``), then the result
+     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --sweep`` instead runs phases 1 and 2 and then
-times the tiled K1 and K2 at every launch shape their wrappers can pick, at
-the main paths' row counts (``SWEEP`` line), the data behind the launch
-rules.
+times the tiled K1 and K2 and K2-bf16 at every launch shape their wrappers
+can pick, at the main paths' row counts (``SWEEP`` line), the data behind
+the launch rules.
 
 Imports neither JAX nor the JAX package ``mggan_tpu``.
 """
@@ -775,10 +784,11 @@ def phase_bf16_kernels():
     """K1's and K2's bf16 variants against their bf16 plain versions on the
     card, at the eval batch (32 scenes x 16 peds x 19 samples = 9,728 rows;
     K2 x 4 generators) and, for K1, at bench.py's 1,310,720 rows; K1-bf16
-    against K2-bf16 on the selected rows (bit for bit); the f32 variant
-    against the bf16 plain version (must lie beyond the limit); each timed
-    beside the f32 variant, its plain version and its bounds (bf16 tensor
-    cores, and the fp32-FMA figure beside it)."""
+    against K2-bf16 on the selected rows (bit for bit: both run
+    rollout_mma.cuh's tensor-core rollout); the f32 variant against the
+    bf16 plain version (must lie beyond the limit); each timed beside the
+    f32 variant, its plain version and its bounds (bf16 tensor cores, and
+    the fp32-FMA figure beside it)."""
     import torch
 
     from mggan_tpu_torch.ops.kernels import decode_all as kda
@@ -850,9 +860,8 @@ def phase_bf16_kernels():
             wrong_all = compare(out32, want_all, "decode_all_fwd")[0]
             rows = torch.arange(n, device="cuda")
             pick = case["idx"].long()
-            # one rollout template: the warp-per-row bf16 K1 equals K2-bf16
-            warp_k1 = kdec.launch_decode_select_bf16_warp(prepared)
-            identical = all(torch.equal(a, b[pick, rows]) for a, b in zip(warp_k1, out))
+            # one tensor-core rollout: K1-bf16 equals K2-bf16 on the selected rows
+            identical = all(torch.equal(a, b[pick, rows]) for a, b in zip(got, out))
             ms_all = cuda_time_ms(lambda: kda.launch_fwd(kprep, save_hc=False), reps)
             ms_all32 = cuda_time_ms(lambda: kda.launch_fwd(kprep32, save_hc=False), reps)
             plain_all = cuda_time_ms(lambda: kda.decode_all_reference(
@@ -861,13 +870,13 @@ def phase_bf16_kernels():
                             "elements_beyond_atol": beyond_all,
                             "f32_kernel_vs_bf16_plain_max_abs": wrong_all, "ms": ms_all,
                             "f32_kernel_ms": ms_all32, "plain_ms": plain_all,
-                            "warp_k1_equals_k2_on_selected_rows": identical,
+                            "k1_equals_k2_on_selected_rows": identical,
                             **bounds(decode_all_bound_ms(kprep, out, PEAK_BF16_FLOPS),
                                      decode_all_bound_ms(kprep, out))}
             r = every[label]
             print(f"decode_all_fwd_bf16[{label}] N={n} x G=4: max_abs_err={err_all:.3e} "
                   f"({beyond_all} elements beyond {BF16_ATOL:g}), the f32 kernel against the "
-                  f"bf16 plain version {wrong_all:.3e}; the warp-per-row K1-bf16 == K2-bf16 on "
+                  f"bf16 plain version {wrong_all:.3e}; the tensor-core K1-bf16 == K2-bf16 on "
                   f"the selected rows bit for bit: {identical}; kernel {ms_all:.4f} ms (f32 "
                   f"variant {ms_all32:.4f} ms), plain {plain_all:.3f} ms, bound {r['bound_ms']:.4f} ms "
                   f"by {r['bound_by']} at the bf16 tensor-core peak "
@@ -875,8 +884,8 @@ def phase_bf16_kernels():
             check(beyond_all == 0, f"decode_all_fwd_bf16: {beyond_all} elements beyond tolerance")
             check(wrong_all > BF16_ATOL, f"decode_all_fwd: the f32 kernel passes the bf16 limit "
                   f"({wrong_all:.3e} <= {BF16_ATOL})")
-            check(identical, "the warp-per-row K1-bf16 and K2-bf16 differ on the selected rows")
-            del packed, inputs, kprep, kprep32, out, out32, want_all, warp_k1
+            check(identical, "K1-bf16 and K2-bf16 differ on the selected rows")
+            del packed, inputs, kprep, kprep32, out, out32, want_all
         del case, args, prepared, prepared32, got, got32, want
         torch.cuda.empty_cache()
     return sel, every
@@ -1402,11 +1411,13 @@ def phase_ablation_path(reps=5):
     """The decoder ablation path, launch counts read around it: the two
     entry points' timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``),
     K5, B1-f32 and the tiled K1 equal to the warp-per-row K1 bit for bit
-    there (K5-bf16 to the warp-per-row K1-bf16; after the counts), K4's
-    route within KERNEL_ATOL of K1 and its bf16 route within BF16_ATOL of
-    K1-bf16, and a bf16 gradient of ``decode_all`` at the PM step's rows
-    (K2-bf16, then K3 in f32). Then, outside the counts, B1-bf16, B1-lin
-    and B2 against their plain versions at those rows."""
+    there and the tiled B1-f32 to the tiled K1 (K5-bf16 to the warp-per-row
+    K1-bf16; after the counts), K4's route within KERNEL_ATOL of K1 and its
+    bf16 route within BF16_ATOL of K1-bf16, and a bf16 gradient of
+    ``decode_all`` at the PM step's rows (K2-bf16, then K3 in f32). The
+    activations' share of K1 is 1 - B1-lin / K1 there (B1 is the tiled K1
+    with other activations). Then, outside the counts, B1-bf16, B1-lin and
+    B2 against their plain versions at those rows."""
     import torch
 
     from mggan_tpu_torch.ablations import N, decode_ablation as dab, make_inputs
@@ -1453,6 +1464,8 @@ def phase_ablation_path(reps=5):
     k1_warp = kdec.launch_decode_select_warp(p32)
     equal = {name: all(torch.equal(a, b) for a, b in zip(calls[name](), k1_warp))
              for name in ("kernel_ilp", "kernel_f32", "kernel_select")}
+    equal["kernel_f32_vs_tiled_k1"] = all(torch.equal(a, b)
+                                          for a, b in zip(calls["kernel_f32"](), k1))
     k1_bf16 = kdec.launch_decode_select_bf16_warp(p16)
     equal["kernel_ilp_bf16"] = all(torch.equal(a, b)
                                    for a, b in zip(calls["kernel_ilp_bf16"](), k1_bf16))
@@ -1482,11 +1495,18 @@ def phase_ablation_path(reps=5):
               "route": sorted_route_bound_ms(args),
               "route_bf16": sorted_route_bound_ms(args, torch.bfloat16, PEAK_BF16_FLOPS)}
     bounds = {k: {"bound_ms": v[0], "bound_by": v[1]} for k, v in bounds.items()}
+    share = {act: 1.0 - dec_ms[f"kernel_{act}"] / dec_ms["kernel_select"]
+             for act in ("lin", "bf16")}
     print(f"ablation path launches ({secs:.2f} s): {json.dumps(launches)}")
     print("DECODEABL " + json.dumps({"rows": N, "ms": dec_ms, "warps_per_sm": warps}))
+    print(f"activations' share of K1 at {N} rows (1 - B1-lin / K1, both tiled): "
+          f"{share['lin']:.4f} (K1 {dec_ms['kernel_select']:.4f} ms, B1-f32 "
+          f"{dec_ms['kernel_f32']:.4f}, B1-lin {dec_ms['kernel_lin']:.4f}, B1-bf16 "
+          f"{dec_ms['kernel_bf16']:.4f}: 1 - B1-bf16 / K1 = {share['bf16']:.4f})")
     print("SORTEDPARTS " + json.dumps({"rows": N, "ms": sort_ms}))
     print(f"ablation path at {N} rows, against the warp-per-row K1: K5 {equal['kernel_ilp']}, "
           f"B1-f32 {equal['kernel_f32']}, the tiled K1 {equal['kernel_select']} (bit for bit); "
+          f"the tiled B1-f32 == the tiled K1 {equal['kernel_f32_vs_tiled_k1']}; "
           f"K5-bf16 == K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
           f"against K1 {vs_k1:.3e} (atol {KERNEL_ATOL:g}), its bf16 route against K1-bf16 "
           f"{vs_k1_bf16:.3e} (atol {BF16_ATOL:g}); bounds {json.dumps(bounds)}; "
@@ -1506,6 +1526,7 @@ def phase_ablation_path(reps=5):
     del inp, calls, k1, k1_warp, k1_bf16, route, route16, args, p32, p16, packed, grouped, tiles
     torch.cuda.empty_cache()
     return {"rows": N, "seconds": secs, "launches": launches, "decodeabl_ms": dec_ms,
+            "activation_share_of_k1": share["lin"], "bf16_activation_saving": share["bf16"],
             "sortedparts_ms": sort_ms, "warps_per_sm": warps, "bounds_1310720": bounds,
             "equal_to_k1": equal, "route_vs_k1_max_abs": vs_k1,
             "route_bf16_vs_k1_bf16_max_abs": vs_k1_bf16, "against_plain": at_n}
@@ -1698,19 +1719,23 @@ def phase_redesigned():
         del case, args, p16, p32, got, warp, f32, want
         torch.cuda.empty_cache()
     print(f"K1-bf16 launch shapes (registers per thread from nvcc): {json.dumps(sel['config'])}")
-    return {"decode_all_bwd": k3, "decode_select_bf16": sel, **redesigned_tiled(gen)}
+    return {"decode_all_bwd": k3, "decode_select_bf16": sel, **redesigned_tiled(gen),
+            "decode_all_fwd_bf16": redesigned_k2_bf16(gen), "decode_select_act": redesigned_b1(gen)}
 
 
 K1_SWEEP_ROWS = (320, 960, 2_560, 4_096, 9_728, 20_480, 1_310_720)
 K2_SWEEP_ROWS = (4_096, 9_728, 81_920)
+K2_BF16_SWEEP = ((4_096, True), (9_728, False), (20_480, False), (81_920, False))  # (rows, hc)
 
 
 def phase_launch_sweep(reps=5):
     """``python3 chip_smoke.py --sweep``: the tiled K1 and K2 timed at
     every launch shape their wrappers can pick, at the main paths' row
     counts (the rule's pick marked), beside the warp-per-row kernels, and
-    each launch checked bit for bit against them. Prints one ``SWEEP``
-    JSON line; not part of the default run."""
+    each launch checked bit for bit against them; K2-bf16 at each launch
+    variant and a range of blocks per generator, each launch bit for bit
+    against the rule's. Prints one ``SWEEP`` JSON line; not part of the
+    default run."""
     import torch
 
     from mggan_tpu_torch.ops.kernels import decode_all as kda
@@ -1768,6 +1793,33 @@ def phase_launch_sweep(reps=5):
               f"{pick[0]}/{pick[1]} {res['shapes'][f'{pick[0]}/{pick[1]}']:.4f} ms; best {best} "
               f"{res['shapes'][best]:.4f} ms")
         out["k2"][n] = res
+        del inputs, p, base
+    # K2-bf16: both launch variants, each as one wave of resident blocks
+    # striding over the groups (a persistent grid) and as one block per 4
+    # groups, each launch bit for bit against the rule's pick
+    out["k2_bf16"] = {}
+    for n, hc in K2_BF16_SWEEP:
+        inputs = decode_all_case(n, 1, gen)
+        p = kda.prepare(*inputs, 12, "rel", torch.bfloat16)
+        base = kda.launch_fwd(p, hc)
+        pick = kda.mma_launch(n, 4, sms)
+        res = {"save_hc": hc, "rule": pick, "warp_ms": cuda_time_ms(
+            lambda: kda.launch_fwd_warp(p, hc), reps), "shapes": {}}
+        for v, per_sm in enumerate(kda.MMA_BLOCKS_PER_SM):
+            most = -(-(-(-n // kda.MMA_GROUP)) // kda.MMA_WARPS)
+            for per_gen in sorted({max(1, min(most, b)) for b in
+                                   (-(-sms * per_sm // 4), most)}):
+                shape = (v, per_gen)
+                got = kda.launch_fwd(p, hc, shape=shape)
+                same = all(torch.equal(a, b) for a, b in zip(got, base) if a is not None)
+                check(same, f"sweep: K2-bf16 {shape} at {n} x 4 differs from the rule's launch")
+                res["shapes"][f"{v}/{per_gen}"] = cuda_time_ms(
+                    lambda: kda.launch_fwd(p, hc, shape=shape), reps)
+        best = min(res["shapes"], key=res["shapes"].get)
+        print(f"sweep K2-bf16 N={n} x 4 (hc {hc}): warp-per-row {res['warp_ms']:.4f} ms; rule "
+              f"variant/blocks {pick[0]}/{pick[1]} {res['shapes'][f'{pick[0]}/{pick[1]}']:.4f} "
+              f"ms; best {best} {res['shapes'][best]:.4f} ms")
+        out["k2_bf16"][n] = res
         del inputs, p, base
     torch.cuda.empty_cache()
     print("SWEEP " + json.dumps(out))
@@ -1926,8 +1978,198 @@ def redesigned_tiled(gen):
     return {"decode_select": sel, "decode_all_fwd": every}
 
 
-def ablation_entries(checks, bwd16, path, by_path):
-    """The kernels line's entries of the ablation path's kernels."""
+# phase 13's shapes of K2-bf16: (label, agents, samples, saving hc); and of
+# B1: rows (the ablation kernels' checks, the ablation entry points')
+K2_BF16_SHAPES = (("eval", EVAL_BATCH * PEDS, EVAL_K, False), ("pm", TRAIN_SCENES * PEDS, 1, True))
+B1_ROWS = (ABL_ROWS, 1_310_720)
+
+
+def redesigned_k2_bf16(gen):
+    """Phase 13, K2-bf16 on the tensor cores: at eval's 9,728 x 4 rows and
+    the PM step's 4,096 x 4 with hc, against its plain version (BF16_ATOL,
+    BF16_MEAN_ATOL; with hc ``hc_checks``), equal to the tensor-core K1-bf16
+    on the selected rows bit for bit, the kept warp-per-row K2-bf16 equal to
+    the warp-per-row K1-bf16 there, the two designs within twice BF16_ATOL
+    of each other; both timed in turns and by the profiler's device time,
+    with the launch the rule picked, registers and resident warps."""
+    import torch
+
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    on = lambda x: ({key: on(v) for key, v in x.items()} if isinstance(x, dict)
+                    else x.to("cuda"))
+    err = lambda a_, b_: (max(float((x - y).abs().max()) for x, y in zip(a_, b_)),
+                          max(float((x - y).abs().mean()) for x, y in zip(a_, b_)))
+    res = {"shapes": {}}
+    for label, m, k, save_hc in K2_BF16_SHAPES:
+        case = on(decode_select_case(m // PEDS, gen, num=k))
+        args = (case["stacked"], case["xy"], case["dxdy"], case["soc"], case["h0"],
+                case["idx"], 12, "rel")
+        p16 = kdec.prepare_decode_select(*args, compute_dtype=bf16)
+        packed = kdec.pack_decoder_params(case["stacked"], "rel")
+        inputs = [x.contiguous() for x in [packed[key] for key in kda.PACKED] + [
+            kdec.social_bias(packed, case["soc"]), case["h0"], case["xy"], case["dxdy"]]]
+        kp = kda.prepare(*inputs, 12, "rel", bf16)
+        n = kp["dims"][0]
+        got, kept = kda.launch_fwd(kp, save_hc), kda.launch_fwd_warp(kp, save_hc)
+        k1, k1_warp = kdec.launch_decode_select(p16), kdec.launch_decode_select_bf16_warp(p16)
+        torch.cuda.synchronize()
+        rows, pick = torch.arange(n, device="cuda"), case["idx"].long()
+        same = all(torch.equal(a, b[pick, rows]) for a, b in zip(k1, got))
+        same_kept = all(torch.equal(a, b[pick, rows]) for a, b in zip(k1_warp, kept))
+        want = kda.decode_all_reference(*inputs, 12, "rel", save_hc=save_hc, compute_dtype=bf16)
+        (mx, mean), (mx_kept, _) = err(got[:2], want[:2]), err(kept[:2], want[:2])
+        vs_kept = err(got[:2], kept[:2])[0]
+        hc = (hc_checks(got, want), hc_checks(kept, want)) if save_hc else None
+        reps = 20
+        old_ms, new_ms = alternate_ms(lambda: kda.launch_fwd_warp(kp, save_hc),
+                                      lambda: kda.launch_fwd(kp, save_hc), reps)
+        plain_ms = cuda_time_ms(lambda: kda.decode_all_reference(
+            *inputs, 12, "rel", save_hc=save_hc, compute_dtype=bf16), 2, warmup=1)
+        dev_new = kernel_device_ms(lambda: kda.launch_fwd(kp, save_hc),
+                                   "decode_all_fwd_mma_kernel")
+        dev_old = kernel_device_ms(lambda: kda.launch_fwd_warp(kp, save_hc),
+                                   "decode_all_fwd_kernel<__nv_bfloat16>")
+        b16 = decode_all_bound_ms(kp, got if save_hc else got[:2], PEAK_BF16_FLOPS)
+        b32 = decode_all_bound_ms(kp, got if save_hc else got[:2])
+        variant, per_gen = kda.mma_launch(n, 4, sms)
+        res["shapes"][label] = {
+            "n_rows": n, "save_hc": save_hc, "equals_k1_bf16_on_selected_rows": same,
+            "warp_baseline_equals_warp_k1_bf16": same_kept, "max_abs_err": mx,
+            "mean_abs_err": mean, "warp_baseline_max_abs_err": mx_kept,
+            "vs_warp_baseline_max_abs": vs_kept, "ms": new_ms, "warp_baseline_ms": old_ms,
+            "device_ms": dev_new, "warp_baseline_device_ms": dev_old, "plain_ms": plain_ms,
+            "bound_ms": b16[0], "bound_by": b16[1], "bound_ms_fp32_fma": b32[0],
+            "variant": variant, "blocks_per_sm": kda.MMA_BLOCKS_PER_SM[variant],
+            "blocks_per_gen": per_gen}
+        if hc is not None:
+            res["shapes"][label].update(hc=hc[0], warp_baseline_hc=hc[1])
+        if label == "eval":
+            res["config"] = {
+                "new": {f"variant {v} ({per_sm} blocks an SM)": {
+                    "warps_per_sm": kda.mma_warps_per_sm(v),
+                    "registers": ptxas_registers("decode_all",
+                                                 f"decode_all_fwd_mma_kernelILi{per_sm}E")}
+                    for v, per_sm in enumerate(kda.MMA_BLOCKS_PER_SM)},
+                "warp_baseline": {"warps_per_sm": kda.fwd_warps_per_sm(kp), "registers":
+                                  ptxas_registers("decode_all",
+                                                  "decode_all_fwd_kernelI13__nv_bfloat16E")}}
+        print(f"K2-bf16 tensor cores [{label}] N={n} x G=4{' saving hc' if save_hc else ''} "
+              f"(variant {variant}: {kda.MMA_BLOCKS_PER_SM[variant]} blocks an SM, "
+              f"{per_gen} blocks per generator): equal to K1-bf16 on the selected rows bit for "
+              f"bit {same}, the kept warp-per-row K2-bf16 to the warp-per-row K1-bf16 "
+              f"{same_kept}; max_abs_err {mx:.3e} (atol {BF16_ATOL:g}), mean {mean:.3e} (limit "
+              f"{BF16_MEAN_ATOL:g}; warp-per-row {mx_kept:.3e}, between the two {vs_kept:.3e})"
+              + ("" if hc is None else f"; hc {json.dumps(hc[0])} (warp-per-row "
+                 f"{json.dumps(hc[1])})")
+              + f"; kernel {new_ms:.4f} ms, warp-per-row {old_ms:.4f} ms (same call, in turns; "
+              f"device time alone {dev_new:.4f} and {dev_old:.4f} ms), plain {plain_ms:.3f} ms, "
+              f"bound {b16[0]:.5f} ms by {b16[1]} (bf16 tensor cores; {b32[0]:.4f} ms at the "
+              f"fp32-FMA peak)")
+        check(all(bool(torch.isfinite(x).all()) for x in got[:2]), f"K2-bf16 {label}: non-finite")
+        check(same, f"K2-bf16 {label}: differs from K1-bf16 on the selected rows")
+        check(same_kept, f"the kept K2-bf16 {label}: differs from the warp-per-row K1-bf16")
+        check(mx <= BF16_ATOL and mean <= BF16_MEAN_ATOL, f"K2-bf16 {label}: {mx:.3e}, {mean:.3e}")
+        check(vs_kept <= 2 * BF16_ATOL, f"K2-bf16 {label}: {vs_kept:.3e} from the warp kernel")
+        check(hc is None or hc[0]["ok"], f"K2-bf16 {label}: hc {hc and hc[0]}")
+        del case, args, p16, packed, inputs, kp, got, kept, k1, k1_warp, want
+        torch.cuda.empty_cache()
+    print(f"K2-bf16 launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(res['config'])}")
+    return res
+
+
+def redesigned_b1(gen):
+    """Phase 13, B1 on the tiled f32 rollout: at the ablation kernels'
+    20,480 rows and the entry points' 1,310,720 (the benchmarks' inputs),
+    each variant equal to its warp-per-row kernel bit for bit and B1-f32 to
+    the tiled K1; each timed in turns with its warp-per-row kernel, the
+    tiled K1 beside them, and by the profiler's device time, with registers
+    and resident warps; the activations' share of K1 (1 - B1-lin / K1)."""
+    import torch
+
+    from mggan_tpu_torch.ablations import decode_ablation as dab
+    from mggan_tpu_torch.ablations import make_inputs
+    from mggan_tpu_torch.ops.kernels import build
+    from mggan_tpu_torch.ops.kernels import decode_ablation as kab
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    names = {"f32": "ActExact", "bf16": "ActBf16", "lin": "ActLin"}
+    res = {"shapes": {}}
+    for n in B1_ROWS:
+        inp = make_inputs(n, SEED)
+        args, p32, _ = dab.prepare(inp)
+        reps = 5 if n > 100_000 else 20
+        k1 = kdec.launch_decode_select(p32)
+        k1_ms = cuda_time_ms(lambda: kdec.launch_decode_select(p32), reps)
+        k1_dev = kernel_device_ms(lambda: kdec.launch_decode_select(p32),
+                                  "decode_select_tiled_kernel")
+        bound = decode_select_bound_ms(p32)
+        rows, tile, blocks = kdec.tiled_launch(n, sms)
+        shape = {"n_rows": n, "k1_ms": k1_ms, "k1_device_ms": k1_dev, "bound_ms": bound[0],
+                 "bound_by": bound[1], "rows_per_warp": rows, "tile_rows": tile,
+                 "blocks": blocks, "acts": {}}
+        for act in kab.ACTS:
+            got, kept = kab.launch_act(p32, act), kab.launch_act_warp(p32, act)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, kept))
+            same_k1 = act != "f32" or all(torch.equal(a, b) for a, b in zip(got, k1))
+            want = kab.decode_select_act_reference(*args[:7], act)
+            e_new = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            old_ms, new_ms = alternate_ms(lambda: kab.launch_act_warp(p32, act),
+                                          lambda: kab.launch_act(p32, act), reps)
+            dev_new = kernel_device_ms(lambda: kab.launch_act(p32, act), names[act] + ">")
+            dev_old = kernel_device_ms(lambda: kab.launch_act_warp(p32, act),
+                                       "decode_select_act_kernel<")
+            shape["acts"][act] = {
+                "equals_warp_baseline": same, "equals_tiled_k1": same_k1, "max_abs_err": e_new,
+                "warp_baseline_max_abs_err": e_new, "ms": new_ms,  # the same bits (checked)
+                "warp_baseline_ms": old_ms, "device_ms": dev_new,
+                "warp_baseline_device_ms": dev_old}
+            print(f"B1-{act} tiled N={n} (R={rows}, tiles of {tile} rows, {blocks} blocks): equal "
+                  f"to its warp-per-row kernel bit for bit {same}"
+                  + (f", to the tiled K1 {same_k1}" if act == "f32" else "")
+                  + f"; max_abs_err {e_new:.3e} against its plain version; kernel {new_ms:.4f} "
+                  f"ms, warp-per-row {old_ms:.4f} ms (same call, in turns; device time alone "
+                  f"{dev_new:.4f} and {dev_old:.4f} ms); the tiled K1 {k1_ms:.4f} ms (device "
+                  f"{k1_dev:.4f}), bound {bound[0]:.4f} ms by {bound[1]}")
+            check(same, f"B1-{act} tiled at {n} rows differs from its warp-per-row kernel")
+            check(same_k1, f"B1-f32 tiled at {n} rows differs from the tiled K1")
+            del got, kept, want
+        acts = shape["acts"]
+        shape["activation_share_of_k1"] = 1.0 - acts["lin"]["device_ms"] / k1_dev
+        print(f"  activations' share of the tiled K1 at {n} rows (device times, 1 - B1-lin / "
+              f"K1): {shape['activation_share_of_k1']:.4f}; B1-bf16 / K1 "
+              f"{acts['bf16']['device_ms'] / k1_dev:.4f}")
+        res["shapes"][n] = shape
+        if n == B1_ROWS[-1]:
+            smem = nbytes_of(p32["tensors"][0])
+            res["config"] = {act: {
+                "warps_per_sm": kab.tiled_warps_per_sm(p32, act, rows),
+                "registers": ptxas_registers("decode_ablation",
+                                             f"decode_select_tiled_kernelILi{rows}ELi32ELi16E",
+                                             names[act]),
+                "warp_baseline_warps_per_sm": build.warps_per_sm(
+                    "decode_ablation", "mggan_decode_select_act_warps_per_sm",
+                    kab.ACTS.index(act), smem),
+                "warp_baseline_registers": ptxas_registers(
+                    "decode_ablation", "decode_select_act_kernel", names[act])}
+                for act in kab.ACTS}
+        del inp, args, p32, k1
+        torch.cuda.empty_cache()
+    print(f"B1 tiled launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(res['config'])}")
+    return res
+
+
+def ablation_entries(checks, bwd16, path, by_path, b1):
+    """The kernels line's entries of the ablation path's kernels; B1's
+    (redesigned on the tiled rollout) carry phase 13's readings ``b1`` and
+    their kept warp-per-row kernels' entries."""
     dec_ms, sort_ms, warps = path["decodeabl_ms"], path["sortedparts_ms"], path["warps_per_sm"]
     bounds = path["bounds_1310720"]
     no_library = ("no single PyTorch call runs a rollout that feeds back its own output")
@@ -1969,6 +2211,15 @@ def ablation_entries(checks, bwd16, path, by_path):
                             "warps_per_sm": warps[warps_key.get(key, key)],
                             **path["against_plain"].get(key, {})},
         })
+        if name.startswith("decode_select_act_"):
+            act = name.rsplit("_", 1)[1]
+            shapes = {n: {"n_rows": n, "plain_ms": r["plain_ms"] if n == ABL_ROWS else None,
+                          "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                          **v["acts"][act]} for n, v in b1["shapes"].items()}
+            entries[-1].update(
+                redesign={"shapes": shapes, "config": b1["config"][act]},
+                baseline=baseline_entry(f"{name}_warp", source, replaces, shapes, ABL_ROWS,
+                                        by_path))
     entries.append({
         "name": "decode_all_bwd_after_bf16", "status": "ported (ablation path)",
         "route": "cuda", "source": "mggan_tpu_torch/csrc/decode_all.cu",
@@ -1982,15 +2233,19 @@ def ablation_entries(checks, bwd16, path, by_path):
     return entries
 
 
-def baseline_entry(name, source, line, shapes, main, by_path):
+def baseline_entry(name, source, replaces, shapes, main, by_path):
     """A kept warp-per-row kernel as a kernels-line entry: phase 13's
     readings of it beside its successor (``shapes``), its times at the
-    ``main`` shape's row count, launches on the paths (none)."""
+    ``main`` shape's row count, launches on the paths (none). ``replaces``:
+    a line of ``mggan_tpu/ops/pallas/decoder.py`` or the TPU kernel's
+    file:line."""
     r = shapes[main]
+    if isinstance(replaces, int):
+        replaces = f"mggan_tpu/ops/pallas/decoder.py:{replaces}"
     return {
         "name": name, "status": "replaced design, kept as the yardstick (no path launches it)",
         "route": "cuda", "source": f"mggan_tpu_torch/csrc/{source}",
-        "replaces": f"mggan_tpu/ops/pallas/decoder.py:{line}",
+        "replaces": replaces,
         "launches": sum(by_path(name).values()),
         "max_abs_err": max(v["warp_baseline_max_abs_err"] for v in shapes.values()),
         "ms": r["warp_baseline_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2006,8 +2261,8 @@ def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
     each main path (``paths``: path -> launch counts) and the numbers
     measured in this run; the redesigned kernels (K3, K1-bf16, K1, K2) also
     carry phase 13's readings, their baselines' times among them, and K1's
-    and K2's the kept warp-per-row kernels' entries (``baseline``: on no
-    path, so 0 launches)."""
+    and K2's (and K2-bf16's) the kept warp-per-row kernels' entries
+    (``baseline``: on no path, so 0 launches)."""
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     serving, bench = kern["serving"], kern["bench"]
     shapes = lambda res: {label: {k: v for k, v in r.items() if k not in ("flops", "bytes")}
@@ -2095,6 +2350,12 @@ def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
         if name == "decode_select_bf16":
             entries[-1].update(source="mggan_tpu_torch/csrc/decode_select_mma.cu",
                                mean_atol=BF16_MEAN_ATOL, redesign=redesigned[name])
+        else:
+            entries[-1].update(mean_atol=BF16_MEAN_ATOL, redesign=redesigned[name],
+                               baseline=baseline_entry(
+                                   "decode_all_fwd_bf16_warp", "decode_all.cu",
+                                   "573 (compute_dtype=bfloat16)",
+                                   redesigned[name]["shapes"], "eval", by_path))
     return entries
 
 
@@ -2141,11 +2402,14 @@ def main():
              "ablation": abl_path["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
-    entries += ablation_entries(abl_checks, bwd16, abl_path, by_path)
+    entries += ablation_entries(abl_checks, bwd16, abl_path, by_path,
+                                redesigned["decode_select_act"])
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was launched on no main path")
     for name in ("decode_select_warp", "decode_all_fwd_warp", "decode_select_bf16_warp",
-                 "decode_all_bwd_warp"):  # the kept yardsticks stay off every path
+                 "decode_all_bwd_warp", "decode_all_fwd_bf16_warp", "decode_select_act_f32_warp",
+                 "decode_select_act_bf16_warp", "decode_select_act_lin_warp"):
+        # the kept yardsticks stay off every path
         check(not by_path(name), f"{name} was launched on a path: {by_path(name)}")
     print(json.dumps({
         "build_s": build_s,

@@ -7,9 +7,9 @@ its time into causes:
 * ``prod_select``: ``decoder.decode_select`` as the sampling path calls it
   (weight folding, the hoisted social bias, K1);
 * ``kernel_select``: K1 alone on prepared arguments (the tiled kernel);
-* ``kernel_f32`` / ``kernel_bf16`` / ``kernel_lin``: B1, the warp-per-row
-  K1 with its gate activations exact, in bf16 arithmetic, or linear (wrong
-  by design);
+* ``kernel_f32`` / ``kernel_bf16`` / ``kernel_lin``: B1, the tiled K1 with
+  its gate activations exact, in bf16 arithmetic, or linear (wrong by
+  design): beside ``kernel_select``, the activations' share of K1;
 * ``kernel_ilp``: K5, a warp per pair of rows (bit-identical to K1);
 * ``kernel_select_bf16``: K1-bf16 (the tensor-core kernel of the bf16 route);
 * ``kernel_ilp_bf16``: K5 on the bf16 image (warp per pair of rows).
@@ -63,14 +63,14 @@ def resident_warps(inputs):
     _, p32, p16 = prepare(inputs)
     smem = lambda p: p["tensors"][0].numel() * 4
     q = lambda stem, fn, v, p: build.warps_per_sm(stem, fn, v, smem(p))
-    sel, act = "mggan_decode_select_warps_per_sm", "mggan_decode_select_act_warps_per_sm"
+    sel = "mggan_decode_select_warps_per_sm"
+    rows = kdec.tiled_launch(p32["dims"][0], kdec.sm_count(p32["tensors"][1].device))[0]
     return {
-        "kernel_select": kdec.tiled_warps_per_sm(
-            p32, kdec.tiled_launch(p32["dims"][0], kdec.sm_count(p32["tensors"][1].device))[0]),
+        "kernel_select": kdec.tiled_warps_per_sm(p32, rows),
         "kernel_select_bf16": kdec.mma_warps_per_sm(p16["dims"][2]),
         "kernel_ilp": q("decode_select", sel, 2, p32),
         "kernel_ilp_bf16": q("decode_select", sel, 3, p16),
-        **{f"kernel_{a}": q("decode_ablation", act, i, p32) for i, a in enumerate(kab.ACTS)},
+        **{f"kernel_{a}": kab.tiled_warps_per_sm(p32, a, rows) for a in kab.ACTS},
     }
 
 

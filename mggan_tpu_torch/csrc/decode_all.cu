@@ -7,9 +7,9 @@
 // For training it also stores each step's h and c as hc (G, N, T, 2, H), the
 // residuals K3 recomputes the gates from. Its bf16 variant
 // (mggan_decode_all_fwd_bf16, the TPU kernel's compute_dtype=bfloat16) runs
-// the same template on the bf16 weight image and may save hc too: h as the
-// bf16-rounded value the next step's product reads (in f32), c in f32, as
-// _fwd_kernel saves h.astype(f32) after .astype(compute_dtype). K3 then
+// K1-bf16's tensor-core rollout (rollout_mma.cuh) and may save hc too: h as
+// the bf16-rounded value the next step's product reads (in f32), c in f32,
+// as _fwd_kernel saves h.astype(f32) after .astype(compute_dtype). K3 then
 // sweeps in f32 on the f32 weights from those residuals, as _vjp_bwd does
 // after a bf16 forward.
 //
@@ -38,10 +38,23 @@
 //   recomputed gates pick LeakyReLU's slope as the forward did. The TPU
 //   kernel's lane-packed block-diagonal layout was a vector-register choice
 //   and is not carried over.
+// * K2-bf16 (decode_all_fwd_mma_kernel): a block per (generator, slice of
+//   rows) stages only that generator's fragment image (decoder.py::
+//   mma_weights, 13 KB) and runs 4 warps, each on groups of 16 consecutive
+//   rows on the tensor cores (rollout_mma.cuh::rollout_group, K1-bf16's
+//   rollout: the two are bit-identical on the selected rows).
+//   With hc, each lane stores its units' h (the bf16 value packed into the
+//   next step's A fragment, widened) and c as float2 pairs straight from the
+//   accumulator layout, a quad writing one 32-byte sector per row. What
+//   paces it is latency: 12 dependent steps of mma chains, activations and
+//   a quad butterfly per group, so the launch (decode_all.py::mma_launch)
+//   picks the blocks an SM (4, or 5 at 96 registers) that take the groups
+//   in the fewest waves. Two groups interleaved per warp were slower.
 // * The warp-per-row K2 (decode_all_fwd_kernel: a warp per (row,
 //   generator), h broadcast by __shfl_sync, all G generators' weights in
-//   shared memory, a persistent grid) stays as the f32 yardstick
-//   (mggan_decode_all_fwd_warp) and is still K2-bf16's kernel.
+//   shared memory, a persistent grid) stays as the yardstick of both
+//   designs, on the f32 image (mggan_decode_all_fwd_warp) and on the bf16
+//   one (mggan_decode_all_fwd_bf16_warp); no path launches it.
 // * K3 (decode_all_bwd_kernel): a block per (generator, slice of rows)
 //   runs 16 warps in lockstep, each on a tile of kBwdRows rows of that
 //   generator, so every weight value a lane reads from shared memory serves
@@ -71,6 +84,7 @@
 // tiles of K2 and K3 cut the weight reads per row-step R-fold; what is left
 // is the FMA issue itself, the activations and the broadcasts of h.
 
+#include "rollout_mma.cuh"
 #include "rollout_tile.cuh"
 
 namespace {
@@ -197,6 +211,48 @@ decode_all_fwd_tiled_kernel(const float* __restrict__ wpack,
     }
     rollout_tile<R, kH, kHid>(smem, L, lane, stage, h, x, y, dx, dy, sb, out_row, out_abs,
                               out_rel, hc);
+  }
+}
+
+// K2-bf16 on the tensor cores: grid (blocks_per_gen, G), kMmaFwdThreads
+// threads, kMinBlocks blocks an SM at least (the register budget). Block
+// (b, g) holds generator g's fragment image; warp w of block b rolls out
+// the groups of 16 consecutive rows b * kMmaFwdWarps + w, + gridDim.x *
+// kMmaFwdWarps, ...
+constexpr int kMmaFwdWarps = 4;
+constexpr int kMmaFwdThreads = kMmaFwdWarps * 32;
+
+template <int kMinBlocks>
+__global__ void __launch_bounds__(kMmaFwdThreads, kMinBlocks)
+decode_all_fwd_mma_kernel(const float* __restrict__ wimg,    // (G, kImageWords)
+                          const float* __restrict__ h0,      // (N, H)
+                          const float* __restrict__ socb,    // (M, G, hid)
+                          const float* __restrict__ xy0,     // (M, 2)
+                          const float* __restrict__ dxdy0,   // (M, 2)
+                          float* __restrict__ out_abs,       // (G, N, T, 2)
+                          float* __restrict__ out_rel,       // (G, N, T, 2)
+                          float* __restrict__ hc,            // (G, N, T, 2, H) or null
+                          int64_t n_rows, int64_t m_rows, int num_gens, int h_dim,
+                          int hid_dim, int in_dim, int pred_len, int fmt) {
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.y;
+  stage_weights(smem4, wimg + (int64_t)g * kImageWords, kImageWords);
+  const uint32_t* W = reinterpret_cast<const uint32_t*>(smem4);
+  const Layout L(h_dim, hid_dim, in_dim, pred_len, fmt);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t groups = (n_rows + kMmaGroup - 1) / kMmaGroup;
+  for (int64_t grp = (int64_t)blockIdx.x * kMmaFwdWarps + warp; grp < groups;
+       grp += (int64_t)gridDim.x * kMmaFwdWarps) {
+    int64_t in_row[2], out_row[2];  // this lane's rows r and r + 8 of the group
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t row = grp * kMmaGroup + (lane >> 2) + 8 * i;
+      const bool live = row < n_rows;
+      in_row[i] = live ? row : 0;
+      out_row[i] = live ? (int64_t)g * n_rows + row : -1;
+    }
+    rollout_group(W, g, in_row, out_row, h0, socb, xy0, dxdy0, out_abs, out_rel, hc, m_rows,
+                  num_gens, L, lane);
   }
 }
 
@@ -1017,6 +1073,19 @@ inline size_t fwd_tiled_smem(int rows_per_warp, int h, int pred_len, int per_gen
 }
 
 
+using MmaFwdKernel = decltype(&decode_all_fwd_mma_kernel<4>);
+
+// K2-bf16's launch variants (decode_all.py::MMA_BLOCKS_PER_SM, in this
+// order): the blocks an SM the registers must allow, 4 (118 registers, no
+// spill) or 5 (96, a few spilled).
+inline MmaFwdKernel mma_fwd_kernel(int variant) {
+  switch (variant) {
+    case 0: return decode_all_fwd_mma_kernel<4>;
+    case 1: return decode_all_fwd_mma_kernel<5>;
+    default: return nullptr;
+  }
+}
+
 using BwdKernel = decltype(&decode_all_bwd_warp_kernel);
 
 // K3's kernel for variant 0 (tiled: the flagship widths' instantiation
@@ -1153,15 +1222,54 @@ int mggan_decode_all_fwd_warp_warps_per_sm(int num_gens, int per_gen, int* warps
                              (size_t)num_gens * per_gen * sizeof(float), warps);
 }
 
-// K2 with the bf16 weight image (compute_dtype=bfloat16); hc may be null.
-int mggan_decode_all_fwd_bf16(const void* wpack, const void* h0, const void* socb,
+// K2-bf16 (compute_dtype=bfloat16) on `stream` with the fragment image
+// `wimg` (G, image words; decoder.py::mma_weights) over (blocks_per_gen, G)
+// blocks of launch variant `variant` (mma_fwd_kernel); hc may be null.
+// Returns cudaGetLastError() after the launch (0 on success); the caller
+// checks shapes (H, hid <= 32, in <= 8) and picks the launch
+// (decode_all.py::mma_launch).
+int mggan_decode_all_fwd_bf16(const void* wimg, const void* h0, const void* socb,
                               const void* xy0, const void* dxdy0, void* out_abs,
                               void* out_rel, void* hc, long long n_rows, long long m_rows,
                               int num_gens, int h_dim, int hid_dim, int in_dim,
-                              int pred_len, int fmt, int per_gen, void* stream) {
+                              int pred_len, int fmt, int variant, int blocks_per_gen,
+                              void* stream) {
+  const MmaFwdKernel kernel = mma_fwd_kernel(variant);
+  if (kernel == nullptr || blocks_per_gen < 1 || h_dim > 32 || hid_dim > 32 || in_dim > 8)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kImageWords * sizeof(float);
+  const dim3 grid((unsigned)blocks_per_gen, (unsigned)num_gens);
+  kernel<<<grid, kMmaFwdThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)wimg, (const float*)h0, (const float*)socb, (const float*)xy0,
+      (const float*)dxdy0, (float*)out_abs, (float*)out_rel, (float*)hc, (int64_t)n_rows,
+      (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt);
+  return (int)cudaGetLastError();
+}
+
+// Resident warps per SM of K2-bf16's launch variant `variant`.
+int mggan_decode_all_fwd_bf16_warps_per_sm(int variant, int* warps) {
+  const MmaFwdKernel kernel = mma_fwd_kernel(variant);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)resident_warps(kernel, kMmaFwdThreads, kImageWords * sizeof(float), warps);
+}
+
+// The warp-per-row K2 on the bf16 weight image, the kernel K2-bf16's
+// tensor-core design replaced (the yardstick; no path launches it); hc may
+// be null.
+int mggan_decode_all_fwd_bf16_warp(const void* wpack, const void* h0, const void* socb,
+                                   const void* xy0, const void* dxdy0, void* out_abs,
+                                   void* out_rel, void* hc, long long n_rows, long long m_rows,
+                                   int num_gens, int h_dim, int hid_dim, int in_dim,
+                                   int pred_len, int fmt, int per_gen, void* stream) {
   return launch_fwd<__nv_bfloat16>(wpack, h0, socb, xy0, dxdy0, out_abs, out_rel, hc,
                                    n_rows, m_rows, num_gens, h_dim, hid_dim, in_dim,
                                    pred_len, fmt, per_gen, stream);
+}
+
+// Resident warps per SM of the warp-per-row K2 with the bf16 image.
+int mggan_decode_all_fwd_bf16_warp_warps_per_sm(int num_gens, int per_gen, int* warps) {
+  return (int)resident_warps(decode_all_fwd_kernel<__nv_bfloat16>, kFwdThreads,
+                             (size_t)num_gens * per_gen * sizeof(float), warps);
 }
 
 #define MGGAN_BWD_ENTRY(name, variant)                                                        \

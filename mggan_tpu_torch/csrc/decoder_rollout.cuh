@@ -39,11 +39,56 @@ enum Format { kRel = 0, kAbs = 1, kAbsRel = 2 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// The gate activations of the rollout: the kernels' own (sigmoid, tanhf).
-// decode_ablation.cu (B1) instantiates the rollout on other policies.
+// The gate activations of the rollouts (rollout_row, rollout_row2 and
+// rollout_tile.cuh::rollout_tile), as policies: the kernels' own
+// (ActExact: sigmoid, tanhf) and the two of the activation ablation B1
+// (decode_ablation.cu, benchmarks/decode_ablation.py:52-63):
+//   ActBf16  in bf16 arithmetic, rounded where the TPU script rounds: the
+//            input to bf16, then exp, the add or subtract and the divide
+//            each to bf16: sig(x) = 1 / (1 + exp(-x)),
+//            tnh(x) = (exp(2x) - 1) / (exp(2x) + 1);
+//   ActLin   x * 0.25 + 0.5 and x * 0.5: wrong numerics by design, the
+//            rollout with activations that cost one FMA or multiply.
+// cell(sf, c, si, tg) is the cell update sf * c + si * tg. ActExact leaves
+// its contraction to the compiler, which gives every rollout template the
+// same fmaf (the templates agree bit for bit); for the other policies it
+// picked differently in two templates, so they spell out one.
 struct ActExact {
   static __device__ __forceinline__ float sig(float x) { return sigmoid(x); }
   static __device__ __forceinline__ float tnh(float x) { return tanhf(x); }
+  static __device__ __forceinline__ float cell(float sf, float c, float si, float tg) {
+    return sf * c + si * tg;
+  }
+};
+
+// The cell update with one fixed rounding: fmaf(sf, c, si * tg).
+__device__ __forceinline__ float cell_fixed(float sf, float c, float si, float tg) {
+  return fmaf(sf, c, __fmul_rn(si, tg));
+}
+
+struct ActBf16 {
+  static __device__ __forceinline__ float sig(float x) {
+    const __nv_bfloat16 one = __float2bfloat16_rn(1.0f);
+    const __nv_bfloat16 e = hexp(__hneg(__float2bfloat16_rn(x)));
+    return __bfloat162float(__hdiv(one, __hadd(one, e)));
+  }
+  static __device__ __forceinline__ float tnh(float x) {
+    const __nv_bfloat16 one = __float2bfloat16_rn(1.0f);
+    const __nv_bfloat16 xb = __float2bfloat16_rn(x);
+    const __nv_bfloat16 e = hexp(__hadd(xb, xb));
+    return __bfloat162float(__hdiv(__hsub(e, one), __hadd(e, one)));
+  }
+  static __device__ __forceinline__ float cell(float sf, float c, float si, float tg) {
+    return cell_fixed(sf, c, si, tg);
+  }
+};
+
+struct ActLin {
+  static __device__ __forceinline__ float sig(float x) { return x * 0.25f + 0.5f; }
+  static __device__ __forceinline__ float tnh(float x) { return x * 0.5f; }
+  static __device__ __forceinline__ float cell(float sf, float c, float si, float tg) {
+    return cell_fixed(sf, c, si, tg);
+  }
 };
 
 __device__ __forceinline__ void fma4(float4& acc, float s, const float4& w) {
@@ -192,7 +237,7 @@ __device__ __forceinline__ void rollout_row(const float* W, const Layout& L, int
     acc.x += bias.x; acc.y += bias.y; acc.z += bias.z; acc.w += bias.w;
     if (own) {
       add_input<T>(acc, w.wemb, L, lane, x, y, dx, dy);
-      c = Act::sig(acc.y) * c + Act::sig(acc.x) * Act::tnh(acc.z);
+      c = Act::cell(Act::sig(acc.y), c, Act::sig(acc.x), Act::tnh(acc.z));
       h = operand<T>(Act::sig(acc.w) * Act::tnh(c));
       if (hc_row != nullptr) {
         hc_row[t * 2 * L.h + lane] = h;
@@ -276,7 +321,7 @@ __device__ __forceinline__ void rollout_row2(const float* const W[2], const Layo
       acc.x += bias[r].x; acc.y += bias[r].y; acc.z += bias[r].z; acc.w += bias[r].w;
       if (own) {
         add_input<T>(acc, w[r].wemb, L, lane, x[r], y[r], dx[r], dy[r]);
-        c[r] = Act::sig(acc.y) * c[r] + Act::sig(acc.x) * Act::tnh(acc.z);
+        c[r] = Act::cell(Act::sig(acc.y), c[r], Act::sig(acc.x), Act::tnh(acc.z));
         h[r] = operand<T>(Act::sig(acc.w) * Act::tnh(c[r]));
       }
     }

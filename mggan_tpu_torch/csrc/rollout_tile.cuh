@@ -1,6 +1,6 @@
 // One warp's rollout of R rows of one generator, f32 on the CUDA cores:
-// the row loop of the tiled K1 (decode_select_tiled.cu) and the tiled K2
-// (decode_all.cu).
+// the row loop of the tiled K1 (select_tiled.cuh, decode_select_tiled.cu),
+// the tiled K2 (decode_all.cu) and the tiled B1 (decode_ablation.cu).
 //
 // Lane j owns hidden unit j (lane q hidden2pos unit q) for all R rows, so
 // every weight a lane reads from shared memory (a 16-byte [k][j][gate]
@@ -10,9 +10,9 @@
 // shuffle per unit and row.
 //
 // Per row, every operation is rollout_row's (decoder_rollout.cuh, f32
-// image, exact activations) in rollout_row's order: the recurrent part
-// summed by fma4 over k ascending from zero, then + bias, then add_input's
-// FMAs, the gate expression as written there; hidden2pos summed over k
+// image, the same activation policy) in rollout_row's order: the recurrent
+// part summed by fma4 over k ascending from zero, then + bias, then
+// add_input's FMAs, the gate expressions; hidden2pos summed over k
 // ascending from socb, the same LeakyReLU and the same shuffle butterfly
 // for nd. So each row's abs, rel and (h, c) are bit-identical to the
 // warp-per-row kernels'.
@@ -106,7 +106,10 @@ __device__ __forceinline__ void tile_sweep(const float* __restrict__ hs, int hp,
 // to row out_row[r] of hc ((rows, T, 2, H)); out_row[r] < 0 marks a padding
 // row, which computes on whatever it was given and stores nothing.
 // kH, kHid > 0 fix H and hid at compile time (0: from L). `stage` is the
-// warp's tile_stage_floats(R, H, T) floats of shared memory.
+// warp's tile_stage_floats(R, H, T) floats of shared memory. Act supplies
+// the gate activations sig and tnh (ActExact, K1's and K2's: sigmoid and
+// tanhf; B1 in decode_ablation.cu takes the others), applied as
+// rollout_row<float, Act> applies them.
 //
 // With hid = 16 fixed and R even, hidden2pos is split over the half-warps:
 // lane l takes unit l % 16 of rows (l / 16) R/2 ... (l / 16) R/2 + R/2 - 1,
@@ -115,7 +118,7 @@ __device__ __forceinline__ void tile_sweep(const float* __restrict__ hs, int hp,
 // lanes >= hid (x + 0, which turns -0 into +0), then sums within 16 lanes:
 // the split adds that zero and runs the same four levels, so every row's
 // sum is the same sum.
-template <int R, int kH, int kHid>
+template <int R, int kH, int kHid, typename Act = ActExact>
 __device__ __forceinline__ void rollout_tile(const float* __restrict__ W, const Layout& Lrt,
                                              int lane, float* __restrict__ stage,
                                              const float (&h0)[R], const float (&x0)[R],
@@ -174,8 +177,8 @@ __device__ __forceinline__ void rollout_tile(const float* __restrict__ W, const 
       h[r] = 0.f;
       if (own) {
         add_input<float>(acc, w.wemb, L, lane, x[r], y[r], dx[r], dy[r]);
-        c[r] = sigmoid(acc.y) * c[r] + sigmoid(acc.x) * tanhf(acc.z);
-        h[r] = sigmoid(acc.w) * tanhf(c[r]);
+        c[r] = Act::cell(Act::sig(acc.y), c[r], Act::sig(acc.x), Act::tnh(acc.z));
+        h[r] = Act::sig(acc.w) * Act::tnh(c[r]);
         if (hc != nullptr && out_row[r] >= 0) {
           float* at = hc + (out_row[r] * T + t) * 2 * H;
           at[lane] = h[r];

@@ -26,7 +26,13 @@ which stays compiled as its yardstick (``launch_fwd_warp``, counted as
 
 ``compute_dtype=torch.bfloat16`` runs K2's bf16 variant (counted as
 ``decode_all_fwd_bf16``; plain version ``decode_all_reference`` with the
-same argument), with K1's bf16 numerics (``decoder.py``'s module note).
+same argument), with K1's bf16 numerics (``decoder.py``'s module note): K1-bf16's
+tensor-core rollout on groups of 16 consecutive rows of one generator, the
+generator's fragment image (``decoder.mma_weights``) in shared memory (the
+launch from ``mma_launch``), bit-identical to K1-bf16 on the selected rows.
+The warp-per-row kernel it replaced stays compiled as its yardstick
+(``launch_fwd_warp`` on bf16 arguments, counted as
+``decode_all_fwd_bf16_warp``; no path launches it).
 Under autograd it saves (h, c) as the TPU kernel does (h the bf16-rounded
 value, c in f32), and the backward is K3 on the **f32** folded weights from
 those residuals and the bf16 forward's outputs, as JAX's ``_vjp_bwd`` after
@@ -58,6 +64,9 @@ KERNEL_FWD = "decode_all_fwd"
 # comparison on the card (chip_smoke.py, the card tests); no path launches it
 KERNEL_FWD_WARP = "decode_all_fwd_warp"
 KERNEL_FWD_BF16 = "decode_all_fwd_bf16"
+# the warp-per-row bf16 forward that K2-bf16's tensor-core design replaced,
+# kept for comparison on the card; no path launches it
+KERNEL_FWD_BF16_WARP = "decode_all_fwd_bf16_warp"
 KERNEL_BWD = "decode_all_bwd"
 KERNEL_BWD_AFTER_BF16 = "decode_all_bwd_after_bf16"  # K3 on a bf16 forward's residuals
 # the warp-per-row reverse sweep that K3's tiled design replaced, kept for
@@ -67,6 +76,12 @@ PACKED = kdec.PACKED
 BWD_ROWS = 8  # K3 takes at most one block per 8 rows (the warp-per-row sweep's warps)
 FWD_WARPS = 8  # warps of a tiled K2 block (csrc/decode_all.cu::kFwdWarps)
 FWD_BLOCKS_PER_SM = 2  # tiled K2 blocks an SM holds (registers: 128 a thread)
+# K2-bf16's launch variants (csrc/decode_all.cu::mma_fwd_kernel, in this
+# order): the blocks an SM its registers allow; warps a block, each on
+# groups of 16 rows (one mma)
+MMA_BLOCKS_PER_SM = (4, 5)
+MMA_WARPS = 4
+MMA_GROUP = 16
 
 
 def _untile(x, m):
@@ -166,9 +181,15 @@ def _lib():
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.mggan_decode_all_fwd.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 9 + [ptr]
     lib.mggan_decode_all_fwd.restype = i32
-    for fn in (lib.mggan_decode_all_fwd_warp, lib.mggan_decode_all_fwd_bf16):
+    for fn in (lib.mggan_decode_all_fwd_warp, lib.mggan_decode_all_fwd_bf16_warp):
         fn.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 7 + [ptr]
         fn.restype = i32
+    lib.mggan_decode_all_fwd_bf16.argtypes = [ptr] * 8 + [ll] * 2 + [i32] * 8 + [ptr]
+    lib.mggan_decode_all_fwd_bf16.restype = i32
+    lib.mggan_decode_all_fwd_bf16_warps_per_sm.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.mggan_decode_all_fwd_bf16_warps_per_sm.restype = i32
+    lib.mggan_decode_all_fwd_bf16_warp_warps_per_sm.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
+    lib.mggan_decode_all_fwd_bf16_warp_warps_per_sm.restype = i32
     lib.mggan_decode_all_fwd_warps_per_sm.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.mggan_decode_all_fwd_warps_per_sm.restype = i32
     lib.mggan_decode_all_fwd_warp_warps_per_sm.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
@@ -192,8 +213,11 @@ def prepare(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
     """Pack the kernels' weight image and check every row argument
     (``decoder.prepare_rollout``); ``launch_fwd``/``launch_bwd`` take it."""
     packed = dict(zip(PACKED, (w_emb, w_hh, b, w1h, w2, b2)))
-    return kdec.prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len,
+    args = kdec.prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len,
                                 inp_format, compute_dtype)
+    if args["bf16"]:  # K2-bf16's fragment image (the warp image stays for its yardstick)
+        args["mma_wpack"] = kdec.mma_weights(packed).reshape(-1)
+    return args
 
 
 def _raise_on(rc, name):
@@ -215,37 +239,72 @@ def fwd_launch(n: int, num_gens: int, sms: int):
     return rows, max(1, min(groups, -(-resident // max(num_gens, 1))))
 
 
+def mma_launch(n: int, num_gens: int, sms: int):
+    """K2-bf16's launch for ``n`` rows of ``num_gens`` generators on ``sms``
+    SMs: ``(variant, blocks_per_gen)``, the variant an index into
+    ``MMA_BLOCKS_PER_SM``. A warp rolls out groups of 16 rows; the variant
+    is the one whose resident warps take every group in the fewest waves
+    (latency sets a group's pace, so a second wave costs a whole group
+    latency), 4 blocks an SM (no spill) on a tie. Blocks per generator: one
+    per ``MMA_WARPS`` groups, all in one grid (the card starts a block as
+    another retires). Picked from the launch sweep of
+    ``chip_smoke.py --sweep`` on an H100."""
+    groups = -(-n // MMA_GROUP)
+    waves = [-(-groups * num_gens // (sms * per_sm * MMA_WARPS)) for per_sm in MMA_BLOCKS_PER_SM]
+    variant = waves.index(min(waves))
+    return variant, max(1, -(-groups // MMA_WARPS))
+
+
 def launch_fwd(args, save_hc: bool, shape=None):
     """K2 (its f32 or bf16 variant, as the arguments say) on the current
-    stream -> ``(abs, rel, hc or None)``. ``shape`` replaces
-    ``fwd_launch``'s pick for the tiled f32 kernel, ``(rows_per_warp,
-    blocks_per_gen)``: for comparing launch shapes on the card."""
+    stream -> ``(abs, rel, hc or None)``. ``shape`` replaces the launch
+    rule's pick: ``(rows_per_warp, blocks_per_gen)`` for the tiled f32
+    kernel (``fwd_launch``), ``(variant, blocks_per_gen)`` for K2-bf16
+    (``mma_launch``); for comparing launch shapes on the card."""
     if args["bf16"]:
-        return _launch_fwd(_lib().mggan_decode_all_fwd_bf16, args, save_hc, KERNEL_FWD_BF16)
+        return _launch_fwd(_lib().mggan_decode_all_fwd_bf16, args, save_hc, KERNEL_FWD_BF16,
+                           shape)
     return _launch_fwd(_lib().mggan_decode_all_fwd, args, save_hc, KERNEL_FWD, shape)
 
 
 def launch_fwd_warp(args, save_hc: bool):
-    """The warp-per-row f32 K2 that the tiled design replaced, as
-    ``launch_fwd``: the same function, bit for bit, for comparing the two on
-    the card; counted as ``decode_all_fwd_warp``."""
+    """The warp-per-row K2 that the tiled f32 design and the tensor-core
+    bf16 design replaced, as ``launch_fwd``, on the arguments' image: in
+    f32 the same function bit for bit (counted as ``decode_all_fwd_warp``),
+    in bf16 the same function with the warp-per-row K1-bf16's summation
+    order (counted as ``decode_all_fwd_bf16_warp``); for comparing the
+    designs on the card."""
+    kdec.check_all_images(args)
     if args["bf16"]:
-        raise ValueError("the warp-per-row f32 kernel takes f32 arguments")
+        return _launch_fwd(_lib().mggan_decode_all_fwd_bf16_warp, args, save_hc,
+                           KERNEL_FWD_BF16_WARP)
     return _launch_fwd(_lib().mggan_decode_all_fwd_warp, args, save_hc, KERNEL_FWD_WARP)
 
 
 def fwd_warps_per_sm(args, rows_per_warp=None) -> int:
     """Resident warps per SM of the tiled K2 for ``rows_per_warp`` rows a
     warp at these f32 arguments' widths, or with None of the warp-per-row
-    K2."""
+    K2 (on bf16 arguments: of the warp-per-row K2 on the bf16 image)."""
     _, _, g, h, hid, _, t, _, per_gen = args["dims"]
     warps = ctypes.c_int(0)
+    lib = _lib()
     if rows_per_warp is None:
-        rc = _lib().mggan_decode_all_fwd_warp_warps_per_sm(g, per_gen, ctypes.byref(warps))
+        fn = (lib.mggan_decode_all_fwd_bf16_warp_warps_per_sm if args["bf16"]
+              else lib.mggan_decode_all_fwd_warp_warps_per_sm)
+        rc = fn(g, per_gen, ctypes.byref(warps))
     else:
-        rc = _lib().mggan_decode_all_fwd_warps_per_sm(rows_per_warp, h, hid, t, per_gen,
-                                                      ctypes.byref(warps))
+        rc = lib.mggan_decode_all_fwd_warps_per_sm(rows_per_warp, h, hid, t, per_gen,
+                                                   ctypes.byref(warps))
     _raise_on(rc, KERNEL_FWD)
+    return warps.value
+
+
+def mma_warps_per_sm(variant: int) -> int:
+    """Resident warps per SM of K2-bf16's launch variant ``variant``
+    (an index into ``MMA_BLOCKS_PER_SM``)."""
+    warps = ctypes.c_int(0)
+    _raise_on(_lib().mggan_decode_all_fwd_bf16_warps_per_sm(variant, ctypes.byref(warps)),
+              KERNEL_FWD_BF16)
     return warps.value
 
 
@@ -260,6 +319,9 @@ def _launch_fwd(fn, args, save_hc, count_as, shape=None):
         return out_abs, out_rel, hc
     if count_as == KERNEL_FWD:  # rows a warp and blocks per generator after per_gen
         dims = dims + tuple(shape or fwd_launch(n, g, kdec.sm_count(dev)))
+    elif count_as == KERNEL_FWD_BF16:  # the fragment image; variant and blocks for per_gen
+        tensors = (args["mma_wpack"],) + tensors[1:]
+        dims = dims[:8] + tuple(shape or mma_launch(n, g, kdec.sm_count(dev)))
     ptrs = [x.data_ptr() for x in tensors] + [out_abs.data_ptr(), out_rel.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -340,12 +340,13 @@ TILED_ARGTYPES = SELECT_ARGTYPES[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.cache
-def _kernel_fn(stem: str, name: str):
+def _kernel_fn(stem: str, name: str, tiled: bool):
     """``name`` of the library built from ``csrc/<stem>.cu`` with the
-    rollout kernels' argument types, and the library's error strings."""
+    rollout kernels' argument types (the tiled K1's with ``tiled``), and the
+    library's error strings."""
     lib = build.load(stem)
     fn = getattr(lib, name)
-    fn.argtypes = TILED_ARGTYPES if stem == TILED_SOURCE else SELECT_ARGTYPES
+    fn.argtypes = TILED_ARGTYPES if tiled else SELECT_ARGTYPES
     fn.restype = ctypes.c_int
     lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
@@ -382,19 +383,29 @@ def prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len: int,
         raise ValueError(f"{n} rollout rows are not a multiple of {m} input rows")
     if h > 32 or hid > 32 or pred_len > 32:
         raise ValueError(f"kernel takes H, hid, pred_len <= 32; got {h}, {hid}, {pred_len}")
-    if g * per_gen * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"{g} generators' weights exceed one block's shared memory")
     f32 = torch.float32
     check_arg("wpack", wflat, (g * per_gen,), f32, dev)
     check_arg("h0", h0, (n, h), f32, dev)
     check_arg("socb", socb, (m, g, hid), f32, dev)
     check_arg("last_xy", last_xy, (m, 2), f32, dev)
     check_arg("last_dxdy", last_dxdy, (m, 2), f32, dev)
-    return {
+    args = {
         "tensors": (wflat, h0, socb, last_xy, last_dxdy),
         "dims": (n, m, g, h, hid, in_dim, pred_len, FORMATS[inp_format], per_gen),
         "bf16": bf16,
     }
+    if not bf16:  # the bf16 kernels of the main paths stage one generator's fragments
+        check_all_images(args)
+    return args
+
+
+def check_all_images(args):
+    """Raise unless every generator's weight image of ``args`` fits one
+    block's shared memory, as the kernels that stage them all (the
+    warp-per-row rollouts, K5, the tiled K1) need."""
+    g, per_gen = args["dims"][2], args["dims"][8]
+    if g * per_gen * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"{g} generators' weights exceed one block's shared memory")
 
 
 def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
@@ -429,7 +440,18 @@ def launch_decode_select(args, ilp: bool = False, shape=None):
         return _launch(args, WARP_SOURCE, "mggan_" + name, name)
     if args["bf16"]:
         return _launch(args, MMA_SOURCE, "mggan_decode_select_bf16", KERNEL_BF16)
-    return _launch(args, TILED_SOURCE, "mggan_decode_select", KERNEL, shape)
+    return launch_tiled(args, TILED_SOURCE, "mggan_decode_select", KERNEL, shape)
+
+
+def launch_tiled(args, stem, symbol, count_as, shape=None):
+    """A tiled fused-selection kernel (``csrc/select_tiled.cuh``: K1, and B1
+    in ``csrc/decode_ablation.cu``), entry ``symbol`` of ``csrc/<stem>.cu``,
+    on f32 arguments from ``prepare_decode_select`` with ``tiled_launch``'s
+    pick or ``shape`` = ``(rows_per_warp, tile_rows, blocks)``; counted as
+    ``count_as``; returns ``(abs, rel)``."""
+    if args["bf16"]:
+        raise ValueError("the tiled kernels take f32 arguments")
+    return _launch(args, stem, symbol, count_as, shape, tiled=True)
 
 
 def tiled_warps_per_sm(args, rows_per_warp: int) -> int:
@@ -481,20 +503,22 @@ def launch_decode_select_bf16_warp(args):
     return _launch(args, WARP_SOURCE, "mggan_decode_select_bf16_warp", KERNEL_BF16_WARP)
 
 
-def _launch(args, stem, symbol, count_as, shape=None):
+def _launch(args, stem, symbol, count_as, shape=None, tiled=False):
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
     dev = tensors[1].device
+    if stem == WARP_SOURCE:  # the warp-per-row kernels stage every generator's image
+        check_all_images(args)
     out_abs = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
     out_rel = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out_abs, out_rel
-    fn, err_str = _kernel_fn(stem, symbol)
+    fn, err_str = _kernel_fn(stem, symbol, tiled)
     if stem == MMA_SOURCE:  # the fragment image, and rows per tile for the last argument
         sms = sm_count(dev)
         tensors = (args["mma_wpack"],) + tensors[1:]
         dims = dims[:8] + (mma_tile_rows(n, sms),)
-    elif stem == TILED_SOURCE:  # rows a warp, rows a tile and blocks after per_gen
+    elif tiled:  # rows a warp, rows a tile and blocks after per_gen
         dims = dims + tuple(shape or tiled_launch(n, sm_count(dev)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

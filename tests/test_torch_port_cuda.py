@@ -121,9 +121,10 @@ BF16_ATOL = 2e-3  # bf16 operands: a rounding of h can flip between the card and
 @pytest.mark.parametrize("inp_format", ["rel", "abs", "abs_rel"])
 @pytest.mark.parametrize("h_dim", [32, 20])
 def test_bf16_kernels_match_reference(cuda, inp_format, h_dim):
-    """K1's and K2's bf16 variants against their bf16 plain versions, and
-    the warp-per-row K1-bf16 equal to K2-bf16 on the selected rows bit for
-    bit (one rollout template, one arithmetic)."""
+    """K1's and K2's bf16 variants against their bf16 plain versions, K2-bf16
+    equal to the tensor-core K1-bf16 on the selected rows bit for bit (one
+    rollout, rollout_mma.cuh), and the kept warp-per-row K2-bf16 equal to
+    the warp-per-row K1-bf16 there (one rollout template, one arithmetic)."""
     stacked, rows = _decode_all_case(inp_format, h_dim, seed=3)
     idx = torch.from_numpy(np.random.RandomState(3).randint(0, 4, rows[3].shape[0])
                            .astype(np.int32))
@@ -140,10 +141,18 @@ def test_bf16_kernels_match_reference(cuda, inp_format, h_dim):
     for a, b in zip(sel + every, want_sel + want_all):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=BF16_ATOL)
     rows_n = torch.arange(idx.shape[0], device=cuda)
+    pick = idx.to(cuda).long()
+    for a, b in zip(sel, every):
+        assert torch.equal(a, b[pick, rows_n])
     warp = kdec.launch_decode_select_bf16_warp(kdec.prepare_decode_select(
         *on, T, inp_format, compute_dtype=bf16))
-    for a, b in zip(warp, every):
-        assert torch.equal(a, b[idx.to(cuda).long(), rows_n])
+    packed = kdec.pack_decoder_params(on[0], inp_format)
+    every_warp = kda.launch_fwd_warp(kda.prepare(
+        *[packed[k].contiguous() for k in kda.PACKED],
+        kdec.social_bias(packed, on[3]).contiguous(), on[4], on[1], on[2], T, inp_format, bf16),
+        save_hc=False)
+    for a, b in zip(warp, every_warp):
+        assert torch.equal(a, b[pick, rows_n])
 
 
 def _select_case(n_agents, k, seed, feat=32):
@@ -489,3 +498,99 @@ def test_tiled_k2_equals_warp_baseline(cuda, inp_format, h_dim, m, k):
         got = kda.launch_fwd(args, True)
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# K2-bf16 on the tensor cores (K1-bf16's rollout on 16 consecutive rows of
+# one generator) and B1 on the tiled f32 rollout.
+
+
+def _k2_bf16_inputs(stacked, rows, inp_format, dev):
+    packed = kdec.pack_decoder_params(_on(stacked, dev), inp_format)
+    return [packed[k].contiguous() for k in kda.PACKED] + [
+        kdec.social_bias(packed, rows[2].to(dev)).contiguous(), rows[3].to(dev),
+        rows[0].to(dev), rows[1].to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [0, 1, 17, 259])
+@pytest.mark.parametrize("inp_format,h_dim", [
+    ("rel", 32), ("abs", 32), ("abs_rel", 32), ("rel", 20), ("abs", 20), ("abs_rel", 20)])
+def test_k2_bf16_equals_k1_bf16_bit_for_bit(cuda, inp_format, h_dim, n_rows):
+    """K2-bf16 at every launch variant (1 and 3 blocks per generator, and
+    the rule's pick) equals the tensor-core K1-bf16 on the selected rows bit
+    for bit, with and without saving hc (one rollout: each row's products
+    in one order whatever its group), at 0, 1, 17 and 259 rows (M = N)."""
+    m = max(n_rows, 1)
+    stacked, rows = _decode_all_case(inp_format, h_dim, m=m, k=1, seed=14)
+    rows = tuple(x[:n_rows] if n_rows == 0 and i == 3 else x for i, x in enumerate(rows))
+    idx = torch.from_numpy(np.random.RandomState(14).randint(0, 4, n_rows).astype(np.int32))
+    bf16 = torch.bfloat16
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    k1 = kdec.decode_select(*on, T, inp_format, compute_dtype=bf16)
+    args = kda.prepare(*_k2_bf16_inputs(stacked, rows, inp_format, cuda), T, inp_format, bf16)
+    before = dict(kernels.launches)
+    outs = [kda.launch_fwd(args, save_hc) for save_hc in (False, True)]
+    outs += [kda.launch_fwd(args, True, shape=(v, b))
+             for v in range(len(kda.MMA_BLOCKS_PER_SM)) for b in (1, 3)]
+    torch.cuda.synchronize()
+    launched = len(outs) if n_rows else 0  # no rows: nothing to launch
+    assert kernels.launches[kda.KERNEL_FWD_BF16] == before.get(kda.KERNEL_FWD_BF16, 0) + launched
+    pick, rows_n = idx.to(cuda).long(), torch.arange(n_rows, device=cuda)
+    for out in outs:
+        for a, b in zip(k1, out[:2]):
+            assert torch.equal(a, b[pick, rows_n])
+        if out[2] is not None:
+            assert torch.equal(out[2], outs[1][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_gens,inp_format,h_dim", [
+    (4, "rel", 32), (4, "abs_rel", 20), (24, "rel", 32)])
+def test_k2_bf16_matches_plain_version_and_saves_hc(cuda, num_gens, inp_format, h_dim):
+    """K2-bf16 saving hc at 37 x 20 = 740 rows against the bf16 plain
+    version: abs, rel and hc within BF16_ATOL, hc's mean within
+    HC_MEAN_ATOL (chip_smoke.py's hc_checks), every saved h a bf16 value,
+    almost no saved c one; also at 24 generators, more than K1-bf16's
+    shared memory holds (K2-bf16 stages one generator a block)."""
+    stacked, rows = _decode_all_case(inp_format, h_dim, g_count=num_gens, seed=15)
+    inputs = _k2_bf16_inputs(stacked, rows, inp_format, cuda)
+    bf16 = torch.bfloat16
+    got = kda.decode_all_fwd(*inputs, T, inp_format, save_hc=True, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    want = kda.decode_all_reference(*inputs, T, inp_format, save_hc=True, compute_dtype=bf16)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=HC_ATOL)
+    assert float((got[2] - want[2]).abs().mean()) <= HC_MEAN_ATOL
+    h, c = got[2][..., 0, :], got[2][..., 1, :]
+    assert torch.equal(h, h.to(bf16).float())
+    assert float((c == c.to(bf16).float()).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["f32", "bf16", "lin"])
+@pytest.mark.parametrize("case", ["random", "ragged", "rows without a generator"])
+def test_tiled_b1_equals_warp_kernels(cuda, act, case):
+    """B1 on the tiled f32 rollout, at R = 1, 2, 4, tiles of 8 and 32 rows
+    and the rule's pick, equals its warp-per-row kernel bit for bit (and
+    B1-f32 the tiled K1), in abs and rel; rows without a generator come back
+    NaN."""
+    stacked, rows, idx = _tiled_k1_case(case, "rel", 32, seed=16)
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    prepared = kdec.prepare_decode_select(*on, T, "rel")
+    before = dict(kernels.launches)
+    base = kab.launch_act_warp(prepared, act)
+    n = idx.shape[0]
+    got = [kab.decode_select_act(*on, T, act)] + [
+        kab.launch_act(prepared, act, shape=(r, tile, -(-n // tile)))
+        for r in kdec.TILED_ROWS for tile in (8, 32)]
+    torch.cuda.synchronize()
+    assert kernels.launches[kab.KERNELS[act]] == before.get(kab.KERNELS[act], 0) + len(got)
+    assert kernels.launches[kab.KERNELS_WARP[act]] == before.get(kab.KERNELS_WARP[act], 0) + 1
+    if act == "f32":
+        got.append(kdec.launch_decode_select(prepared))
+    bad = ((idx < 0) | (idx >= 4)).to(cuda)
+    for out in got:
+        for a, b in zip(out, base):
+            assert torch.equal(a[~bad], b[~bad])
+            assert bool(torch.isnan(a[bad]).all())

@@ -1,14 +1,20 @@
-"""The host side of K1-bf16's tensor-core kernel (``csrc/decode_select_mma.cu``).
+"""The host side of the bf16 tensor-core rollouts: K1-bf16
+(``csrc/decode_select_mma.cu``) and K2-bf16 (``csrc/decode_all.cu::
+decode_all_fwd_mma_kernel``), which share ``csrc/rollout_mma.cuh``.
 
-The kernel itself runs only on the card (``tests/test_torch_port_cuda.py``).
-What the host computes for it is checked here: the fragment image of the
-weights (``decoder.mma_weights``) and the rows per tile
-(``decoder.mma_tile_rows``). The image is read back through the operand
-layouts of ``mma.sync.m16n8k16`` / ``m16n8k8`` (PTX ISA, bf16 operands, f32
-accumulators: lane l is row ``l // 4``, quad ``l % 4``) and rolled out on 16
-rows the way the kernel's ``rollout_group`` does, accumulator fragments
-feeding the next step's A fragments; that rollout must reproduce the bf16
-plain version, whose own agreement with the TPU kernel in interpret mode
+The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
+What the host computes for them is checked here: the fragment image of the
+weights (``decoder.mma_weights``), K1-bf16's rows per tile
+(``decoder.mma_tile_rows``) and K2-bf16's launch (``decode_all.mma_launch``).
+The image is read back through the operand layouts of ``mma.sync.m16n8k16``
+/ ``m16n8k8`` (PTX ISA, bf16 operands, f32 accumulators: lane l is row
+``l // 4``, quad ``l % 4``) and rolled out on groups of 16 rows the way
+``rollout_group`` does, accumulator fragments feeding the next step's A
+fragments; K2-bf16's grouping (16 consecutive rows of one generator, the
+last group padded with rows that store nothing) and its store of (h, c)
+from the accumulator layout are replayed with the kernel's index
+arithmetic. That rollout must reproduce the bf16 plain version, whose own
+agreement with the TPU kernel in interpret mode
 ``tests/test_torch_port_bf16.py`` holds.
 """
 
@@ -17,9 +23,11 @@ import pytest
 import torch
 
 from mggan_tpu_torch.models import common
+from mggan_tpu_torch.ops.kernels import decode_all as kda
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
 T = 12
+SMS = 132  # an H100 SXM
 ROW, QUAD = torch.arange(32) // 4, torch.arange(32) % 4
 _i4, _i2, _e = torch.arange(4)[None, :, None], torch.arange(2)[None, :, None], \
     torch.arange(2)[None, None, :]
@@ -42,64 +50,74 @@ def _pairs(words):
 
 
 def _mma(acc, a, b, a_map, b_map, k):
-    """acc (32, 4) += A . B, A and B given as per-lane fragment registers."""
-    a_mat, b_mat = torch.zeros(16, k), torch.zeros(k, 8)
-    a_mat[a_map[0].expand(a.shape), a_map[1].expand(a.shape)] = a
+    """acc (B, 32, 4) += A . B for B groups, A given as per-lane fragment
+    registers (B, 32, ...) and B (one generator's) as (32, ...)."""
+    a_mat, b_mat = torch.zeros(a.shape[0], 16, k), torch.zeros(k, 8)
+    a_mat[:, a_map[0].expand(a.shape[1:]), a_map[1].expand(a.shape[1:])] = a
     b_mat[b_map[0].expand(b.shape), b_map[1].expand(b.shape)] = b
-    return acc + (a_mat @ b_mat)[C]
+    return acc + (a_mat @ b_mat)[:, C[0], C[1]]
 
 
 def _emulate(image, h, hid, fmt, h0, sb, xy, dxdy):
-    """The kernel's rollout of 16 rows on one generator's image."""
+    """The kernel's rollout of B groups of 16 rows on one generator's
+    image: h0 (B, 16, h), sb (B, 16, hid), xy and dxdy (B, 16, 2) ->
+    abs, rel (B, 16, T, 2) and each step's (h, c) of every lane's two
+    units of each unit group, (T, u, B, 32 lanes, 4 accumulator elements)
+    each (h as the bf16 value packed into the next A fragment)."""
     whh = _pairs(image[:2048]).reshape(4, 4, 32, 4, 2)
     wemb = _pairs(image[2048:2560]).reshape(4, 32, 4, 2)
     w1 = _pairs(image[2560:3072]).reshape(4, 32, 4, 2)
     bias, w2, b2 = image[3072:3200].reshape(4, 4, 8), image[3200:3264].reshape(16, 4), \
         image[3264:3266]
-    pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[1]))
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    bsz = h0.shape[0]
     h0p, sbp = pad(h0, 32), pad(sb, 32)
-    ha = _bf(h0p[A16])  # (32, 4, 2) A fragments of each 16-unit k-tile
-    ha = torch.stack([ha, _bf(h0p[A16[0], A16[1] + 16])])
-    sbf = torch.stack([sbp[C[0], C[1] + 8 * nt] for nt in range(4)])  # (nt, 32, 4)
-    x, y, dx, dy = xy[:, 0], xy[:, 1], dxdy[:, 0], dxdy[:, 1]
-    c = torch.zeros(4, 32, 4)
-    out_abs, out_rel = [], []
+    ha = _bf(torch.stack([h0p[:, A16[0], A16[1]], h0p[:, A16[0], A16[1] + 16]]))
+    sbf = torch.stack([sbp[:, C[0], C[1] + 8 * nt] for nt in range(4)])  # (nt, B, 32, 4)
+    x, y, dx, dy = xy[..., 0], xy[..., 1], dxdy[..., 0], dxdy[..., 1]
+    c = torch.zeros(4, bsz, 32, 4)
+    out_abs, out_rel, h_seq, c_seq = [], [], [], []
     for _ in range(T):
         te = {"rel": [dx, dy], "abs": [x, y], "abs_rel": [x, y, dx, dy]}[fmt]
-        te = _bf(pad(torch.stack(te, 1), 8))
-        ta = te[A8]
-        hn = torch.zeros(2, 32, 4, 2)
+        ta = _bf(pad(torch.stack(te, -1), 8))[:, A8[0], A8[1]]
+        hn = torch.zeros(2, bsz, 32, 4, 2)
+        h_step = torch.zeros(4, bsz, 32, 4)
         for u in range((h + 7) // 8):
             acc = []
             for gate in range(4):
                 b = bias[u, gate][2 * QUAD[:, None] + torch.arange(2)[None, :]]  # (32, 2)
-                a = b.repeat(1, 2)
+                a = b.repeat(1, 2).expand(bsz, 32, 4)
                 a = _mma(a, ta, wemb[u, :, gate], A8, B8, 8)
                 for kt in range(2):
                     a = _mma(a, ha[kt], whh[u, gate][:, 2 * kt:2 * kt + 2], A16, B16, 16)
                 acc.append(a)
             i, f, g, o = acc
             c[u] = torch.sigmoid(f) * c[u] + torch.sigmoid(i) * torch.tanh(g)
-            hv = torch.sigmoid(o) * torch.tanh(c[u])  # (32, 4): rows r, r+8 x 2 units
-            hn[u // 2, :, (u % 2) * 2] = hv[:, 0:2]
-            hn[u // 2, :, (u % 2) * 2 + 1] = hv[:, 2:4]
+            hv = torch.sigmoid(o) * torch.tanh(c[u])  # (B, 32, 4): rows r, r+8 x 2 units
+            hn[u // 2, :, :, (u % 2) * 2] = hv[..., 0:2]
+            hn[u // 2, :, :, (u % 2) * 2 + 1] = hv[..., 2:4]
+            h_step[u] = _bf(hv)
+        h_seq.append(h_step)
+        c_seq.append(c.clone())
         ha = _bf(hn)
-        px, py = torch.zeros(32, 2), torch.zeros(32, 2)
+        px, py = torch.zeros(bsz, 32, 2), torch.zeros(bsz, 32, 2)
         for nt in range((hid + 7) // 8):
             pre = sbf[nt]
             for kt in range(2):
                 pre = _mma(pre, ha[kt], w1[nt][:, 2 * kt:2 * kt + 2], A16, B16, 16)
             a = _bf(torch.where(pre > 0, pre, 0.01 * pre))
             w2q = w2[nt * 4 + QUAD]  # (32, 4): rows 8nt+2q, +1 of W2, (x, y) each
-            px += a[:, 0::2] * w2q[:, 0:1] + a[:, 1::2] * w2q[:, 2:3]
-            py += a[:, 0::2] * w2q[:, 1:2] + a[:, 1::2] * w2q[:, 3:4]
+            px += a[..., 0::2] * w2q[:, 0:1] + a[..., 1::2] * w2q[:, 2:3]
+            py += a[..., 0::2] * w2q[:, 1:2] + a[..., 1::2] * w2q[:, 3:4]
         # the quad's sums: rows r (lanes 4r..4r+3, index 0) and r + 8 (index 1)
-        px, py = px.reshape(8, 4, 2).sum(1), py.reshape(8, 4, 2).sum(1)
-        dx, dy = px.T.reshape(16) + b2[0], py.T.reshape(16) + b2[1]
+        px, py = px.reshape(bsz, 8, 4, 2).sum(2), py.reshape(bsz, 8, 4, 2).sum(2)
+        dx = px.transpose(1, 2).reshape(bsz, 16) + b2[0]
+        dy = py.transpose(1, 2).reshape(bsz, 16) + b2[1]
         x, y = x + dx, y + dy
-        out_abs.append(torch.stack([x, y], 1))
-        out_rel.append(torch.stack([dx, dy], 1))
-    return torch.stack(out_abs, 1), torch.stack(out_rel, 1)
+        out_abs.append(torch.stack([x, y], -1))
+        out_rel.append(torch.stack([dx, dy], -1))
+    return torch.stack(out_abs, 2), torch.stack(out_rel, 2), torch.stack(h_seq), \
+        torch.stack(c_seq)
 
 
 @pytest.mark.parametrize("inp_format,h_dim", [("rel", 32), ("abs", 32), ("abs_rel", 20)])
@@ -114,7 +132,8 @@ def test_fragment_image_rolls_out_like_the_plain_version(inp_format, h_dim):
     assert image.shape == (2, 3268) and image.dtype == torch.float32
     socb = kdec.social_bias(packed, soc)
     hid = packed["w1h"].shape[2]
-    got = _emulate(image[1], h_dim, hid, inp_format, h0, socb[:, 1], xy, dxdy)
+    got = [x[0] for x in _emulate(image[1], h_dim, hid, inp_format, h0[None], socb[None, :, 1],
+                                  xy[None], dxdy[None])[:2]]
     idx = torch.ones(16, dtype=torch.int32)
     want = kdec.decode_select_reference(stacked, xy, dxdy, soc, h0, idx, T, inp_format,
                                         compute_dtype=torch.bfloat16)
@@ -146,3 +165,117 @@ def test_tile_rows_fill_the_card(n, sms, tile):
         assert -(-n // tile) >= sms  # every SM gets a tile
     if tile != kdec.MMA_TILES[0]:
         assert -(-n // (2 * tile)) < sms  # and the next larger tile would not do that
+
+
+# ---------------------------------------------------------------------------
+# K2-bf16: every generator on groups of 16 consecutive rows, (h, c) saved.
+
+def _decode_all_bf16_emulated(packed, socb, h0, xy, dxdy, fmt):
+    """K2-bf16 as ``decode_all_fwd_mma_kernel`` runs it: per generator g, the
+    rows in groups of 16 consecutive rows (row 16k + j in group k, lane row
+    j % 8, fragment half j // 8), rows past N computing on zeros and storing
+    nothing; abs/rel at ``((g N + row) T + t) 2``, and each lane's (h, c)
+    pairs at ``((g N + row) T + t) 2 H + col`` (+ H for c) from the
+    accumulator layout, units col < H only. Returns the flat outputs
+    reshaped to abs, rel (G, N, T, 2) and hc (G, N, T, 2, H), NaN where
+    nothing was stored."""
+    image = kdec.mma_weights(packed)
+    g_count, h, hid = image.shape[0], packed["w_hh"].shape[1], packed["w1h"].shape[2]
+    n, m = h0.shape[0], xy.shape[0]
+    groups = -(-n // 16)
+    rows = torch.arange(groups * 16)
+    live = rows < n
+    src = torch.where(live, rows, 0)
+    zero_dead = lambda x: torch.where(live.reshape((-1,) + (1,) * (x.dim() - 1)), x, 0.0)
+    nan = float("nan")
+    out = {k: torch.full((g_count * n * T * 2,), nan) for k in ("abs", "rel")}
+    hc = torch.full((g_count * n * T * 2 * h,), nan)
+    for g in range(g_count):
+        per_group = lambda x: zero_dead(x).reshape((groups, 16) + tuple(x.shape[1:]))
+        a, r, hs, cs = _emulate(image[g], h, hid, fmt, per_group(h0[src]),
+                                per_group(socb[src % m, g]), per_group(xy[src % m]),
+                                per_group(dxdy[src % m]))
+        out_row = g * n + rows[live]
+        for t in range(T):
+            at = (out_row * T + t) * 2
+            for key, val in (("abs", a), ("rel", r)):
+                v = val.reshape(-1, T, 2)[live, t]
+                out[key][at], out[key][at + 1] = v[:, 0], v[:, 1]
+        # lane l, element e of unit group u: row C[0][l, e] of its group, unit 8u + C[1][l, e]
+        row = torch.arange(groups)[:, None, None] * 16 + C[0][None]  # (B, 32, 4)
+        for u in range((h + 7) // 8):
+            col = (8 * u + C[1])[None].expand(row.shape)
+            keep = (row < n) & (col < h)
+            for t in range(T):
+                at = ((g * n + row) * T + t) * 2 * h + col
+                hc[at[keep]] = hs[t, u][keep]
+                hc[(at + h)[keep]] = cs[t, u][keep]
+    shape = (g_count, n, T, 2)
+    return out["abs"].reshape(shape), out["rel"].reshape(shape), hc.reshape(shape + (h,))
+
+
+@pytest.mark.parametrize("num_gens,n_agents,k,inp_format,h_dim", [
+    (1, 1, 1, "rel", 32), (4, 15, 1, "rel", 32), (1, 17, 1, "abs_rel", 20),
+    (4, 17, 1, "abs", 32), (4, 37, 20, "rel", 32)])
+def test_k2_bf16_groups_and_hc_store_roll_out_like_the_plain_version(num_gens, n_agents, k,
+                                                                     inp_format, h_dim):
+    """K2-bf16's grouping of consecutive rows and its (h, c) store from the
+    accumulator layout, at N = 1, 15, 17 (a group and one row: a ragged
+    last group) and 37 x 20 (M < N) rows of G = 1 and 4 generators: every
+    (row, generator) is written, abs, rel and hc match the bf16 plain
+    version within 2e-3, and every saved h is a bf16 value."""
+    gen = torch.Generator().manual_seed(num_gens * 100 + n_agents)
+    stacked = common.stacked_decoders_init(gen, num_gens, h_dim // 2, h_dim, inp_format, 8)
+    rng = np.random.RandomState(n_agents)
+    f32 = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    xy, dxdy, soc = f32(n_agents, 2), f32(n_agents, 2) * 0.3, f32(n_agents, 8)
+    h0 = f32(n_agents * k, h_dim)
+    packed = kdec.pack_decoder_params(stacked, inp_format)
+    socb = kdec.social_bias(packed, soc)
+    got = _decode_all_bf16_emulated(packed, socb, h0, xy, dxdy, inp_format)
+    inputs = [packed[key] for key in kdec.PACKED] + [socb, h0, xy, dxdy]
+    want = kda.decode_all_reference(*inputs, T, inp_format, save_hc=True,
+                                    compute_dtype=torch.bfloat16)
+    for a, b in zip(got, want):
+        assert not torch.isnan(a).any()  # every (row, generator) stored
+        # another summation order; a flip of one h's bf16 rounding moves a
+        # position by up to ~2e-3 (the bf16 limit of the CPU tests)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-3)
+    h = got[2][..., 0, :]
+    assert torch.equal(h, h.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("num_gens", [4, 1, 3, 40])
+def test_k2_bf16_launch_covers_rows_and_fills_the_card(num_gens):
+    """``decode_all.mma_launch`` over 0..2,000,000 rows (sampled): a known
+    variant, one block per 4 groups of 16 rows (no block without a group),
+    every row of every generator covered by the kernel's warp-strided
+    groups, every SM given a block once there are enough groups, and the
+    variant the one with the fewest waves of resident warps (4 blocks an SM
+    on a tie)."""
+    rng = np.random.RandomState(num_gens)
+    counts = np.unique(np.concatenate([np.arange(300), [4_096, 9_728, 81_920, 1_310_720],
+                                       rng.randint(300, 2_000_001, 500)]))
+    for n in counts.tolist():
+        variant, per_gen = kda.mma_launch(n, num_gens, SMS)
+        groups = -(-n // 16)
+        warps = per_gen * kda.MMA_WARPS  # a generator's warps, striding over its groups
+        assert variant in (0, 1) and per_gen == max(1, -(-groups // kda.MMA_WARPS))
+        assert -(-groups // warps) * warps * 16 >= n
+        if groups * num_gens >= SMS * kda.MMA_WARPS:
+            assert per_gen * num_gens >= SMS
+        waves = [-(-groups * num_gens // (SMS * b * kda.MMA_WARPS)) for b in kda.MMA_BLOCKS_PER_SM]
+        assert waves[variant] == min(waves) and (variant == 0 or waves[1] < waves[0])
+        if n <= 64:  # the kernel's row formula, enumerated: every row once per generator
+            seen = sorted(grp * 16 + j for w in range(warps) for grp in range(w, groups, warps)
+                          for j in range(16) if grp * 16 + j < n)
+            assert seen == list(range(n))
+
+
+@pytest.mark.parametrize("n,variant", [(4_096, 0), (9_728, 1), (20_480, 1), (81_920, 1)])
+def test_k2_bf16_launch_picks_the_swept_variant(n, variant):
+    """At the swept row counts (x 4 generators, 132 SMs) the rule picks the
+    variant the sweep found fastest: 4 blocks an SM where both take the
+    groups in one wave (4,096), else 5 (9,728: one wave of 20 warps an SM
+    instead of 1.15 of 16)."""
+    assert kda.mma_launch(n, 4, SMS)[0] == variant
