@@ -42,10 +42,11 @@ Phases, in order; any failure exits nonzero before the result line:
      plain version in the three input formats, with F=0 and with every row
      on one generator, f32 (atol 1e-4) and bf16 (atol 4e-3) at 4,096 rows;
      at 20,480 rows K5 and B1-f32 equal to the warp-per-row K1 bit for bit
-     (K5-bf16 to the warp-per-row K1-bf16), K5, B1 (f32, bf16, lin; the
+     (K5-bf16 to the tensor-core K1-bf16), K5, B1 (f32, bf16, lin; the
      tiled K1 with other activations), K4's route and B2 against their
-     plain versions, each timed beside its plain version and its bound, K4's
-     route against K1;
+     plain versions (the bf16 kernels also on average, 1e-5), each timed
+     beside its plain version and its bound, K4's route against K1
+     (K1-bf16);
  11. K3 after a bf16 forward at the PM step's 4,096 x 4 rows: K2-bf16's
      (tensor cores) saved (h, c) against the bf16 plain forward's (atol
      4e-3, mean 1e-6,
@@ -59,11 +60,13 @@ Phases, in order; any failure exits nonzero before the result line:
      timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``, with each
      kernel's resident warps per SM and bounds), the activations' share of
      K1 (1 - B1-lin / K1, both tiled), K5, B1-f32 and the tiled K1 equal to
-     the warp-per-row K1 bit for bit there and the tiled B1-f32 to the tiled
-     K1 (after the counts), K4's
-     route within 1e-4 of K1 (bf16: 4e-3 of the warp-per-row K1-bf16), a
-     bf16 gradient of ``decode_all``; then
-     B1-bf16, B1-lin and B2 against their plain versions at those rows;
+     the warp-per-row K1 bit for bit there, the tiled B1-f32 to the tiled
+     K1 and K5-bf16 to the tensor-core K1-bf16 (after the counts), K4's
+     route within 1e-4 of K1, its bf16 route within 4e-3 (mean 1e-5) of the
+     tensor-core K1-bf16 and of its plain version, where the f32 route must
+     fail both limits, a bf16 gradient of ``decode_all``; then B1-bf16,
+     B1-lin, B2 and K4-bf16 alone against their plain versions at those
+     rows;
  13. the kernels redesigned for the H100, each against its plain version
      and timed beside the kernel it replaced (kept in the sources for this;
      no path launches it), with registers and resident warps: K3 (rows of
@@ -78,15 +81,22 @@ Phases, in order; any failure exits nonzero before the result line:
      kept warp-per-row K2-bf16 against the warp-per-row K1-bf16); B1 (the
      tiled rollout) at 20,480 and 1,310,720 rows, each variant bit for bit
      against its warp-per-row kernel and B1-f32 against the tiled K1, with
-     the activations' share of K1 from the profiler's device times;
+     the activations' share of K1 from the profiler's device times; K5-bf16
+     (tensor cores, two groups a warp) at 20,480 and 1,310,720 rows, bit for
+     bit against the tensor-core K1-bf16 and timed beside it, and K4-bf16
+     (tensor cores) alone on the route's buffer at those rows against its
+     plain version (4e-3, mean 1e-5), each timed in turns with the
+     warp-per-row kernel it replaced (held to the warp-per-row K1-bf16 bit
+     for bit, and to the plain version);
  14. a JSON line listing every ported kernel (the replaced f32 K1 and K2,
-     K2-bf16 and B1 under their successors' ``baseline``), then the result
-     line ``{"ok": true, "device": {...}}``.
+     K2-bf16, B1, K5-bf16 and K4-bf16 under their successors' ``baseline``),
+     then the result line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --sweep`` instead runs phases 1 and 2 and then
-times the tiled K1 and K2 and K2-bf16 at every launch shape their wrappers
-can pick, at the main paths' row counts (``SWEEP`` line), the data behind
-the launch rules.
+times the tiled K1 and K2, K2-bf16, K5-bf16 (blocks an SM, rows a tile) and
+K4-bf16 (warps a block) at every launch shape their wrappers can pick, at
+the main paths' row counts (``SWEEP`` line), the data behind the launch
+rules.
 
 Imports neither JAX nor the JAX package ``mggan_tpu``.
 """
@@ -1138,12 +1148,15 @@ def phase_bench_sampling(reps=3):
 
 
 def sorted_tiles_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
-    """K4's kernel (B2): the buffer rows, tile generators and weights read
-    once, ``(n_buf, 2, T, 2)`` written once; per buffer row K1's products
-    and socb's."""
+    """K4's kernel (B2, or K4-bf16 alone): the buffer rows, tile generators
+    and weights (K4-bf16's fragment image) read once, ``(n_buf, 2, T, 2)``
+    written once; per buffer row K1's products and socb's."""
     n_buf, _, feat, h, hid, in_dim, t = prepared["dims"][:7]
+    tensors = prepared["tensors"]
+    if prepared["bf16"]:
+        tensors = (prepared["mma_wpack"],) + tensors[1:]
     flops = rollout_flops(n_buf, t, h, hid, in_dim) + n_buf * 2 * feat * hid
-    return roofline_ms(flops, nbytes_of(*prepared["tensors"]) + n_buf * 4 * t * 4, peak_flops)
+    return roofline_ms(flops, nbytes_of(*tensors) + n_buf * 4 * t * 4, peak_flops)
 
 
 def sorted_route_bound_ms(args, compute_dtype=None, peak_flops=PEAK_FP32_FLOPS):
@@ -1168,9 +1181,10 @@ def phase_ablation_kernels():
     (launches here are not the path's): K4's route in the three input
     formats, with F=0 and with every row on one generator, f32 and bf16;
     then, on the benchmarks' inputs at ABL_ROWS rows, K5 and B1-f32 against
-    the warp-per-row K1 bit for bit, each new kernel against its plain
-    version and timed
-    beside it and its bound, K4's route against K1 and B2 on grouped rows."""
+    the warp-per-row K1 bit for bit and K5-bf16 against the tensor-core
+    K1-bf16, each new kernel against its plain version (the bf16 ones also
+    within BF16_MEAN_ATOL on average) and timed beside it and its bound,
+    K4's route against K1 (K1-bf16) and B2 on grouped rows."""
     import torch
 
     from mggan_tpu_torch.ablations import decode_ablation as dab
@@ -1223,9 +1237,9 @@ def phase_ablation_kernels():
     inp = make_inputs(ABL_ROWS, SEED)
     args, p32, p16 = dab.prepare(inp)
     calls = dab.variants(inp)
-    # K5, B1 and K4 keep the warp-per-row rollout: held to the warp-per-row
-    # K1 and K1-bf16
-    k1, k1_bf16 = kdec.launch_decode_select_warp(p32), kdec.launch_decode_select_bf16_warp(p16)
+    # K5, B1-f32 and K4 keep the warp-per-row rollout: held to the
+    # warp-per-row K1; K5-bf16 and K4-bf16 run K1-bf16's tensor-core rollout
+    k1, k1_bf16 = kdec.launch_decode_select_warp(p32), kdec.launch_decode_select(p16)
     torch.cuda.synchronize()
     plain = {"f32": lambda: kdec.decode_select_reference(*args),
              "bf16": lambda: kdec.decode_select_reference(*args, compute_dtype=bf16),
@@ -1236,7 +1250,7 @@ def phase_ablation_kernels():
     b32, b16 = decode_select_bound_ms(p32), decode_select_bound_ms(p16, PEAK_BF16_FLOPS)
     out = {}
 
-    def record(name, call, want_key, atol, bound, equal_to=None, **extra):
+    def record(name, call, want_key, atol, bound, equal_to=None, mean_atol=None, **extra):
         got = call()
         torch.cuda.synchronize()
         err, mean = compare(got, plain_out[want_key], name)
@@ -1253,13 +1267,16 @@ def phase_ablation_kernels():
               + f"; kernel {ms:.4f} ms, plain {plain_ms[want_key]:.3f} ms, bound "
               f"{bound[0]:.4f} ms by {bound[1]}, library_ms null")
         check(err <= atol, f"{name}: max abs err {err:.3e} > {atol}")
+        if mean_atol is not None:
+            out[name]["mean_atol"] = mean_atol
+            check(mean <= mean_atol, f"{name}: mean abs err {mean:.3e} > {mean_atol}")
         check(identical is not False, f"{name} differs from K1")
         return got
 
     fp32_fma = lambda b: {"bound_ms_fp32_fma": b[0]}
     record("decode_select_ilp", calls["kernel_ilp"], "f32", KERNEL_ATOL, b32, k1)
     record("decode_select_ilp_bf16", calls["kernel_ilp_bf16"], "bf16", BF16_ATOL, b16, k1_bf16,
-           **fp32_fma(b32))
+           mean_atol=BF16_MEAN_ATOL, **fp32_fma(b32))
     record("decode_select_act_f32", calls["kernel_f32"], "f32", KERNEL_ATOL, b32, k1)
     act16 = record("decode_select_act_bf16", calls["kernel_bf16"], "act_bf16", B1_BF16_ATOL, b32)
     # the wrong variant: B1-f32 (K1) against B1-bf16's plain version
@@ -1281,13 +1298,16 @@ def phase_ablation_kernels():
             lambda cd=cd: ks.decode_select_sorted_reference(*args, compute_dtype=cd), 4, warmup=1)
         bound = (sorted_route_bound_ms(args, cd, PEAK_BF16_FLOPS) if cd
                  else sorted_route_bound_ms(args))
-        extra = {"bound_ms_fp32_fma": sorted_route_bound_ms(args, cd)[0]} if cd else {}
+        extra = ({"bound_ms_fp32_fma": sorted_route_bound_ms(args, cd)[0],
+                  "mean_atol": BF16_MEAN_ATOL} if cd else {})
         got = record(name, call, name, atol, bound, **extra)
-        vs_k1 = compare(got, k1_out, name)[0]
-        out[name]["vs_k1_max_abs"] = vs_k1
+        vs_k1, vs_k1_mean = compare(got, k1_out, name)
+        out[name].update(vs_k1_max_abs=vs_k1, vs_k1_mean_abs=vs_k1_mean)
         print(f"  {name} route against K1{'-bf16' if cd else ''} on the same draws: {vs_k1:.3e} "
-              f"(atol {atol:g})")
+              f"(atol {atol:g}), mean {vs_k1_mean:.3e}")
         check(vs_k1 <= atol, f"{name}: the route and K1 differ by {vs_k1:.3e}")
+        check(not cd or vs_k1_mean <= BF16_MEAN_ATOL,
+              f"{name}: the route and K1-bf16 differ by {vs_k1_mean:.3e} on average")
     packed, rows, tile_gen, prep = sab.grouped_tiles(inp)
     tiles_plain = lambda: (ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, rows, 32, 32,
                                                      12, "rel"),)
@@ -1411,13 +1431,15 @@ def phase_ablation_path(reps=5):
     """The decoder ablation path, launch counts read around it: the two
     entry points' timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``),
     K5, B1-f32 and the tiled K1 equal to the warp-per-row K1 bit for bit
-    there and the tiled B1-f32 to the tiled K1 (K5-bf16 to the warp-per-row
+    there and the tiled B1-f32 to the tiled K1 (K5-bf16 to the tensor-core
     K1-bf16; after the counts), K4's route within KERNEL_ATOL of K1 and its
-    bf16 route within BF16_ATOL of K1-bf16, and a bf16 gradient of
-    ``decode_all`` at the PM step's rows (K2-bf16, then K3 in f32). The
-    activations' share of K1 is 1 - B1-lin / K1 there (B1 is the tiled K1
-    with other activations). Then, outside the counts, B1-bf16, B1-lin and
-    B2 against their plain versions at those rows."""
+    bf16 route within BF16_ATOL (mean BF16_MEAN_ATOL) of K1-bf16 and of its
+    plain version, where the f32 route must fail those limits, and a bf16
+    gradient of ``decode_all`` at the PM step's rows (K2-bf16, then K3 in
+    f32). The activations' share of K1 is 1 - B1-lin / K1 there (B1 is the
+    tiled K1 with other activations). Then, outside the counts, B1-bf16,
+    B1-lin, B2 and K4-bf16 alone against their plain versions at those
+    rows."""
     import torch
 
     from mggan_tpu_torch.ablations import N, decode_ablation as dab, make_inputs
@@ -1459,20 +1481,28 @@ def phase_ablation_path(reps=5):
              **{f"sorted_{k}": v for k, v in sab.resident_warps(inp).items()}}
     args, p32, p16 = dab.prepare(inp)
     # after the counts: K5, B1-f32 and the tiled K1 against the warp-per-row
-    # K1, K5-bf16 and K4's bf16 route against the warp-per-row K1-bf16 (the
-    # rollouts they share), which no path launches
+    # K1 (the rollout they share), which no path launches; K5-bf16 and K4's
+    # bf16 route against the tensor-core K1-bf16
     k1_warp = kdec.launch_decode_select_warp(p32)
     equal = {name: all(torch.equal(a, b) for a, b in zip(calls[name](), k1_warp))
              for name in ("kernel_ilp", "kernel_f32", "kernel_select")}
     equal["kernel_f32_vs_tiled_k1"] = all(torch.equal(a, b)
                                           for a, b in zip(calls["kernel_f32"](), k1))
-    k1_bf16 = kdec.launch_decode_select_bf16_warp(p16)
+    k1_bf16 = calls["kernel_select_bf16"]()
     equal["kernel_ilp_bf16"] = all(torch.equal(a, b)
                                    for a, b in zip(calls["kernel_ilp_bf16"](), k1_bf16))
-    vs_k1_bf16 = max(float((a - b).abs().max()) for a, b in zip(route16, k1_bf16))
+    err = lambda a_, b_: (max(float((x - y).abs().max()) for x, y in zip(a_, b_)),
+                          max(float((x - y).abs().mean()) for x, y in zip(a_, b_)))
+    route16_plain = ks.decode_select_sorted_reference(*sab.route_args(inp),
+                                                      compute_dtype=torch.bfloat16)
+    route16_err = {"vs_k1_bf16": err(route16, k1_bf16), "vs_plain": err(route16, route16_plain),
+                   "f32_route_vs_plain": err(route, route16_plain)}
+    vs_k1_bf16 = route16_err["vs_k1_bf16"][0]
+    del route16_plain
     packed, grouped, tile_gen, tiles = sab.grouped_tiles(inp)
-    # B1-bf16, B1-lin and B2 against their plain versions at these rows
-    # (after the counts were read: these launches are not the path's)
+    tiles16 = sab.grouped_tiles(inp, compute_dtype=torch.bfloat16)[3]
+    # B1-bf16, B1-lin, B2 and K4-bf16 alone against their plain versions at
+    # these rows (after the counts were read: these launches are not the path's)
     at_n = {}
     for name, call, plain, atol in (
             ("kernel_bf16", calls["kernel_bf16"],
@@ -1481,10 +1511,15 @@ def phase_ablation_path(reps=5):
              lambda: kab.decode_select_act_reference(*args[:7], "lin"), KERNEL_ATOL),
             ("kernel_only", lambda: (ks.launch_sorted_tiles(tiles),),
              lambda: (ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, grouped, 32, 32, 12,
-                                                "rel"),), KERNEL_ATOL)):
+                                                "rel"),), KERNEL_ATOL),
+            ("kernel_only_bf16", lambda: (ks.launch_sorted_tiles(tiles16),),
+             lambda: (ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, grouped, 32, 32, 12,
+                                                "rel", torch.bfloat16),), BF16_ATOL)):
         got, want = call(), plain()
         at_n[name] = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
                       "atol": atol}
+        if name == "kernel_only_bf16":
+            at_n[name].update(mean_abs_err=err(got, want)[1], mean_atol=BF16_MEAN_ATOL)
         if name == "kernel_bf16":  # K1 must lie beyond B1-bf16's limit here too
             at_n[name]["k1_vs_plain"] = max(float((a - b).abs().max())
                                             for a, b in zip(k1, want))
@@ -1492,6 +1527,7 @@ def phase_ablation_path(reps=5):
     bounds = {"kernel_select": decode_select_bound_ms(p32),
               "kernel_select_bf16": decode_select_bound_ms(p16, PEAK_BF16_FLOPS),
               "kernel_only": sorted_tiles_bound_ms(tiles),
+              "kernel_only_bf16": sorted_tiles_bound_ms(tiles16, PEAK_BF16_FLOPS),
               "route": sorted_route_bound_ms(args),
               "route_bf16": sorted_route_bound_ms(args, torch.bfloat16, PEAK_BF16_FLOPS)}
     bounds = {k: {"bound_ms": v[0], "bound_by": v[1]} for k, v in bounds.items()}
@@ -1507,29 +1543,39 @@ def phase_ablation_path(reps=5):
     print(f"ablation path at {N} rows, against the warp-per-row K1: K5 {equal['kernel_ilp']}, "
           f"B1-f32 {equal['kernel_f32']}, the tiled K1 {equal['kernel_select']} (bit for bit); "
           f"the tiled B1-f32 == the tiled K1 {equal['kernel_f32_vs_tiled_k1']}; "
-          f"K5-bf16 == K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
-          f"against K1 {vs_k1:.3e} (atol {KERNEL_ATOL:g}), its bf16 route against K1-bf16 "
-          f"{vs_k1_bf16:.3e} (atol {BF16_ATOL:g}); bounds {json.dumps(bounds)}; "
-          f"bf16 decode_all grads finite {grads_finite}")
+          f"K5-bf16 == the tensor-core K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
+          f"against K1 {vs_k1:.3e} (atol {KERNEL_ATOL:g}); its bf16 route (max, mean) against "
+          f"K1-bf16 and its plain version, and the f32 route against that plain version (must "
+          f"exceed both): {json.dumps(route16_err)} (atol {BF16_ATOL:g}, mean "
+          f"{BF16_MEAN_ATOL:g}); bounds {json.dumps(bounds)}; bf16 decode_all grads finite "
+          f"{grads_finite}")
     print(f"at {N} rows against their plain versions: {json.dumps(at_n)} (B1-bf16's "
           f"k1_vs_plain must exceed {B1_BF16_ATOL:g})")
     for name, same in equal.items():
         check(same, f"ablation path: {name} differs from K1 at {N} rows")
     check(vs_k1 <= KERNEL_ATOL, f"ablation path: K4's route and K1 differ by {vs_k1:.3e}")
-    check(vs_k1_bf16 <= BF16_ATOL,
-          f"ablation path: K4's bf16 route and K1-bf16 differ by {vs_k1_bf16:.3e}")
+    for key in ("vs_k1_bf16", "vs_plain"):
+        mx, mean = route16_err[key]
+        check(mx <= BF16_ATOL and mean <= BF16_MEAN_ATOL,
+              f"ablation path: K4's bf16 route {key}: max {mx:.3e}, mean {mean:.3e}")
+    check(route16_err["f32_route_vs_plain"][0] > BF16_ATOL
+          and route16_err["f32_route_vs_plain"][1] > BF16_MEAN_ATOL,
+          f"ablation path: the f32 route passes the bf16 limits: {route16_err}")
     for name, r in at_n.items():
-        check(r["max_abs_err"] <= r["atol"], f"ablation path: {name} at {N} rows: {r}")
+        mean_ok = r.get("mean_abs_err", 0.0) <= r.get("mean_atol", float("inf"))
+        check(r["max_abs_err"] <= r["atol"] and mean_ok, f"ablation path: {name} at {N} rows: {r}")
     check(at_n["kernel_bf16"]["k1_vs_plain"] > B1_BF16_ATOL,
           f"ablation path: K1 passes B1-bf16's limit at {N} rows")
     check(grads_finite, "ablation path: non-finite bf16 grads")
     del inp, calls, k1, k1_warp, k1_bf16, route, route16, args, p32, p16, packed, grouped, tiles
+    del tiles16
     torch.cuda.empty_cache()
     return {"rows": N, "seconds": secs, "launches": launches, "decodeabl_ms": dec_ms,
             "activation_share_of_k1": share["lin"], "bf16_activation_saving": share["bf16"],
             "sortedparts_ms": sort_ms, "warps_per_sm": warps, "bounds_1310720": bounds,
             "equal_to_k1": equal, "route_vs_k1_max_abs": vs_k1,
-            "route_bf16_vs_k1_bf16_max_abs": vs_k1_bf16, "against_plain": at_n}
+            "route_bf16_vs_k1_bf16_max_abs": vs_k1_bf16,
+            "route_bf16_max_mean": route16_err, "against_plain": at_n}
 
 
 def ptxas_registers(stem, *needles):
@@ -1720,12 +1766,14 @@ def phase_redesigned():
         torch.cuda.empty_cache()
     print(f"K1-bf16 launch shapes (registers per thread from nvcc): {json.dumps(sel['config'])}")
     return {"decode_all_bwd": k3, "decode_select_bf16": sel, **redesigned_tiled(gen),
-            "decode_all_fwd_bf16": redesigned_k2_bf16(gen), "decode_select_act": redesigned_b1(gen)}
+            "decode_all_fwd_bf16": redesigned_k2_bf16(gen), "decode_select_act": redesigned_b1(gen),
+            **redesigned_ablation_bf16()}
 
 
 K1_SWEEP_ROWS = (320, 960, 2_560, 4_096, 9_728, 20_480, 1_310_720)
 K2_SWEEP_ROWS = (4_096, 9_728, 81_920)
 K2_BF16_SWEEP = ((4_096, True), (9_728, False), (20_480, False), (81_920, False))  # (rows, hc)
+K5_BF16_SWEEP_ROWS = (9_728, 20_480, 1_310_720)  # K5-bf16 and K4-bf16
 
 
 def phase_launch_sweep(reps=5):
@@ -1734,7 +1782,9 @@ def phase_launch_sweep(reps=5):
     counts (the rule's pick marked), beside the warp-per-row kernels, and
     each launch checked bit for bit against them; K2-bf16 at each launch
     variant and a range of blocks per generator, each launch bit for bit
-    against the rule's. Prints one ``SWEEP`` JSON line; not part of the
+    against the rule's; K5-bf16 at each launch variant and tile size, bit
+    for bit against K1-bf16, and K4-bf16 at each warps a block, bit for bit
+    against the route's. Prints one ``SWEEP`` JSON line; not part of the
     default run."""
     import torch
 
@@ -1821,6 +1871,45 @@ def phase_launch_sweep(reps=5):
               f"ms; best {best} {res['shapes'][best]:.4f} ms")
         out["k2_bf16"][n] = res
         del inputs, p, base
+    # K5-bf16: every launch variant and tile size, each bit for bit against
+    # the tensor-core K1-bf16; K4-bf16: warps a block on the route's buffer,
+    # each bit for bit against the route's variant
+    from mggan_tpu_torch.ablations import decode_ablation as dab
+    from mggan_tpu_torch.ablations import make_inputs
+    from mggan_tpu_torch.ops.kernels import decode_sorted as ks
+
+    out["k5_bf16"], out["k4_bf16"] = {}, {}
+    for n in K5_BF16_SWEEP_ROWS:
+        inp = make_inputs(n, SEED)
+        p16 = dab.prepare(inp)[2]
+        k1 = kdec.launch_decode_select(p16)
+        res = {"rule": kdec.mma_ilp_launch(n, sms), "k1_bf16_ms": cuda_time_ms(
+            lambda: kdec.launch_decode_select(p16), reps), "shapes": {}}
+        for v in range(len(kdec.MMA_ILP_BLOCKS_PER_SM)):
+            for tile in kdec.MMA_ILP_TILES:
+                got = kdec.launch_decode_select(p16, ilp=True, shape=(v, tile))
+                same = all(torch.equal(a, b) for a, b in zip(got, k1))
+                check(same, f"sweep: K5-bf16 {(v, tile)} at {n} rows differs from K1-bf16")
+                res["shapes"][f"{v}/{tile}"] = cuda_time_ms(
+                    lambda: kdec.launch_decode_select(p16, ilp=True, shape=(v, tile)), reps)
+        best = min(res["shapes"], key=res["shapes"].get)
+        rule = f"{res['rule'][0]}/{res['rule'][1]}"
+        print(f"sweep K5-bf16 N={n}: K1-bf16 {res['k1_bf16_ms']:.4f} ms; rule variant/tile {rule} "
+              f"{res['shapes'][rule]:.4f} ms; best {best} {res['shapes'][best]:.4f} ms")
+        out["k5_bf16"][n] = res
+        pt = route_tiles(inp, torch.bfloat16)[3]
+        base = ks.launch_sorted_tiles(pt)
+        res = {"rule": ks.MMA_VARIANT, "warps": {}}
+        for v, w in enumerate(ks.MMA_WARPS):
+            got = ks.launch_sorted_tiles(pt, variant=v)
+            check(torch.equal(got, base), f"sweep: K4-bf16 variant {v} at {n} rows differs")
+            res["warps"][w] = cuda_time_ms(lambda: ks.launch_sorted_tiles(pt, variant=v), reps)
+        best = min(res["warps"], key=res["warps"].get)
+        print(f"sweep K4-bf16 N={n}: rule {ks.MMA_WARPS[ks.MMA_VARIANT]} warps a block "
+              f"{res['warps'][ks.MMA_WARPS[ks.MMA_VARIANT]]:.4f} ms; best {best} "
+              f"{res['warps'][best]:.4f} ms")
+        out["k4_bf16"][n] = res
+        del inp, p16, k1, pt, base
     torch.cuda.empty_cache()
     print("SWEEP " + json.dumps(out))
     return out
@@ -2166,10 +2255,175 @@ def redesigned_b1(gen):
     return res
 
 
-def ablation_entries(checks, bwd16, path, by_path, b1):
+# phase 13's rows of K5-bf16 and K4-bf16: the ablation kernels' checks and
+# the entry points' (the benchmarks' inputs)
+ABL_BF16_ROWS = (ABL_ROWS, 1_310_720)
+
+
+def route_tiles(inp, compute_dtype):
+    """K4's kernel arguments as the route builds them from the benchmarks'
+    inputs ``inp`` (layout, row gather): ``(packed, rows, tile_gen,
+    prepared)``."""
+    from mggan_tpu_torch.ablations import sorted_select_ablation as sab
+    from mggan_tpu_torch.ops.kernels import decode_sorted as ks
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    stacked, xy, dxdy, soc, h0, idx, t, fmt = sab.route_args(inp)
+    packed = kdec.pack_decoder_params(stacked, fmt)
+    _, inv, tile_gen, _ = ks.sorted_layout(idx, packed["w_hh"].shape[0])
+    rows = ks.sorted_rows(h0, soc, xy, dxdy, inv)
+    return packed, rows, tile_gen, ks.prepare_sorted_tiles(
+        packed, rows, tile_gen, h0.shape[1], soc.shape[1], t, fmt, compute_dtype)
+
+
+def redesigned_ablation_bf16():
+    """Phase 13, K5-bf16 and K4-bf16 on the tensor-core rollout, at the
+    ablation kernels' 20,480 rows and the entry points' 1,310,720 (the
+    benchmarks' inputs). K5-bf16 equal to the tensor-core K1-bf16 bit for
+    bit and the kept warp-per-row K5-bf16 to the warp-per-row K1-bf16; K4-bf16
+    alone on the route's buffer against its plain version (BF16_ATOL,
+    BF16_MEAN_ATOL), the kept warp-per-row K4-bf16 too, the two within twice
+    BF16_ATOL of each other. Each timed in turns with the kept kernel and by
+    the profiler's device time, K1-bf16 beside K5-bf16, with the launch,
+    registers and resident warps."""
+    import torch
+
+    from mggan_tpu_torch.ablations import decode_ablation as dab
+    from mggan_tpu_torch.ablations import make_inputs
+    from mggan_tpu_torch.ops.kernels import build
+    from mggan_tpu_torch.ops.kernels import decode_sorted as ks
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err = lambda a_, b_: (max(float((x - y).abs().max()) for x, y in zip(a_, b_)),
+                          max(float((x - y).abs().mean()) for x, y in zip(a_, b_)))
+    k5, k4 = {"shapes": {}}, {"shapes": {}}
+    for n in ABL_BF16_ROWS:
+        inp = make_inputs(n, SEED)
+        args, _, p16 = dab.prepare(inp)
+        reps = 5 if n > 100_000 else 20
+        new = lambda: kdec.launch_decode_select(p16, ilp=True)
+        kept = lambda: kdec.launch_decode_select_ilp_bf16_warp(p16)
+        got, k1, got_kept, k1_warp = new(), kdec.launch_decode_select(p16), kept(), \
+            kdec.launch_decode_select_bf16_warp(p16)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, k1))
+        same_kept = all(torch.equal(a, b) for a, b in zip(got_kept, k1_warp))
+        want = kdec.decode_select_reference(*args, compute_dtype=bf16)
+        (mx, mean), (mx_kept, _) = err(got, want), err(got_kept, want)
+        old_ms, new_ms = alternate_ms(kept, new, reps)
+        k1_ms = cuda_time_ms(lambda: kdec.launch_decode_select(p16), reps)
+        dev_new = kernel_device_ms(new, "decode_select_mma_ilp_kernel")
+        dev_old = kernel_device_ms(kept, "decode_select_ilp_kernel<__nv_bfloat16>")
+        dev_k1 = kernel_device_ms(lambda: kdec.launch_decode_select(p16),
+                                  "decode_select_mma_kernel")
+        plain_ms = cuda_time_ms(lambda: kdec.decode_select_reference(
+            *args, compute_dtype=bf16), 2, warmup=1)
+        b16, b32 = decode_select_bound_ms(p16, PEAK_BF16_FLOPS), decode_select_bound_ms(p16)
+        variant, tile = kdec.mma_ilp_launch(n, sms)
+        per_sm = kdec.MMA_ILP_BLOCKS_PER_SM[variant]
+        k5["shapes"][n] = {
+            "n_rows": n, "equals_k1_bf16_bit_for_bit": same,
+            "warp_baseline_equals_warp_k1_bf16": same_kept, "max_abs_err": mx,
+            "mean_abs_err": mean, "warp_baseline_max_abs_err": mx_kept, "ms": new_ms,
+            "warp_baseline_ms": old_ms, "k1_bf16_ms": k1_ms, "device_ms": dev_new,
+            "warp_baseline_device_ms": dev_old, "k1_bf16_device_ms": dev_k1,
+            "plain_ms": plain_ms, "bound_ms": b16[0], "bound_by": b16[1],
+            "bound_ms_fp32_fma": b32[0], "variant": variant,
+            "blocks_per_sm": per_sm, "tile_rows": tile}
+        print(f"K5-bf16 tensor cores N={n} (variant {variant}: {per_sm} blocks an SM, tiles of "
+              f"{tile} rows): equal "
+              f"to the tensor-core K1-bf16 bit for bit {same}, the kept warp-per-row K5-bf16 to "
+              f"the warp-per-row K1-bf16 {same_kept}; max_abs_err {mx:.3e} (atol {BF16_ATOL:g}), "
+              f"mean {mean:.3e} (limit {BF16_MEAN_ATOL:g}; warp-per-row {mx_kept:.3e}); kernel "
+              f"{new_ms:.4f} ms, warp-per-row {old_ms:.4f} ms (same call, in turns; device time "
+              f"alone {dev_new:.4f} and {dev_old:.4f} ms), K1-bf16 {k1_ms:.4f} ms (device "
+              f"{dev_k1:.4f}), plain {plain_ms:.3f} ms, bound {b16[0]:.5f} ms by {b16[1]} (bf16 "
+              f"tensor cores; {b32[0]:.4f} ms at the fp32-FMA peak)")
+        check(same, f"K5-bf16 at {n} rows differs from the tensor-core K1-bf16")
+        check(same_kept, f"the kept K5-bf16 at {n} rows differs from the warp-per-row K1-bf16")
+        check(mx <= BF16_ATOL and mean <= BF16_MEAN_ATOL, f"K5-bf16 at {n} rows: {mx}, {mean}")
+        if n == ABL_BF16_ROWS[-1]:
+            smem = nbytes_of(p16["tensors"][0])
+            k5["config"] = {
+                "new": {f"variant {v} ({per_sm} blocks an SM)": {
+                    "warps_per_sm": kdec.mma_ilp_warps_per_sm(4, v),
+                    "registers": ptxas_registers("decode_select_mma",
+                                                 f"decode_select_mma_ilp_kernelILi{per_sm}E")}
+                    for v, per_sm in enumerate(kdec.MMA_ILP_BLOCKS_PER_SM)},
+                "k1_bf16": {"warps_per_sm": kdec.mma_warps_per_sm(4), "registers":
+                            ptxas_registers("decode_select_mma", "decode_select_mma_kernel")},
+                "warp_baseline": {
+                    "warps_per_sm": build.warps_per_sm(
+                        "decode_select", "mggan_decode_select_warps_per_sm", 3, smem),
+                    "registers": ptxas_registers("decode_select", "decode_select_ilp_kernel",
+                                                 "bfloat16")}}
+        del got, k1, got_kept, k1_warp, want
+
+        packed, rows, tile_gen, pt = route_tiles(inp, bf16)
+        new = lambda: ks.launch_sorted_tiles(pt)
+        kept = lambda: ks.launch_sorted_tiles_bf16_warp(pt)
+        got, got_kept = new(), kept()
+        torch.cuda.synchronize()
+        want = ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, rows, 32, 32, 12, "rel", bf16)
+        (mx, mean), (mx_kept, mean_kept) = err((got,), (want,)), err((got_kept,), (want,))
+        vs_kept = err((got,), (got_kept,))[0]
+        old_ms, new_ms = alternate_ms(kept, new, reps)
+        dev_new = kernel_device_ms(new, "decode_sorted_mma_kernel")
+        dev_old = kernel_device_ms(kept, "decode_sorted_kernel<__nv_bfloat16>")
+        plain_ms = cuda_time_ms(lambda: ks.sorted_tiles_reference(
+            tile_gen, ks.TILE, packed, rows, 32, 32, 12, "rel", bf16), 2, warmup=1)
+        b16, b32 = sorted_tiles_bound_ms(pt, PEAK_BF16_FLOPS), sorted_tiles_bound_ms(pt)
+        k4["shapes"][n] = {
+            "n_rows": n, "n_buf": pt["dims"][0], "max_abs_err": mx, "mean_abs_err": mean,
+            "warp_baseline_max_abs_err": mx_kept, "warp_baseline_mean_abs_err": mean_kept,
+            "vs_warp_baseline_max_abs": vs_kept, "ms": new_ms, "warp_baseline_ms": old_ms,
+            "device_ms": dev_new, "warp_baseline_device_ms": dev_old, "plain_ms": plain_ms,
+            "bound_ms": b16[0], "bound_by": b16[1], "bound_ms_fp32_fma": b32[0],
+            "warps_per_block": ks.MMA_WARPS[ks.MMA_VARIANT]}
+        print(f"K4-bf16 tensor cores alone on the route's buffer, N={n} ({pt['dims'][0]} buffer "
+              f"rows, {ks.MMA_WARPS[ks.MMA_VARIANT]} warps a block): max_abs_err {mx:.3e} (atol "
+              f"{BF16_ATOL:g}), mean {mean:.3e} (limit {BF16_MEAN_ATOL:g}); the kept warp-per-row "
+              f"K4-bf16 {mx_kept:.3e} (mean {mean_kept:.3e}), between the two {vs_kept:.3e}; "
+              f"kernel {new_ms:.4f} ms, warp-per-row {old_ms:.4f} ms (same call, in turns; device "
+              f"time alone {dev_new:.4f} and {dev_old:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{b16[0]:.5f} ms by {b16[1]} (bf16 tensor cores; {b32[0]:.4f} ms at the fp32-FMA "
+              f"peak)")
+        check(bool(torch.isfinite(got).all()), f"K4-bf16 at {n} rows: non-finite")
+        check(mx <= BF16_ATOL and mean <= BF16_MEAN_ATOL, f"K4-bf16 at {n} rows: {mx}, {mean}")
+        check(mx_kept <= BF16_ATOL, f"the kept K4-bf16 at {n} rows: {mx_kept}")
+        check(vs_kept <= 2 * BF16_ATOL, f"K4-bf16 at {n} rows: {vs_kept:.3e} from the kept kernel")
+        if n == ABL_BF16_ROWS[-1]:
+            k4["config"] = {
+                "new": {f"variant {v} ({w} warps a block)": {
+                    "warps_per_sm": ks.mma_warps_per_sm(pt, v),
+                    "registers": ptxas_registers("decode_sorted_mma",
+                                                 f"decode_sorted_mma_kernelILi{w}E")}
+                    for v, w in enumerate(ks.MMA_WARPS)},
+                "smem_bytes": pt["mma_smem_bytes"],
+                "warp_baseline": {
+                    "warps_per_sm": build.warps_per_sm(
+                        "decode_sorted", "mggan_decode_sorted_warps_per_sm", 1,
+                        pt["smem_bytes"]),
+                    "registers": ptxas_registers("decode_sorted", "decode_sorted_kernel",
+                                                 "bfloat16"),
+                    "smem_bytes": pt["smem_bytes"]}}
+        del inp, args, p16, packed, rows, tile_gen, pt, got, got_kept, want
+        torch.cuda.empty_cache()
+    print(f"K5-bf16 launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(k5['config'])}")
+    print(f"K4-bf16 launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(k4['config'])}")
+    return {"decode_select_ilp_bf16": k5, "decode_sorted_bf16": k4}
+
+
+def ablation_entries(checks, bwd16, path, by_path, redesigned):
     """The kernels line's entries of the ablation path's kernels; B1's
-    (redesigned on the tiled rollout) carry phase 13's readings ``b1`` and
-    their kept warp-per-row kernels' entries."""
+    (redesigned on the tiled rollout), K5-bf16's and K4-bf16's (on the
+    tensor-core rollout) carry phase 13's readings ``redesigned`` and their
+    kept warp-per-row kernels' entries."""
+    b1 = redesigned["decode_select_act"]
     dec_ms, sort_ms, warps = path["decodeabl_ms"], path["sortedparts_ms"], path["warps_per_sm"]
     bounds = path["bounds_1310720"]
     no_library = ("no single PyTorch call runs a rollout that feeds back its own output")
@@ -2177,7 +2431,7 @@ def ablation_entries(checks, bwd16, path, by_path, b1):
         # name, source, replaces, DECODEABL/SORTEDPARTS key, bounds key
         ("decode_select_ilp", "decode_select.cu", "mggan_tpu/ops/pallas/decoder.py:199",
          ("decodeabl", "kernel_ilp"), "kernel_select"),
-        ("decode_select_ilp_bf16", "decode_select.cu",
+        ("decode_select_ilp_bf16", "decode_select_mma.cu",
          "mggan_tpu/ops/pallas/decoder.py:199 (compute_dtype=bfloat16)",
          ("decodeabl", "kernel_ilp_bf16"), "kernel_select_bf16"),
         ("decode_select_act_f32", "decode_ablation.cu", "benchmarks/decode_ablation.py:39 (f32)",
@@ -2189,7 +2443,7 @@ def ablation_entries(checks, bwd16, path, by_path, b1):
          ("decodeabl", "kernel_lin"), "kernel_select"),
         ("decode_sorted", "decode_sorted.cu", "mggan_tpu/ops/pallas/decoder.py:353",
          ("sortedparts", "route"), "route"),
-        ("decode_sorted_bf16", "decode_sorted.cu",
+        ("decode_sorted_bf16", "decode_sorted_mma.cu",
          "mggan_tpu/ops/pallas/decoder.py:353 (compute_dtype=bfloat16)",
          ("sortedparts", "route_bf16"), "route_bf16"),
         ("sorted_tiles", "decode_sorted.cu", "benchmarks/sorted_select_ablation.py:77",
@@ -2220,6 +2474,12 @@ def ablation_entries(checks, bwd16, path, by_path, b1):
                 redesign={"shapes": shapes, "config": b1["config"][act]},
                 baseline=baseline_entry(f"{name}_warp", source, replaces, shapes, ABL_ROWS,
                                         by_path))
+        if name in ("decode_select_ilp_bf16", "decode_sorted_bf16"):
+            old_source = "decode_select.cu" if name == "decode_select_ilp_bf16" \
+                else "decode_sorted.cu"
+            entries[-1].update(redesign=redesigned[name], baseline=baseline_entry(
+                f"{name}_warp", old_source, replaces, redesigned[name]["shapes"], ABL_ROWS,
+                by_path))
     entries.append({
         "name": "decode_all_bwd_after_bf16", "status": "ported (ablation path)",
         "route": "cuda", "source": "mggan_tpu_torch/csrc/decode_all.cu",
@@ -2402,13 +2662,13 @@ def main():
              "ablation": abl_path["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
-    entries += ablation_entries(abl_checks, bwd16, abl_path, by_path,
-                                redesigned["decode_select_act"])
+    entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was launched on no main path")
     for name in ("decode_select_warp", "decode_all_fwd_warp", "decode_select_bf16_warp",
                  "decode_all_bwd_warp", "decode_all_fwd_bf16_warp", "decode_select_act_f32_warp",
-                 "decode_select_act_bf16_warp", "decode_select_act_lin_warp"):
+                 "decode_select_act_bf16_warp", "decode_select_act_lin_warp",
+                 "decode_select_ilp_bf16_warp", "decode_sorted_bf16_warp"):
         # the kept yardsticks stay off every path
         check(not by_path(name), f"{name} was launched on a path: {by_path(name)}")
     print(json.dumps({

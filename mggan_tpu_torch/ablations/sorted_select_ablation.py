@@ -12,6 +12,8 @@ layout is built from:
   dxdy]`` into the buffer's order;
 * ``kernel_only``: B2, K4's kernel alone on rows already grouped, with
   ``tile_gen = arange(tiles) * G // tiles`` as the JAX script sets it;
+* ``kernel_only_bf16``: K4-bf16's tensor-core kernel alone on the same
+  grouped rows (the bf16 route less its layout and gathers);
 * ``out_gather``: the gather of the 48-float outputs back to row order;
 * ``route`` / ``route_bf16``: the whole route, f32 and bf16.
 
@@ -36,10 +38,10 @@ from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
 
-def grouped_tiles(inputs, tile: int = ks.TILE):
+def grouped_tiles(inputs, tile: int = ks.TILE, compute_dtype=None):
     """B2's input: the rows as they are, padded to whole tiles plus G
     tiles, each tile on generator ``tile * G // tiles``; the kernel's
-    checked arguments."""
+    checked arguments (K4-bf16's with ``compute_dtype=torch.bfloat16``)."""
     n = inputs["h0"].shape[0]
     n_buf = -(-n // tile) * tile + G * tile
     rows = torch.cat([inputs["h0"], inputs["soc"], inputs["xy"], inputs["dxdy"]], dim=1)
@@ -47,7 +49,8 @@ def grouped_tiles(inputs, tile: int = ks.TILE):
     tiles = n_buf // tile
     tile_gen = (torch.arange(tiles, device=rows.device) * G // tiles).to(torch.int32)
     packed = kdec.pack_decoder_params(inputs["stacked"], "rel")
-    return packed, rows, tile_gen, ks.prepare_sorted_tiles(packed, rows, tile_gen, H, F, T, "rel")
+    return packed, rows, tile_gen, ks.prepare_sorted_tiles(packed, rows, tile_gen, H, F, T, "rel",
+                                                           compute_dtype)
 
 
 def route_args(inputs):
@@ -66,6 +69,7 @@ def parts(inputs):
     inv_dummy = torch.arange(n_buf, device=dev) % n
     outbuf = torch.zeros((n_buf, T * 4), device=dev)
     prepared = grouped_tiles(inputs)[3]
+    prepared16 = grouped_tiles(inputs, compute_dtype=torch.bfloat16)[3]
     args = route_args(inputs)
 
     def scatter_inv():
@@ -80,6 +84,7 @@ def parts(inputs):
         "argsort": lambda: torch.argsort(idx, stable=True),
         "row_gather68": lambda: rows68[inv_dummy],
         "kernel_only": lambda: ks.launch_sorted_tiles(prepared),
+        "kernel_only_bf16": lambda: ks.launch_sorted_tiles(prepared16),
         "out_gather": lambda: outbuf[ramp],
         "route": lambda: ks.decode_select_sorted(*args),
         "route_bf16": lambda: ks.decode_select_sorted(*args, compute_dtype=torch.bfloat16),
@@ -87,13 +92,14 @@ def parts(inputs):
 
 
 def resident_warps(inputs):
-    """Resident warps per SM of K4's kernel (f32 and bf16) at these shapes."""
-    packed, rows, tile_gen, p32 = grouped_tiles(inputs)
-    p16 = ks.prepare_sorted_tiles(packed, rows, tile_gen, H, F, T, "rel", torch.bfloat16)
-    q = lambda v, p: build.warps_per_sm("decode_sorted", "mggan_decode_sorted_warps_per_sm", v,
-                                       p["smem_bytes"])
-    return {"kernel_only": q(0, p32), "route_bf16": q(1, p16),
-            "smem_bytes": p32["smem_bytes"], "smem_bytes_bf16": p16["smem_bytes"]}
+    """Resident warps per SM of K4's f32 kernel and of K4-bf16 at these
+    shapes, with their shared memory a block."""
+    p32 = grouped_tiles(inputs)[3]
+    p16 = grouped_tiles(inputs, compute_dtype=torch.bfloat16)[3]
+    return {"kernel_only": build.warps_per_sm("decode_sorted", "mggan_decode_sorted_warps_per_sm",
+                                              0, p32["smem_bytes"]),
+            "route_bf16": ks.mma_warps_per_sm(p16), "smem_bytes": p32["smem_bytes"],
+            "smem_bytes_bf16": p16["mma_smem_bytes"]}
 
 
 def run(inputs, reps: int = 5):

@@ -251,8 +251,8 @@ decode_all_fwd_mma_kernel(const float* __restrict__ wimg,    // (G, kImageWords)
       in_row[i] = live ? row : 0;
       out_row[i] = live ? (int64_t)g * n_rows + row : -1;
     }
-    rollout_group(W, g, in_row, out_row, h0, socb, xy0, dxdy0, out_abs, out_rel, hc, m_rows,
-                  num_gens, L, lane);
+    rollout_group(W, g, in_row, out_row, SelectInputs{h0, socb, xy0, dxdy0, m_rows, num_gens},
+                  out_abs, out_rel, hc, L, lane);
   }
 }
 

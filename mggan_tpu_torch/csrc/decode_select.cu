@@ -50,15 +50,19 @@
 // to each other have different generators. The tiled K1 shares each weight
 // load across rows of one generator; the bf16 route runs decode_select_mma.cu
 // (the products on the tensor cores). The bf16 instantiation here stays as
-// the bf16 K5's reference (K5-bf16 equals it bit for bit).
+// the reference of the kept warp-per-row K5-bf16 (which equals it bit for
+// bit).
 //
-// K5 (mggan_decode_select_ilp, _bf16) replaces _fwd_select_kernel_ilp
+// K5 (mggan_decode_select_ilp) replaces _fwd_select_kernel_ilp
 // (pallas_decode_select(ilp=True)): the same function, with one warp
 // advancing two rows at once (decoder_rollout.cuh::rollout_row2), so each
 // step's shuffles, shared-memory loads and FMAs of one row fill the other's
 // latency. Each row keeps K1's operations in K1's order, so the output is
 // bit-identical to K1's; with an odd N the last pair has one row. If K5 is
 // faster than K1, K1 is bound by latency rather than by an issue pipe.
+// mggan_decode_select_ilp_bf16_warp is the same on the bf16 image: the
+// first design of K5-bf16, kept as the yardstick of the tensor-core K5-bf16
+// (decode_select_mma.cu); no path launches it.
 
 #include "decoder_rollout.cuh"
 
@@ -202,16 +206,16 @@ extern "C" {
 // Launch the rollout on `stream`: the warp-per-row K1 with the f32 weight
 // image (mggan_decode_select_warp) or the bf16 one
 // (mggan_decode_select_bf16_warp), and K5, a warp per pair of rows, with
-// either (mggan_decode_select_ilp, _ilp_bf16).
+// either (mggan_decode_select_ilp, _ilp_bf16_warp).
 // Return cudaGetLastError() after the launch (0 on success); the caller
 // checks shapes and sizes beforehand.
 MGGAN_SELECT_ENTRY(mggan_decode_select_warp, float, false)
 MGGAN_SELECT_ENTRY(mggan_decode_select_bf16_warp, __nv_bfloat16, false)
 MGGAN_SELECT_ENTRY(mggan_decode_select_ilp, float, true)
-MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_bf16, __nv_bfloat16, true)
+MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_bf16_warp, __nv_bfloat16, true)
 
 // Resident warps per SM of variant 0 (the warp-per-row K1), 1 (the
-// warp-per-row bf16 K1), 2 (K5), 3 (K5-bf16)
+// warp-per-row bf16 K1), 2 (K5), 3 (the warp-per-row K5-bf16)
 // with `smem` bytes of weights a block; returns a CUDA error code.
 int mggan_decode_select_warps_per_sm(int variant, long long smem, int* warps) {
   switch (variant) {

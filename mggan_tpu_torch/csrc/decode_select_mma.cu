@@ -1,5 +1,5 @@
-// Fused-selection decoder rollout in bf16 on the tensor cores (K1-bf16) for
-// Hopper (sm_90a).
+// Fused-selection decoder rollout in bf16 on the tensor cores (K1-bf16), and
+// its ILP variant (K5-bf16), for Hopper (sm_90a).
 //
 // Replaces mggan_tpu/ops/pallas/decoder.py::_fwd_select_kernel with
 // compute_dtype=bfloat16 (pallas_decode_select): for each row n with
@@ -33,6 +33,21 @@
 // spent ~12 instructions per weight (shuffle, load, unpack, FMAs) that the
 // fragments now replace. Rows of one generator share every weight load and
 // every broadcast of h, 16 at a time.
+//
+// K5-bf16 (decode_select_mma_ilp_kernel) replaces _fwd_select_kernel_ilp
+// with compute_dtype=bfloat16 (pallas_decode_select(ilp=True)): the same
+// function, with each warp advancing two groups of 16 rows of one generator
+// at once (rollout_mma.cuh::rollout_groups<2>), each stage issued for both
+// groups in turn. Buckets are padded to 32 rows, so a bucket is whole pairs
+// of groups, and a lone group runs with a group of padding rows: a
+// one-group path beside the pairs' made the kernel 1.4x slower at 1,310,720
+// rows on an H100 (chip_smoke.py --sweep), the larger code the suspect. Each
+// row keeps K1-bf16's products in K1-bf16's order, so the output equals
+// K1-bf16's bit for bit. Two groups' state (h fragments, c, socb,
+// positions) doubles a warp's registers (~215): the launch takes 2 blocks
+// an SM without spills or 3 with (decoder.py::mma_ilp_launch, from the
+// sweep), against K1-bf16's 4. If K5-bf16 were faster than K1-bf16,
+// K1-bf16 would leave latency to hide.
 
 #include "rollout_mma.cuh"
 #include "tile_buckets.cuh"
@@ -43,15 +58,19 @@ using namespace mggan;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxTile = 256;   // rows of a tile, at most
-constexpr int kMaxGens = 32;    // generators a block can bucket (a warp's lanes)
+constexpr int kMaxTile = 256;     // rows of a K1-bf16 tile, at most
+constexpr int kMaxIlpTile = 1024;  // rows of a K5-bf16 tile, at most
+constexpr int kMaxGens = 32;      // generators a block can bucket (a warp's lanes)
 
 // The tile's bucketing in shared memory, after the G images (sized for G,
-// so that four blocks fit on an SM at G = 4).
+// so that four blocks fit on an SM at G = 4): groups of 16 rows for
+// K1-bf16, pairs of them for K5-bf16.
 using Buckets = TileBuckets<kWarps, kMaxTile, kMmaGroup>;
+using PairBuckets = TileBuckets<kWarps, kMaxIlpTile, 2 * kMmaGroup>;
 
+template <class B>
 __host__ __device__ inline size_t smem_bytes(int num_gens) {
-  return ((size_t)num_gens * kImageWords + Buckets::ints(num_gens)) * sizeof(float);
+  return ((size_t)num_gens * kImageWords + B::ints(num_gens)) * sizeof(float);
 }
 
 // A persistent grid; block b takes tiles b, b + gridDim.x, ... of
@@ -89,11 +108,95 @@ decode_select_mma_kernel(const float* __restrict__ wpack,  // (G, kImageWords)
         in_row[i] = slot >= 0 ? base + slot : 0;
         out_row[i] = slot >= 0 ? base + slot : -1;
       }
-      rollout_group(images + (size_t)gen * kImageWords, gen, in_row, out_row, h0, socb, xy0,
-                    dxdy0, out_abs, out_rel, nullptr, m_rows, num_gens, L, lane);
+      rollout_group(images + (size_t)gen * kImageWords, gen, in_row, out_row,
+                    SelectInputs{h0, socb, xy0, dxdy0, m_rows, num_gens}, out_abs, out_rel,
+                    nullptr, L, lane);
     }
     __syncthreads();  // the next tile's bucketing reuses s
   }
+}
+
+// K5-bf16: K1-bf16's grid and tiles (tile_rows a multiple of 32, at most
+// kMaxIlpTile), a warp per pair of groups of one generator; kMinBlocks
+// blocks an SM at least (the register budget).
+template <int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+decode_select_mma_ilp_kernel(const float* __restrict__ wpack, const float* __restrict__ h0,
+                             const float* __restrict__ socb, const float* __restrict__ xy0,
+                             const float* __restrict__ dxdy0, const int32_t* __restrict__ idx,
+                             float* __restrict__ out_abs, float* __restrict__ out_rel,
+                             int64_t n_rows, int64_t m_rows, int num_gens, int h_dim,
+                             int hid_dim, int in_dim, int pred_len, int fmt, int tile_rows) {
+  extern __shared__ float4 smem4[];
+  stage_weights(smem4, wpack, num_gens * kImageWords);
+  const uint32_t* images = reinterpret_cast<const uint32_t*>(smem4);
+  const PairBuckets s = PairBuckets::at(
+      reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) + (size_t)num_gens * kImageWords),
+      num_gens);
+  const Layout L(h_dim, hid_dim, in_dim, pred_len, fmt);
+  const SelectInputs in{h0, socb, xy0, dxdy0, m_rows, num_gens};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t tiles = (n_rows + tile_rows - 1) / tile_rows;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t base = tile * tile_rows;
+    const int rows = (int)(n_rows - base < tile_rows ? n_rows - base : tile_rows);
+    s.bucket(idx, base, rows, num_gens, pred_len, out_abs, out_rel);
+    for (int pair = warp; pair < *s.groups; pair += kWarps) {
+      const int gen = s.group_gen[pair];
+      const int* slots = s.slots + pair * 2 * kMmaGroup;
+      int64_t in_row[2][2], out_row[2][2];  // group p's rows r and r + 8 of this lane
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int slot = slots[p * kMmaGroup + (lane >> 2) + 8 * i];
+          in_row[p][i] = slot >= 0 ? base + slot : 0;
+          out_row[p][i] = slot >= 0 ? base + slot : -1;
+        }
+      rollout_groups<2>(images + (size_t)gen * kImageWords, gen, in_row, out_row, in, out_abs,
+                        out_rel, nullptr, L, lane);
+    }
+    __syncthreads();  // the next tile's bucketing reuses s
+  }
+}
+
+using IlpKernel = decltype(&decode_select_mma_ilp_kernel<2>);
+
+// K5-bf16's launch variants (decoder.py::MMA_ILP_BLOCKS_PER_SM, in this
+// order): the blocks an SM the registers must allow.
+inline IlpKernel ilp_kernel(int variant) {
+  switch (variant) {
+    case 0: return decode_select_mma_ilp_kernel<2>;
+    case 1: return decode_select_mma_ilp_kernel<3>;
+    default: return nullptr;
+  }
+}
+
+// A persistent grid of `kernel` over the tiles of tile_rows rows: one block
+// per tile, at most as many as fit on the card at once.
+template <typename Kernel>
+cudaError_t launch_tiles(Kernel kernel, size_t smem, const void* wpack, const void* h0,
+                         const void* socb, const void* xy0, const void* dxdy0, const void* idx,
+                         void* out_abs, void* out_rel, long long n_rows, long long m_rows,
+                         int num_gens, int h_dim, int hid_dim, int in_dim, int pred_len, int fmt,
+                         int tile_rows, void* stream) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (n_rows + tile_rows - 1) / tile_rows;
+  const long long resident = (long long)sms * per_sm;
+  const long long blocks = tiles < resident ? tiles : resident;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
+      (const float*)dxdy0, (const int32_t*)idx, (float*)out_abs, (float*)out_rel,
+      (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
+      tile_rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -112,29 +215,41 @@ int mggan_decode_select_bf16(const void* wpack, const void* h0, const void* socb
                              void* out_rel, long long n_rows, long long m_rows, int num_gens,
                              int h_dim, int hid_dim, int in_dim, int pred_len, int fmt,
                              int tile_rows, void* stream) {
-  const size_t smem = smem_bytes(num_gens);
-  cudaError_t err = allow_smem(decode_select_mma_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_select_mma_kernel,
-                                                           kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long tiles = (n_rows + tile_rows - 1) / tile_rows;
-  const long long resident = (long long)sms * per_sm;
-  const long long blocks = tiles < resident ? tiles : resident;
-  decode_select_mma_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
-      (const float*)dxdy0, (const int32_t*)idx, (float*)out_abs, (float*)out_rel,
-      (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
-      tile_rows);
-  return (int)cudaGetLastError();
+  if (tile_rows % 32 || tile_rows < 32 || tile_rows > kMaxTile)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tiles(decode_select_mma_kernel, smem_bytes<Buckets>(num_gens), wpack, h0,
+                           socb, xy0, dxdy0, idx, out_abs, out_rel, n_rows, m_rows, num_gens,
+                           h_dim, hid_dim, in_dim, pred_len, fmt, tile_rows, stream);
 }
 
-// Resident warps per SM of the kernel for `num_gens` generators.
+// K5-bf16 on `stream`, as mggan_decode_select_bf16, with tiles of up to
+// kMaxIlpTile rows and launch variant `variant` (ilp_kernel).
+int mggan_decode_select_ilp_bf16(const void* wpack, const void* h0, const void* socb,
+                                 const void* xy0, const void* dxdy0, const void* idx,
+                                 void* out_abs, void* out_rel, long long n_rows,
+                                 long long m_rows, int num_gens, int h_dim, int hid_dim,
+                                 int in_dim, int pred_len, int fmt, int tile_rows, int variant,
+                                 void* stream) {
+  const IlpKernel kernel = ilp_kernel(variant);
+  if (kernel == nullptr || tile_rows % 32 || tile_rows < 32 || tile_rows > kMaxIlpTile)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tiles(kernel, smem_bytes<PairBuckets>(num_gens), wpack, h0, socb, xy0,
+                           dxdy0, idx, out_abs, out_rel, n_rows, m_rows, num_gens, h_dim,
+                           hid_dim, in_dim, pred_len, fmt, tile_rows, stream);
+}
+
+// Resident warps per SM of K1-bf16 for `num_gens` generators.
 int mggan_decode_select_bf16_warps_per_sm(int num_gens, int* warps) {
-  return (int)resident_warps(decode_select_mma_kernel, kThreads, smem_bytes(num_gens), warps);
+  return (int)resident_warps(decode_select_mma_kernel, kThreads, smem_bytes<Buckets>(num_gens),
+                             warps);
+}
+
+// Resident warps per SM of K5-bf16's launch variant `variant` for
+// `num_gens` generators.
+int mggan_decode_select_ilp_bf16_warps_per_sm(int num_gens, int variant, int* warps) {
+  const IlpKernel kernel = ilp_kernel(variant);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)resident_warps(kernel, kThreads, smem_bytes<PairBuckets>(num_gens), warps);
 }
 
 const char* mggan_cuda_error_string(int code) {

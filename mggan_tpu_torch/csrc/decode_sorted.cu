@@ -1,4 +1,6 @@
-// Sorted-selection decoder rollout (K4) for Hopper (sm_90a).
+// Sorted-selection decoder rollout (K4) for Hopper (sm_90a), warp per row:
+// the f32 K4 and B2, and the first design of K4-bf16, kept as the yardstick
+// of the tensor-core K4-bf16 (decode_sorted_mma.cu; no path launches it).
 //
 // Replaces mggan_tpu/ops/pallas/decoder.py::_fwd_sorted_kernel (wrapped by
 // pallas_decode_select_sorted; launched alone by
@@ -120,8 +122,9 @@ extern "C" {
 int mggan_decode_sorted_tile() { return kTile; }
 
 // K4 on `stream` over n_buf / kTile tiles, with the f32 weight image
-// (mggan_decode_sorted) or the bf16 one (mggan_decode_sorted_bf16). Returns
-// cudaGetLastError() after the launch; the caller checks the arguments.
+// (mggan_decode_sorted) or the bf16 one (mggan_decode_sorted_bf16_warp, the
+// yardstick). Returns cudaGetLastError() after the launch; the caller
+// checks the arguments.
 int mggan_decode_sorted(const void* wpack, const void* w1s, const void* b1,
                         const void* tile_gen, const void* rows, void* out, long long n_buf,
                         int num_gens, int feat, int h_dim, int hid_dim, int in_dim,
@@ -130,10 +133,11 @@ int mggan_decode_sorted(const void* wpack, const void* w1s, const void* b1,
                        hid_dim, in_dim, pred_len, fmt, per_gen, stream);
 }
 
-int mggan_decode_sorted_bf16(const void* wpack, const void* w1s, const void* b1,
-                             const void* tile_gen, const void* rows, void* out,
-                             long long n_buf, int num_gens, int feat, int h_dim, int hid_dim,
-                             int in_dim, int pred_len, int fmt, int per_gen, void* stream) {
+int mggan_decode_sorted_bf16_warp(const void* wpack, const void* w1s, const void* b1,
+                                  const void* tile_gen, const void* rows, void* out,
+                                  long long n_buf, int num_gens, int feat, int h_dim,
+                                  int hid_dim, int in_dim, int pred_len, int fmt, int per_gen,
+                                  void* stream) {
   return launch<__nv_bfloat16>(wpack, w1s, b1, tile_gen, rows, out, n_buf, num_gens, feat,
                                h_dim, hid_dim, in_dim, pred_len, fmt, per_gen, stream);
 }

@@ -14,19 +14,25 @@ weights instead of all of them.
    group starts, the inverse scatter, each tile's generator);
 2. ``sorted_rows``: one gather of the rows ``[h0 | social | xy | dxdy]``
    into that buffer; padding rows read a zero row;
-3. the kernel (``csrc/decode_sorted.cu``, through ``launch_sorted_tiles``)
-   on CUDA tensors, or its plain version ``sorted_tiles_reference`` on CPU
-   tensors: each tile rolls out its generator, ``socb = social @ W1s + b1``
-   computed per row as the TPU kernel does;
+3. the kernel (through ``launch_sorted_tiles``) on CUDA tensors, or its
+   plain version ``sorted_tiles_reference`` on CPU tensors: each tile rolls
+   out its generator, ``socb = social @ W1s + b1`` computed per row in f32
+   as the TPU kernel does;
 4. one gather of the outputs back to the rows' order.
 
 The index maths and the gathers were plain XLA around the Pallas kernel in
 JAX, and stay plain tensor ops here. The tile is the CUDA block's rows
 (``TILE``), not the TPU's 1024, on both devices.
 
-``compute_dtype=torch.bfloat16`` is the kernel's bf16 variant, with K1's
-bf16 numerics (``decoder.py``'s module note). Forward only: under autograd
-it raises, as K1 does.
+The f32 kernel (and B2) is ``csrc/decode_sorted.cu``, a warp per row.
+``compute_dtype=torch.bfloat16`` is K4-bf16, with K1's bf16 numerics
+(``decoder.py``'s module note): ``csrc/decode_sorted_mma.cu``, K1-bf16's
+tensor-core rollout on the tile's 8 groups of 16 rows, weights as the
+fragment image ``decoder.mma_weights`` (counted as ``decode_sorted_bf16``).
+The warp-per-row bf16 kernel it replaced stays in ``csrc/decode_sorted.cu``
+for comparison on the card (``launch_sorted_tiles_bf16_warp``, counted as
+``decode_sorted_bf16_warp``); no path launches it. Forward only: under
+autograd it raises, as K1 does.
 
 Row layout as K1's: ``h0 (N, H)`` and ``gen_idx (N,)`` have a row per
 rollout; ``last_xy``, ``last_dxdy`` and ``social_feats`` have ``M`` rows
@@ -44,11 +50,18 @@ from mggan_tpu_torch.ops import kernels
 from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
-SOURCE = "decode_sorted"  # csrc/decode_sorted.cu
+SOURCE = "decode_sorted"  # csrc/decode_sorted.cu: K4, B2, the warp-per-row K4-bf16
+MMA_SOURCE = "decode_sorted_mma"  # csrc/decode_sorted_mma.cu: K4-bf16
 KERNEL = "decode_sorted"  # K4, through the route
-KERNEL_BF16 = "decode_sorted_bf16"
-KERNEL_TILES = "sorted_tiles"  # B2: the same kernel launched alone on grouped rows
-TILE = 128  # rows per CUDA block (kTile in csrc/decode_sorted.cu)
+KERNEL_BF16 = "decode_sorted_bf16"  # K4-bf16, through the route or alone
+KERNEL_BF16_WARP = "decode_sorted_bf16_warp"  # the warp-per-row K4-bf16, for comparison
+KERNEL_TILES = "sorted_tiles"  # B2: the f32 kernel launched alone on grouped rows
+TILE = 128  # rows per CUDA block (kTile in csrc/decode_sorted.cu and decode_sorted_mma.cu)
+# K4-bf16's launch variants: warps a block (16 warps an SM in each), and the
+# one the route takes, from the launch sweep of chip_smoke.py --sweep on an
+# H100.
+MMA_WARPS = (2, 4, 8)
+MMA_VARIANT = 2
 
 
 def stable_rank(idx, num_gens: int):
@@ -135,27 +148,35 @@ def sorted_tiles_reference(tile_gen, tile: int, packed, rows, h_dim: int, feat: 
 
 
 @functools.cache
-def _lib():
-    lib = build.load(SOURCE)
+def _lib(stem: str = SOURCE):
+    """The library of ``csrc/<stem>.cu`` (the warp-per-row kernels or
+    K4-bf16's), its entry points typed and its tile checked."""
+    lib = build.load(stem)
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for fn in (lib.mggan_decode_sorted, lib.mggan_decode_sorted_bf16):
+    mma = stem == MMA_SOURCE
+    prefix = "mggan_decode_sorted_mma" if mma else "mggan_decode_sorted"
+    entries = ((lib.mggan_decode_sorted_bf16,) if mma
+               else (lib.mggan_decode_sorted, lib.mggan_decode_sorted_bf16_warp))
+    for fn in entries:
         fn.argtypes = [ptr] * 6 + [ll] + [i32] * 8 + [ptr]
         fn.restype = i32
-    lib.mggan_decode_sorted_tile.restype = i32
-    lib.mggan_decode_sorted_smem.argtypes = [i32] * 3
-    lib.mggan_decode_sorted_smem.restype = ll
+    tile, smem = getattr(lib, f"{prefix}_tile"), getattr(lib, f"{prefix}_smem")
+    tile.restype = i32
+    smem.argtypes = [i32] * (2 if mma else 3)
+    smem.restype = ll
     lib.mggan_cuda_error_string.argtypes = [i32]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
-    if lib.mggan_decode_sorted_tile() != TILE:
-        raise RuntimeError(f"csrc/decode_sorted.cu tiles {lib.mggan_decode_sorted_tile()} "
-                           f"rows, decode_sorted.py {TILE}")
+    if tile() != TILE:
+        raise RuntimeError(f"csrc/{stem}.cu tiles {tile()} rows, decode_sorted.py {TILE}")
     return lib
 
 
 def prepare_sorted_tiles(packed, rows, tile_gen, h_dim: int, feat: int, pred_len: int,
                          inp_format: str, compute_dtype=None):
     """The weight image (f32 or bf16), ``W1s``, ``b1`` and the checked row
-    buffer and tile generators the kernel takes (``launch_sorted_tiles``)."""
+    buffer and tile generators the kernel takes (``launch_sorted_tiles``);
+    in bf16 also K4-bf16's fragment image (``decoder.mma_weights``) and
+    its shared memory a block."""
     bf16 = kdec.is_bf16(compute_dtype)
     wflat, per_gen = kdec.kernel_weights(packed, compute_dtype)
     g, in_dim, four_h = packed["w_emb"].shape
@@ -180,21 +201,61 @@ def prepare_sorted_tiles(packed, rows, tile_gen, h_dim: int, feat: int, pred_len
     smem = _lib().mggan_decode_sorted_smem(feat, hid, per_gen)
     if smem > kdec.MAX_SHARED_BYTES:
         raise ValueError(f"one generator's weights ({smem} B) exceed one block's shared memory")
-    return {"tensors": (wflat, w1s, b1, tile_gen, rows),
+    args = {"tensors": (wflat, w1s, b1, tile_gen, rows),
             "dims": (n_buf, g, feat, h_dim, hid, in_dim, pred_len, kdec.FORMATS[inp_format],
                      per_gen),
             "bf16": bf16, "smem_bytes": smem}
+    if bf16:  # K4-bf16 stages its generator's fragment image, W1s, b1 and the tile's socb
+        args["mma_wpack"] = kdec.mma_weights(packed).reshape(-1)
+        args["mma_smem_bytes"] = _lib(MMA_SOURCE).mggan_decode_sorted_mma_smem(feat, hid)
+        if args["mma_smem_bytes"] > kdec.MAX_SHARED_BYTES:
+            raise ValueError(f"K4-bf16's block ({args['mma_smem_bytes']} B) exceeds one "
+                             "block's shared memory")
+    return args
 
 
-def launch_sorted_tiles(args, count_as: str = KERNEL_TILES):
+def launch_sorted_tiles(args, count_as: str | None = None, variant: int = MMA_VARIANT):
     """The K4 kernel on the current stream over every tile of the checked
-    buffer (``prepare_sorted_tiles``), counted under ``count_as`` (B2's name
-    by default; the route counts as K4) -> ``(n_buf, 2, T, 2)``."""
-    tensors, dims = args["tensors"], args["dims"]
+    buffer (``prepare_sorted_tiles``) -> ``(n_buf, 2, T, 2)``: the f32
+    kernel, counted under ``count_as`` (B2's name by default; the route
+    counts as K4), or K4-bf16 on bf16 arguments, counted as
+    ``decode_sorted_bf16`` with ``MMA_WARPS[variant]`` warps a block."""
+    if args["bf16"]:
+        tensors = (args["mma_wpack"],) + args["tensors"][1:]
+        dims = args["dims"][:8] + (variant,)
+        return _run(tensors, dims, _lib(MMA_SOURCE).mggan_decode_sorted_bf16, KERNEL_BF16)
+    return _run(args["tensors"], args["dims"], _lib().mggan_decode_sorted,
+                count_as or KERNEL_TILES)
+
+
+def launch_sorted_tiles_bf16_warp(args):
+    """The warp-per-row K4-bf16 that the tensor-core design replaced, on
+    bf16 arguments from ``prepare_sorted_tiles``: the same function, for
+    comparing the two on the card (counted as ``decode_sorted_bf16_warp``)."""
+    if not args["bf16"]:
+        raise ValueError("the warp-per-row K4-bf16 takes bf16 arguments")
+    return _run(args["tensors"], args["dims"], _lib().mggan_decode_sorted_bf16_warp,
+                KERNEL_BF16_WARP)
+
+
+def mma_warps_per_sm(args, variant: int = MMA_VARIANT) -> int:
+    """Resident warps per SM of K4-bf16's launch variant ``variant`` at
+    these bf16 arguments' widths."""
+    fn = _lib(MMA_SOURCE).mggan_decode_sorted_bf16_warps_per_sm
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    feat, hid = args["dims"][2], args["dims"][4]
+    warps = ctypes.c_int(0)
+    rc = fn(variant, feat, hid, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"mggan_decode_sorted_bf16_warps_per_sm failed with CUDA error {rc}")
+    return warps.value
+
+
+def _run(tensors, dims, fn, count_as):
     n_buf, t = dims[0], dims[6]
     out = torch.empty((n_buf, 2, t, 2), dtype=torch.float32, device=tensors[0].device)
     lib = _lib()
-    fn = lib.mggan_decode_sorted_bf16 if args["bf16"] else lib.mggan_decode_sorted
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         rc = fn(*(x.data_ptr() for x in tensors), out.data_ptr(), *dims, stream)
@@ -259,6 +320,6 @@ def decode_select_sorted(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
     def tiles(packed, rows, tile_gen, h_dim, feat):
         prepared = prepare_sorted_tiles(packed, rows, tile_gen, h_dim, feat, pred_len,
                                         inp_format, compute_dtype)
-        return launch_sorted_tiles(prepared, KERNEL_BF16 if prepared["bf16"] else KERNEL)
+        return launch_sorted_tiles(prepared, KERNEL)
 
     return _route(*args, tiles)

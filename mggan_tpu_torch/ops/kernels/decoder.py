@@ -30,10 +30,18 @@ products on the tensor cores, weights as the fragment image
 (``launch_decode_select_bf16_warp``, counted as ``decode_select_bf16_warp``);
 no path launches it.
 
-``ilp=True`` is the TPU kernel's ILP variant K5 (``_fwd_select_kernel_ilp``):
-on CUDA tensors it launches ``mggan_decode_select_ilp`` (counted as
-``decode_select_ilp`` / ``decode_select_ilp_bf16``), a warp per pair of
-rows, bit-identical to K1; its plain version is K1's.
+``ilp=True`` is the TPU kernel's ILP variant K5 (``_fwd_select_kernel_ilp``),
+whose plain version is K1's. On f32 CUDA tensors it launches
+``mggan_decode_select_ilp`` of ``csrc/decode_select.cu`` (counted as
+``decode_select_ilp``), a warp per pair of rows, bit-identical to the
+warp-per-row K1. On bf16 ones it launches K5-bf16,
+``mggan_decode_select_ilp_bf16`` of ``csrc/decode_select_mma.cu`` (counted as
+``decode_select_ilp_bf16``): K1-bf16's tiles and tensor-core rollout with two
+groups of 16 rows of one generator a warp, bit-identical to K1-bf16, launched
+by ``mma_ilp_launch``. The warp-per-row K5-bf16 it replaced stays in
+``csrc/decode_select.cu`` for comparison on the card
+(``launch_decode_select_ilp_bf16_warp``, counted as
+``decode_select_ilp_bf16_warp``); no path launches it.
 
 Row layout: ``h0 (N, H)`` and ``gen_idx (N,)`` have a row per rollout;
 ``last_xy``, ``last_dxdy`` and ``social_feats`` have ``M`` rows with
@@ -72,7 +80,12 @@ TILED_TILES = (1024, 512, 256, 128, 64, 32, 16, 8)
 TILED_WARPS = 8
 TILED_BLOCKS_PER_SM = 2
 KERNEL_ILP = "decode_select_ilp"  # K5
-KERNEL_ILP_BF16 = "decode_select_ilp_bf16"
+KERNEL_ILP_BF16 = "decode_select_ilp_bf16"  # K5-bf16: csrc/decode_select_mma.cu
+KERNEL_ILP_BF16_WARP = "decode_select_ilp_bf16_warp"  # the warp-per-row K5-bf16
+# K5-bf16's launch (csrc/decode_select_mma.cu): each launch variant's
+# blocks an SM, and rows of a tile, largest first.
+MMA_ILP_BLOCKS_PER_SM = (2, 3)
+MMA_ILP_TILES = (1024, 512, 256, 128, 64)
 FORMATS = {"rel": 0, "abs": 1, "abs_rel": 2}
 PACKED = ("w_emb", "w_hh", "b", "w1h", "w2", "b2")  # the folded weights, in order
 MAX_SHARED_BYTES = 232448  # per block on the H100, as dynamic shared memory
@@ -198,6 +211,19 @@ def mma_weights(packed):
         bias.reshape(g, -1), F.pad(packed["w2"], (0, 0, 0, 32 - hid)).reshape(g, -1),
         F.pad(packed["b2"], (0, 2)),
     ], dim=1).contiguous()
+
+
+def mma_ilp_launch(n: int, sms: int):
+    """K5-bf16's launch for ``n`` rows on ``sms`` SMs: ``(variant,
+    tile_rows)``. Variant 1, 3 blocks an SM (with a few registers spilled);
+    rows of a tile: the largest of ``MMA_ILP_TILES`` that still gives every
+    resident block a tile, else the smallest (a tile's pairs of groups wait
+    for one another at its end, so larger tiles idle fewer warps). From the
+    launch sweep of ``chip_smoke.py --sweep`` on an H100: within 2% of the
+    fastest launch at 9,728, 20,480 and 1,310,720 rows."""
+    variant = 1
+    resident = sms * MMA_ILP_BLOCKS_PER_SM[variant]
+    return variant, next((t for t in MMA_ILP_TILES if -(-n // t) >= resident), MMA_ILP_TILES[-1])
 
 
 def mma_tile_rows(n: int, sms: int) -> int:
@@ -333,20 +359,15 @@ def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
     return pick(abs_g), pick(rel_g)
 
 
-SELECT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 \
-    + [ctypes.c_void_p]
-# the tiled K1 takes rows a warp, rows a tile and blocks after per_gen
-TILED_ARGTYPES = SELECT_ARGTYPES[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
 @functools.cache
-def _kernel_fn(stem: str, name: str, tiled: bool):
+def _kernel_fn(stem: str, name: str, n_ints: int):
     """``name`` of the library built from ``csrc/<stem>.cu`` with the
-    rollout kernels' argument types (the tiled K1's with ``tiled``), and the
-    library's error strings."""
+    selection kernels' argument types (8 pointers, the row counts N and M,
+    ``n_ints`` ints, the stream), and the library's error strings."""
     lib = build.load(stem)
     fn = getattr(lib, name)
-    fn.argtypes = TILED_ARGTYPES if tiled else SELECT_ARGTYPES
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * n_ints \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mggan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
@@ -430,14 +451,16 @@ def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
 
 def launch_decode_select(args, ilp: bool = False, shape=None):
     """Launch the K1 kernel (its f32 or bf16 variant, as the arguments
-    say; K5, a warp per pair of rows, with ``ilp``) on the current stream
-    with checked arguments from ``prepare_decode_select``; returns
-    ``(abs, rel)``. ``shape`` replaces ``tiled_launch``'s pick for the
-    tiled f32 K1, ``(rows_per_warp, tile_rows, blocks)``: for comparing
-    launch shapes on the card."""
+    say; K5 with ``ilp``) on the current stream with checked arguments
+    from ``prepare_decode_select``; returns ``(abs, rel)``. ``shape``
+    replaces ``tiled_launch``'s pick for the tiled f32 K1,
+    ``(rows_per_warp, tile_rows, blocks)``, and ``mma_ilp_launch``'s for
+    K5-bf16, ``(variant, tile_rows)``: for comparing launch shapes on the
+    card."""
+    if ilp and args["bf16"]:
+        return _launch(args, MMA_SOURCE, "mggan_decode_select_ilp_bf16", KERNEL_ILP_BF16, shape)
     if ilp:
-        name = KERNEL_ILP_BF16 if args["bf16"] else KERNEL_ILP
-        return _launch(args, WARP_SOURCE, "mggan_" + name, name)
+        return _launch(args, WARP_SOURCE, "mggan_decode_select_ilp", KERNEL_ILP)
     if args["bf16"]:
         return _launch(args, MMA_SOURCE, "mggan_decode_select_bf16", KERNEL_BF16)
     return launch_tiled(args, TILED_SOURCE, "mggan_decode_select", KERNEL, shape)
@@ -503,6 +526,30 @@ def launch_decode_select_bf16_warp(args):
     return _launch(args, WARP_SOURCE, "mggan_decode_select_bf16_warp", KERNEL_BF16_WARP)
 
 
+def launch_decode_select_ilp_bf16_warp(args):
+    """The warp-per-row K5-bf16 that the tensor-core design replaced, on
+    bf16 arguments from ``prepare_decode_select``: the same function, equal
+    to the warp-per-row K1-bf16 bit for bit, for comparing the two designs
+    on the card (counted as ``decode_select_ilp_bf16_warp``)."""
+    if not args["bf16"]:
+        raise ValueError("the warp-per-row K5-bf16 takes bf16 arguments")
+    return _launch(args, WARP_SOURCE, "mggan_decode_select_ilp_bf16_warp", KERNEL_ILP_BF16_WARP)
+
+
+def mma_ilp_warps_per_sm(num_gens: int, variant: int) -> int:
+    """Resident warps per SM of K5-bf16's launch variant ``variant`` with
+    ``num_gens`` generators' images in shared memory."""
+    lib = build.load(MMA_SOURCE)
+    fn = lib.mggan_decode_select_ilp_bf16_warps_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    rc = fn(num_gens, variant, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"mggan_decode_select_ilp_bf16_warps_per_sm failed with CUDA error {rc}")
+    return warps.value
+
+
 def _launch(args, stem, symbol, count_as, shape=None, tiled=False):
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
@@ -513,13 +560,17 @@ def _launch(args, stem, symbol, count_as, shape=None, tiled=False):
     out_rel = torch.empty((n, pred_len, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out_abs, out_rel
-    fn, err_str = _kernel_fn(stem, symbol, tiled)
     if stem == MMA_SOURCE:  # the fragment image, and rows per tile for the last argument
         sms = sm_count(dev)
         tensors = (args["mma_wpack"],) + tensors[1:]
-        dims = dims[:8] + (mma_tile_rows(n, sms),)
+        if count_as == KERNEL_ILP_BF16:  # K5-bf16: rows per tile, then the launch variant
+            variant, tile = shape or mma_ilp_launch(n, sms)
+            dims = dims[:8] + (tile, variant)
+        else:
+            dims = dims[:8] + (mma_tile_rows(n, sms),)
     elif tiled:  # rows a warp, rows a tile and blocks after per_gen
         dims = dims + tuple(shape or tiled_launch(n, sm_count(dev)))
+    fn, err_str = _kernel_fn(stem, symbol, len(dims) - 2)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in tensors), out_abs.data_ptr(),

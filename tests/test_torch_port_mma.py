@@ -24,6 +24,7 @@ import torch
 
 from mggan_tpu_torch.models import common
 from mggan_tpu_torch.ops.kernels import decode_all as kda
+from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
 T = 12
@@ -279,3 +280,180 @@ def test_k2_bf16_launch_picks_the_swept_variant(n, variant):
     groups in one wave (4,096), else 5 (9,728: one wave of 20 warps an SM
     instead of 1.15 of 16)."""
     assert kda.mma_launch(n, 4, SMS)[0] == variant
+
+
+# ---------------------------------------------------------------------------
+# K5-bf16: K1-bf16's tiles and buckets, two groups of 16 rows a warp.
+
+def _select_bf16_emulated(packed, socb, h0, xy, dxdy, idx, fmt, tile, bucket):
+    """K1-bf16 (``bucket`` = 16) or K5-bf16 (``bucket`` = 32, a warp per
+    pair of groups) as ``decode_select_mma.cu`` maps rows: tiles of ``tile``
+    consecutive rows; in each, every generator's rows in order (a stable
+    bucket) from a start padded to ``bucket`` slots; each run of 16 slots a
+    group, K5-bf16's pairs being slots 32p..32p+31 of a bucket, a lone
+    group's partner all padding. Each generator's groups go through
+    ``_emulate`` at once (padding rows on zeros, storing nothing); rows
+    without a generator are NaN. Returns abs, rel (N, T, 2) and the number
+    of groups rolled out."""
+    image = kdec.mma_weights(packed)
+    g_count, h, hid = image.shape[0], packed["w_hh"].shape[1], packed["w1h"].shape[2]
+    n, m = h0.shape[0], xy.shape[0]
+    out = torch.full((2, n, T, 2), float("nan"))
+    slots = {g: [] for g in range(g_count)}  # each generator's groups: 16 rows, -1 padding
+    for base in range(0, n, tile):
+        for g in range(g_count):
+            rows = [base + i for i in range(min(tile, n - base)) if int(idx[base + i]) == g]
+            padded = rows + [-1] * (-len(rows) % bucket)
+            slots[g] += [padded[k:k + 16] for k in range(0, len(padded), 16)]
+    groups = 0
+    for g, grp in slots.items():
+        if not grp:
+            continue
+        rows = torch.tensor(grp)  # (B, 16)
+        live, src = rows >= 0, rows.clamp(min=0)
+        zero = lambda x: torch.where(live.reshape(live.shape + (1,) * (x.dim() - 2)), x, 0.0)
+        a, r = _emulate(image[g], h, hid, fmt, zero(h0[src]), zero(socb[src % m, g]),
+                        zero(xy[src % m]), zero(dxdy[src % m]))[:2]
+        out[0, rows[live]], out[1, rows[live]] = a[live], r[live]
+        groups += rows.shape[0]
+    return out[0], out[1], groups
+
+
+@pytest.mark.parametrize("num_gens,n_agents,k,tile,no_gen", [
+    (4, 37, 7, 64, False),  # one odd group a generator per tile: lone groups padded
+    (1, 37, 7, 64, False),  # four groups a tile: two whole pairs
+    (4, 37, 20, 1024, True),  # every tile size's largest; rows without a generator
+    (1, 9, 1, 64, True)])
+def test_k5_bf16_pairs_roll_out_like_k1_bf16(num_gens, n_agents, k, tile, no_gen):
+    """K5-bf16's pairing of groups (buckets padded to 32 rows, two groups
+    a warp) covers every row once on its generator and gives each row
+    K1-bf16's bits (a row keeps its place in its group of 16: buckets start
+    at multiples of 16 in both); both match the bf16 plain version within
+    2e-3; rows without a generator come back NaN."""
+    gen = torch.Generator().manual_seed(num_gens * 1000 + n_agents * k)
+    stacked = common.stacked_decoders_init(gen, num_gens, 16, 32, "rel", 8)
+    rng = np.random.RandomState(n_agents * k)
+    f32 = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    xy, dxdy, soc, h0 = f32(n_agents, 2), f32(n_agents, 2) * 0.3, f32(n_agents, 8), \
+        f32(n_agents * k, 32)
+    idx = torch.from_numpy(rng.randint(0, num_gens, n_agents * k).astype(np.int32))
+    if no_gen:  # every fifth row without a generator: below the range, or past it
+        idx[::5], idx[::10] = num_gens, -1
+    packed = kdec.pack_decoder_params(stacked, "rel")
+    socb = kdec.social_bias(packed, soc)
+    bad = (idx < 0) | (idx >= num_gens)
+    *k5, pair_groups = _select_bf16_emulated(packed, socb, h0, xy, dxdy, idx, "rel", tile, 32)
+    *k1, groups = _select_bf16_emulated(packed, socb, h0, xy, dxdy, idx, "rel", min(tile, 256), 16)
+    assert pair_groups % 2 == 0  # whole pairs
+    if tile <= 256:  # at most one group of padding rows per bucket
+        assert groups <= pair_groups <= groups + -(-idx.shape[0] // tile) * num_gens
+    want = kdec.decode_select_reference(stacked, xy, dxdy, soc, h0, idx.clamp(0, num_gens - 1),
+                                        T, "rel", compute_dtype=torch.bfloat16)
+    for a, b, w in zip(k5, k1, want):
+        assert bool(torch.isnan(a[bad]).all()) and bool(torch.isfinite(a[~bad]).all())
+        if tile <= 256:  # the same tiles: the same rows, the same places
+            assert torch.equal(a[~bad], b[~bad])
+        np.testing.assert_allclose(a[~bad].numpy(), w[~bad].numpy(), atol=2e-3)
+
+
+@pytest.mark.parametrize("n,sms,launch", [
+    (9_728, 132, (1, 64)),  # eval's batch: fewer tiles than resident blocks
+    (20_480, 132, (1, 64)),  # the ablation kernels' check: 320 tiles, 396 blocks
+    (81_920, 132, (1, 128)),
+    (1_310_720, 132, (1, 1024)),  # the ablation path
+    (0, 132, (1, 64)),
+])
+def test_k5_bf16_launch_fills_the_resident_blocks(n, sms, launch):
+    """``decoder.mma_ilp_launch``: 3 blocks an SM (variant 1), and the
+    largest tile that still gives every resident block a tile (the next
+    larger would not), else the smallest; the picks the sweep found within
+    2% of the fastest at 9,728, 20,480 and 1,310,720 rows."""
+    variant, tile = kdec.mma_ilp_launch(n, sms)
+    assert (variant, tile) == launch and tile % 32 == 0
+    resident = sms * kdec.MMA_ILP_BLOCKS_PER_SM[variant]
+    if tile != kdec.MMA_ILP_TILES[-1]:
+        assert -(-n // tile) >= resident
+    if tile != kdec.MMA_ILP_TILES[0]:
+        assert -(-n // (2 * tile)) < resident
+
+
+# ---------------------------------------------------------------------------
+# K4-bf16: a block per tile of the route's buffer, 8 groups of 16 rows.
+
+def _sorted_bf16_emulated(packed, rows, tile_gen, h, feat, fmt):
+    """K4-bf16 as ``decode_sorted_mma.cu`` runs the buffer: tile t (128
+    rows, generator tile_gen[t]) computes socb in f32 per row and column as
+    the kernel sums it (an fma over f ascending from 0, then + b1; each fma
+    rounded once to f32 through float64) and rolls out its 8 groups of 16
+    consecutive rows; every row is stored, padding rows included ->
+    (n_buf, 2, T, 2)."""
+    image = kdec.mma_weights(packed)
+    hid = packed["w1h"].shape[2]
+    n_buf = rows.shape[0]
+    out = torch.empty((n_buf, 2, T, 2))
+    for g in range(image.shape[0]):
+        sel = (tile_gen.long().repeat_interleave(ks.TILE) == g).nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        soc = rows[sel, h:h + feat].double()
+        acc = torch.zeros((sel.numel(), hid), dtype=torch.float64)
+        for f in range(feat):
+            acc = (soc[:, f:f + 1] * packed["w1s"][g, f].double() + acc).float().double()
+        socb = acc.float() + packed["b1"][g]
+        grouped = lambda x: x.reshape((-1, 16) + tuple(x.shape[1:]))
+        a, r = _emulate(image[g], h, hid, fmt, grouped(rows[sel, :h]), grouped(socb),
+                        grouped(rows[sel, h + feat:h + feat + 2]),
+                        grouped(rows[sel, h + feat + 2:]))[:2]
+        out[sel, 0], out[sel, 1] = a.reshape(-1, T, 2), r.reshape(-1, T, 2)
+    return out
+
+
+@pytest.mark.parametrize("inp_format,feat,skew", [
+    ("rel", 8, False), ("abs_rel", 8, True), ("rel", 0, False)])
+def test_k4_bf16_tiles_roll_out_like_the_plain_version(inp_format, feat, skew):
+    """K4-bf16 on the route's buffer (``sorted_layout``, ``sorted_rows``)
+    for 300 rows of 4 generators, uniform or nine in ten on generator 2:
+    tiles of one generator, 8 groups of 16 rows each, padding rows rolled
+    out on zeros; within 2e-3 of ``sorted_tiles_reference(bf16)``."""
+    gen = torch.Generator().manual_seed(19 + feat)
+    stacked = common.stacked_decoders_init(gen, 4, 16, 32, inp_format, feat)
+    rng = np.random.RandomState(19)
+    f32 = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    n = 300
+    xy, dxdy, soc, h0 = f32(n, 2), f32(n, 2) * 0.3, f32(n, feat), f32(n, 32)
+    idx = rng.randint(0, 4, n)
+    if skew:
+        idx = np.where(rng.rand(n) < 0.9, 2, idx)
+    _, inv, tile_gen, n_buf = ks.sorted_layout(torch.from_numpy(idx.astype(np.int32)), 4)
+    rows = ks.sorted_rows(h0, soc, xy, dxdy, inv)
+    assert n_buf % ks.TILE == 0 and bool((inv == n).any())  # padding rows in the buffer
+    packed = kdec.pack_decoder_params(stacked, inp_format)
+    got = _sorted_bf16_emulated(packed, rows, tile_gen, 32, feat, inp_format)
+    want = ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, rows, 32, feat, T, inp_format,
+                                     compute_dtype=torch.bfloat16)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-3)
+
+
+@pytest.mark.parametrize("num_gens,skew", [(4, False), (4, True), (1, False), (3, True)])
+def test_k4_bf16_launch_tiles_hold_whole_groups_of_one_generator(num_gens, skew):
+    """K4-bf16 launches one block per tile of the route's buffer with the
+    swept warps a block (8): every tile holds rows of one generator only
+    (so the kernel needs no bucketing) and is 8 whole groups of 16 rows;
+    every row has a place."""
+    rng = np.random.RandomState(num_gens)
+    for n in (1, 127, 129, 1_000, 20_480):
+        idx = rng.randint(0, num_gens, n)
+        if skew:
+            idx = np.where(rng.rand(n) < 0.9, num_gens - 1, idx)
+        dest, inv, tile_gen, n_buf = ks.sorted_layout(torch.from_numpy(idx.astype(np.int32)),
+                                                      num_gens)
+        assert n_buf % ks.TILE == 0 and ks.TILE % 16 == 0
+        assert ks.MMA_WARPS[ks.MMA_VARIANT] == 8 and ks.TILE // 16 == 8
+        assert sorted(dest.tolist()) == dest.unique().tolist() and dest.numel() == n
+        gen_of_row = torch.full((n_buf,), -1, dtype=torch.long)
+        gen_of_row[dest] = torch.from_numpy(idx).long()
+        tiles = gen_of_row.reshape(-1, ks.TILE)
+        for t in range(tiles.shape[0]):
+            live = tiles[t][tiles[t] >= 0]
+            assert bool((live == int(tile_gen[t])).all())
