@@ -42,11 +42,12 @@ Phases, in order; any failure exits nonzero before the result line:
      plain version in the three input formats, with F=0 and with every row
      on one generator, f32 (atol 1e-4) and bf16 (atol 4e-3) at 4,096 rows;
      at 20,480 rows K5 and B1-f32 equal to the warp-per-row K1 bit for bit
-     (K5-bf16 to the tensor-core K1-bf16), K5, B1 (f32, bf16, lin; the
-     tiled K1 with other activations), K4's route and B2 against their
-     plain versions (the bf16 kernels also on average, 1e-5), each timed
-     beside its plain version and its bound, K4's route against K1
-     (K1-bf16);
+     (K5 also to the tiled K1, K5-bf16 to the tensor-core K1-bf16), K5, B1
+     (f32, bf16, lin; the tiled K1 with other activations), K4's route and
+     B2 against their plain versions (the bf16 kernels also on average,
+     1e-5), each timed beside its plain version and its bound, K4's route
+     against K1 (K1-bf16), the f32 route and B2 equal to the kept
+     warp-per-row route and kernel bit for bit;
  11. K3 after a bf16 forward at the PM step's 4,096 x 4 rows: K2-bf16's
      (tensor cores) saved (h, c) against the bf16 plain forward's (atol
      4e-3, mean 1e-6,
@@ -60,13 +61,14 @@ Phases, in order; any failure exits nonzero before the result line:
      timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``, with each
      kernel's resident warps per SM and bounds), the activations' share of
      K1 (1 - B1-lin / K1, both tiled), K5, B1-f32 and the tiled K1 equal to
-     the warp-per-row K1 bit for bit there, the tiled B1-f32 to the tiled
-     K1 and K5-bf16 to the tensor-core K1-bf16 (after the counts), K4's
-     route within 1e-4 of K1, its bf16 route within 4e-3 (mean 1e-5) of the
-     tensor-core K1-bf16 and of its plain version, where the f32 route must
-     fail both limits, a bf16 gradient of ``decode_all``; then B1-bf16,
-     B1-lin, B2 and K4-bf16 alone against their plain versions at those
-     rows;
+     the warp-per-row K1 bit for bit there, K5 and the tiled B1-f32 to the
+     tiled K1 and K5-bf16 to the tensor-core K1-bf16 (after the counts),
+     K4's route within 1e-4 of K1 and equal to the kept warp-per-row route
+     bit for bit, its bf16 route within 4e-3 (mean 1e-5) of the tensor-core
+     K1-bf16 and of its plain version, where the f32 route must fail both
+     limits, a bf16 gradient of ``decode_all``; then B1-bf16, B1-lin, B2
+     (also bit for bit against the kept warp-per-row kernel) and K4-bf16
+     alone against their plain versions at those rows;
  13. the kernels redesigned for the H100, each against its plain version
      and timed beside the kernel it replaced (kept in the sources for this;
      no path launches it), with registers and resident warps: K3 (rows of
@@ -87,16 +89,21 @@ Phases, in order; any failure exits nonzero before the result line:
      (tensor cores) alone on the route's buffer at those rows against its
      plain version (4e-3, mean 1e-5), each timed in turns with the
      warp-per-row kernel it replaced (held to the warp-per-row K1-bf16 bit
-     for bit, and to the plain version);
- 14. a JSON line listing every ported kernel (the replaced f32 K1 and K2,
-     K2-bf16, B1, K5-bf16 and K4-bf16 under their successors' ``baseline``),
-     then the result line ``{"ok": true, "device": {...}}``.
+     for bit, and to the plain version); K5 (the tiled K1's rollout, two
+     groups of rows a warp) at the same rows, bit for bit against the tiled
+     and the warp-per-row K1 and timed beside the tiled K1, and the tiled
+     K4 alone on the route's buffer and through its route, bit for bit
+     against the kept warp-per-row kernel and route and within 1e-4 of the
+     plain tiles, each timed in turns with its kept kernel;
+ 14. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+     and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
+     ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --sweep`` instead runs phases 1 and 2 and then
-times the tiled K1 and K2, K2-bf16, K5-bf16 (blocks an SM, rows a tile) and
-K4-bf16 (warps a block) at every launch shape their wrappers can pick, at
-the main paths' row counts (``SWEEP`` line), the data behind the launch
-rules.
+times the tiled K1 and K2, K2-bf16, K5 (rows a group, rows a tile),
+K5-bf16 (blocks an SM, rows a tile), K4 and K4-bf16 (warps a block) at
+every launch shape their wrappers can pick, at the main paths' row counts
+(``SWEEP`` line), the data behind the launch rules.
 
 Imports neither JAX nor the JAX package ``mggan_tpu``.
 """
@@ -118,6 +125,9 @@ HERE = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# Profiler sessions tried before a device-time reading gives up: a session
+# now and then comes back without its device records.
+PROFILE_TRIES = 3
 
 # Kernel vs plain version, float32 on the same card: summation order and
 # expf/tanhf differ; 1e-4 is the repo's tolerance over a 12-step rollout.
@@ -743,17 +753,23 @@ def device_profile(fn, reps, label, unit):
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for rep in range(reps):
-            fn(rep)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            tot, cnt = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for rep in range(reps):
+                fn(rep)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                tot, cnt = by_name.get(ev.name, (0.0, 0))
+                by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+        if by_name:
+            break
+        print(f"profile, {label}: the profiler kept no device record; profiling again")
+    check(by_name, f"profile, {label}: the profiler kept no device record in "
+                   f"{PROFILE_TRIES} sessions")
     busy_ms = sum(t for t, _ in by_name.values())
     launches = sum(c for _, c in by_name.values())
     print(f"profile, {label}, {reps} {unit}s: wall {wall_ms / reps:.3f} ms/{unit}, device "
@@ -1181,10 +1197,12 @@ def phase_ablation_kernels():
     (launches here are not the path's): K4's route in the three input
     formats, with F=0 and with every row on one generator, f32 and bf16;
     then, on the benchmarks' inputs at ABL_ROWS rows, K5 and B1-f32 against
-    the warp-per-row K1 bit for bit and K5-bf16 against the tensor-core
-    K1-bf16, each new kernel against its plain version (the bf16 ones also
-    within BF16_MEAN_ATOL on average) and timed beside it and its bound,
-    K4's route against K1 (K1-bf16) and B2 on grouped rows."""
+    the warp-per-row K1 bit for bit (K5 also against the tiled K1) and
+    K5-bf16 against the tensor-core K1-bf16, each new kernel against its
+    plain version (the bf16 ones also within BF16_MEAN_ATOL on average) and
+    timed beside it and its bound, K4's route against K1 (K1-bf16) and B2 on
+    grouped rows; the f32 route and B2 bit for bit against the kept
+    warp-per-row route and kernel."""
     import torch
 
     from mggan_tpu_torch.ablations import decode_ablation as dab
@@ -1237,9 +1255,11 @@ def phase_ablation_kernels():
     inp = make_inputs(ABL_ROWS, SEED)
     args, p32, p16 = dab.prepare(inp)
     calls = dab.variants(inp)
-    # K5, B1-f32 and K4 keep the warp-per-row rollout: held to the
-    # warp-per-row K1; K5-bf16 and K4-bf16 run K1-bf16's tensor-core rollout
+    # K5, B1-f32 and K4 keep the warp-per-row rollout's bits: held to the
+    # warp-per-row K1 (K5 also to the tiled K1); K5-bf16 and K4-bf16 run
+    # K1-bf16's tensor-core rollout
     k1, k1_bf16 = kdec.launch_decode_select_warp(p32), kdec.launch_decode_select(p16)
+    k1_tiled = kdec.launch_decode_select(p32)
     torch.cuda.synchronize()
     plain = {"f32": lambda: kdec.decode_select_reference(*args),
              "bf16": lambda: kdec.decode_select_reference(*args, compute_dtype=bf16),
@@ -1273,8 +1293,16 @@ def phase_ablation_kernels():
         check(identical is not False, f"{name} differs from K1")
         return got
 
+    def same_bits(name, got, want, what):
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        key = what.lower().replace(" ", "_").replace("-", "_")
+        out[name][f"equals_{key}_bit_for_bit"] = same
+        print(f"  {name} equal to the {what} bit for bit: {same}")
+        check(same, f"{name} differs from the {what}")
+
     fp32_fma = lambda b: {"bound_ms_fp32_fma": b[0]}
-    record("decode_select_ilp", calls["kernel_ilp"], "f32", KERNEL_ATOL, b32, k1)
+    ilp = record("decode_select_ilp", calls["kernel_ilp"], "f32", KERNEL_ATOL, b32, k1)
+    same_bits("decode_select_ilp", ilp, k1_tiled, "tiled K1")
     record("decode_select_ilp_bf16", calls["kernel_ilp_bf16"], "bf16", BF16_ATOL, b16, k1_bf16,
            mean_atol=BF16_MEAN_ATOL, **fp32_fma(b32))
     record("decode_select_act_f32", calls["kernel_f32"], "f32", KERNEL_ATOL, b32, k1)
@@ -1308,14 +1336,17 @@ def phase_ablation_kernels():
         check(vs_k1 <= atol, f"{name}: the route and K1 differ by {vs_k1:.3e}")
         check(not cd or vs_k1_mean <= BF16_MEAN_ATOL,
               f"{name}: the route and K1-bf16 differ by {vs_k1_mean:.3e} on average")
+        if not cd:
+            same_bits(name, got, ks.decode_select_sorted_warp(*args), "warp-per-row route")
     packed, rows, tile_gen, prep = sab.grouped_tiles(inp)
     tiles_plain = lambda: (ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, rows, 32, 32,
                                                      12, "rel"),)
     plain_out["sorted_tiles"] = tiles_plain()
     plain_ms["sorted_tiles"] = cuda_time_ms(tiles_plain, 4, warmup=1)
-    record("sorted_tiles", lambda: (ks.launch_sorted_tiles(prep),), "sorted_tiles",
-           KERNEL_ATOL, sorted_tiles_bound_ms(prep))
-    del inp, calls, plain_out, k1, k1_bf16
+    b2 = record("sorted_tiles", lambda: (ks.launch_sorted_tiles(prep),), "sorted_tiles",
+                KERNEL_ATOL, sorted_tiles_bound_ms(prep))
+    same_bits("sorted_tiles", b2, (ks.launch_sorted_tiles_warp(prep),), "warp-per-row kernel")
+    del inp, calls, plain_out, k1, k1_bf16, k1_tiled, ilp, b2
     torch.cuda.empty_cache()
     return {"sorted_route_cases": cases, "kernels": out}
 
@@ -1431,15 +1462,16 @@ def phase_ablation_path(reps=5):
     """The decoder ablation path, launch counts read around it: the two
     entry points' timings at 1,310,720 rows (``DECODEABL``, ``SORTEDPARTS``),
     K5, B1-f32 and the tiled K1 equal to the warp-per-row K1 bit for bit
-    there and the tiled B1-f32 to the tiled K1 (K5-bf16 to the tensor-core
-    K1-bf16; after the counts), K4's route within KERNEL_ATOL of K1 and its
-    bf16 route within BF16_ATOL (mean BF16_MEAN_ATOL) of K1-bf16 and of its
-    plain version, where the f32 route must fail those limits, and a bf16
+    there and K5 and the tiled B1-f32 to the tiled K1 (K5-bf16 to the
+    tensor-core K1-bf16; after the counts), K4's route within KERNEL_ATOL of
+    K1 and equal to the kept warp-per-row route bit for bit, its bf16 route
+    within BF16_ATOL (mean BF16_MEAN_ATOL) of K1-bf16 and of its plain
+    version, where the f32 route must fail those limits, and a bf16
     gradient of ``decode_all`` at the PM step's rows (K2-bf16, then K3 in
     f32). The activations' share of K1 is 1 - B1-lin / K1 there (B1 is the
     tiled K1 with other activations). Then, outside the counts, B1-bf16,
-    B1-lin, B2 and K4-bf16 alone against their plain versions at those
-    rows."""
+    B1-lin, B2 (also bit for bit against the kept warp-per-row kernel) and
+    K4-bf16 alone against their plain versions at those rows."""
     import torch
 
     from mggan_tpu_torch.ablations import N, decode_ablation as dab, make_inputs
@@ -1481,13 +1513,17 @@ def phase_ablation_path(reps=5):
              **{f"sorted_{k}": v for k, v in sab.resident_warps(inp).items()}}
     args, p32, p16 = dab.prepare(inp)
     # after the counts: K5, B1-f32 and the tiled K1 against the warp-per-row
-    # K1 (the rollout they share), which no path launches; K5-bf16 and K4's
-    # bf16 route against the tensor-core K1-bf16
+    # K1 (the rollout they share), which no path launches, and K4's route
+    # against the kept warp-per-row route; K5-bf16 and K4's bf16 route
+    # against the tensor-core K1-bf16
     k1_warp = kdec.launch_decode_select_warp(p32)
     equal = {name: all(torch.equal(a, b) for a, b in zip(calls[name](), k1_warp))
              for name in ("kernel_ilp", "kernel_f32", "kernel_select")}
-    equal["kernel_f32_vs_tiled_k1"] = all(torch.equal(a, b)
-                                          for a, b in zip(calls["kernel_f32"](), k1))
+    for name in ("kernel_ilp", "kernel_f32"):
+        equal[f"{name}_vs_tiled_k1"] = all(torch.equal(a, b)
+                                           for a, b in zip(calls[name](), k1))
+    equal["route_vs_warp_route"] = all(torch.equal(a, b) for a, b in zip(
+        route, ks.decode_select_sorted_warp(*sab.route_args(inp))))
     k1_bf16 = calls["kernel_select_bf16"]()
     equal["kernel_ilp_bf16"] = all(torch.equal(a, b)
                                    for a, b in zip(calls["kernel_ilp_bf16"](), k1_bf16))
@@ -1520,6 +1556,9 @@ def phase_ablation_path(reps=5):
                       "atol": atol}
         if name == "kernel_only_bf16":
             at_n[name].update(mean_abs_err=err(got, want)[1], mean_atol=BF16_MEAN_ATOL)
+        if name == "kernel_only":  # B2 against the kept warp-per-row kernel
+            equal["kernel_only_vs_warp_kernel"] = torch.equal(got[0],
+                                                              ks.launch_sorted_tiles_warp(tiles))
         if name == "kernel_bf16":  # K1 must lie beyond B1-bf16's limit here too
             at_n[name]["k1_vs_plain"] = max(float((a - b).abs().max())
                                             for a, b in zip(k1, want))
@@ -1542,8 +1581,11 @@ def phase_ablation_path(reps=5):
     print("SORTEDPARTS " + json.dumps({"rows": N, "ms": sort_ms}))
     print(f"ablation path at {N} rows, against the warp-per-row K1: K5 {equal['kernel_ilp']}, "
           f"B1-f32 {equal['kernel_f32']}, the tiled K1 {equal['kernel_select']} (bit for bit); "
+          f"K5 == the tiled K1 {equal['kernel_ilp_vs_tiled_k1']}; "
           f"the tiled B1-f32 == the tiled K1 {equal['kernel_f32_vs_tiled_k1']}; "
           f"K5-bf16 == the tensor-core K1-bf16 {equal['kernel_ilp_bf16']}; K4's route "
+          f"== the kept warp-per-row route {equal['route_vs_warp_route']}, B2 == the kept "
+          f"warp-per-row kernel {equal['kernel_only_vs_warp_kernel']}; K4's route "
           f"against K1 {vs_k1:.3e} (atol {KERNEL_ATOL:g}); its bf16 route (max, mean) against "
           f"K1-bf16 and its plain version, and the f32 route against that plain version (must "
           f"exceed both): {json.dumps(route16_err)} (atol {BF16_ATOL:g}, mean "
@@ -1552,7 +1594,7 @@ def phase_ablation_path(reps=5):
     print(f"at {N} rows against their plain versions: {json.dumps(at_n)} (B1-bf16's "
           f"k1_vs_plain must exceed {B1_BF16_ATOL:g})")
     for name, same in equal.items():
-        check(same, f"ablation path: {name} differs from K1 at {N} rows")
+        check(same, f"ablation path: {name} is not equal bit for bit at {N} rows")
     check(vs_k1 <= KERNEL_ATOL, f"ablation path: K4's route and K1 differ by {vs_k1:.3e}")
     for key in ("vs_k1_bf16", "vs_plain"):
         mx, mean = route16_err[key]
@@ -1767,13 +1809,13 @@ def phase_redesigned():
     print(f"K1-bf16 launch shapes (registers per thread from nvcc): {json.dumps(sel['config'])}")
     return {"decode_all_bwd": k3, "decode_select_bf16": sel, **redesigned_tiled(gen),
             "decode_all_fwd_bf16": redesigned_k2_bf16(gen), "decode_select_act": redesigned_b1(gen),
-            **redesigned_ablation_bf16()}
+            **redesigned_ablation_bf16(), **redesigned_ablation_f32()}
 
 
 K1_SWEEP_ROWS = (320, 960, 2_560, 4_096, 9_728, 20_480, 1_310_720)
 K2_SWEEP_ROWS = (4_096, 9_728, 81_920)
 K2_BF16_SWEEP = ((4_096, True), (9_728, False), (20_480, False), (81_920, False))  # (rows, hc)
-K5_BF16_SWEEP_ROWS = (9_728, 20_480, 1_310_720)  # K5-bf16 and K4-bf16
+ABL_SWEEP_ROWS = (9_728, 20_480, 81_920, 1_310_720)  # K5, K4, K5-bf16 and K4-bf16
 
 
 def phase_launch_sweep(reps=5):
@@ -1782,10 +1824,12 @@ def phase_launch_sweep(reps=5):
     counts (the rule's pick marked), beside the warp-per-row kernels, and
     each launch checked bit for bit against them; K2-bf16 at each launch
     variant and a range of blocks per generator, each launch bit for bit
-    against the rule's; K5-bf16 at each launch variant and tile size, bit
-    for bit against K1-bf16, and K4-bf16 at each warps a block, bit for bit
-    against the route's. Prints one ``SWEEP`` JSON line; not part of the
-    default run."""
+    against the rule's; K5 at each rows a group and tile size, bit for bit
+    against the tiled K1, and K4 at each warps a block, bit for bit against
+    the route's; K5-bf16 at each launch
+    variant and tile size, bit for bit against K1-bf16, and K4-bf16 at each
+    warps a block, bit for bit against the route's. Prints one ``SWEEP``
+    JSON line; not part of the default run."""
     import torch
 
     from mggan_tpu_torch.ops.kernels import decode_all as kda
@@ -1871,17 +1915,47 @@ def phase_launch_sweep(reps=5):
               f"ms; best {best} {res['shapes'][best]:.4f} ms")
         out["k2_bf16"][n] = res
         del inputs, p, base
-    # K5-bf16: every launch variant and tile size, each bit for bit against
-    # the tensor-core K1-bf16; K4-bf16: warps a block on the route's buffer,
-    # each bit for bit against the route's variant
+    # K5 and K5-bf16: every launch variant and tile size, each bit for bit
+    # against the tiled K1 (the tensor-core K1-bf16); K4 and K4-bf16: every
+    # launch variant on the route's buffer, each bit for bit against the
+    # route's variant
     from mggan_tpu_torch.ablations import decode_ablation as dab
     from mggan_tpu_torch.ablations import make_inputs
     from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 
-    out["k5_bf16"], out["k4_bf16"] = {}, {}
-    for n in K5_BF16_SWEEP_ROWS:
+    out["k5"], out["k4"], out["k5_bf16"], out["k4_bf16"] = {}, {}, {}, {}
+    for n in ABL_SWEEP_ROWS:
         inp = make_inputs(n, SEED)
-        p16 = dab.prepare(inp)[2]
+        _, p32, p16 = dab.prepare(inp)
+        k1 = kdec.launch_decode_select(p32)
+        res = {"rule": kdec.tiled_ilp_launch(n, sms), "k1_ms": cuda_time_ms(
+            lambda: kdec.launch_decode_select(p32), reps), "shapes": {}}
+        for r in kdec.TILED_ILP_ROWS:
+            for tile in kdec.TILED_ILP_TILES:
+                shape = (r, tile, max(1, min(-(-n // tile), sms * kdec.TILED_BLOCKS_PER_SM)))
+                got = kdec.launch_decode_select(p32, ilp=True, shape=shape)
+                same = all(torch.equal(a, b) for a, b in zip(got, k1))
+                check(same, f"sweep: K5 {shape} at {n} rows differs from the tiled K1")
+                res["shapes"][f"{r}/{tile}"] = cuda_time_ms(
+                    lambda: kdec.launch_decode_select(p32, ilp=True, shape=shape), reps)
+        best = min(res["shapes"], key=res["shapes"].get)
+        rule = "/".join(map(str, res["rule"][:2]))
+        print(f"sweep K5 N={n}: the tiled K1 {res['k1_ms']:.4f} ms; rule R/tile {rule} "
+              f"{res['shapes'][rule]:.4f} ms; best {best} {res['shapes'][best]:.4f} ms")
+        out["k5"][n] = res
+        pt = route_tiles(inp, None)[3]
+        base = ks.launch_sorted_tiles(pt)
+        res = {"rule": pt["variant"], "warps": {}}
+        for v, w in enumerate(ks.TILED_WARPS):
+            got = ks.launch_sorted_tiles(pt, variant=v)
+            check(torch.equal(got, base), f"sweep: K4 variant {v} at {n} rows differs")
+            res["warps"][w] = cuda_time_ms(lambda: ks.launch_sorted_tiles(pt, variant=v), reps)
+        best = min(res["warps"], key=res["warps"].get)
+        rule = ks.TILED_WARPS[pt["variant"]]
+        print(f"sweep K4 N={n}: rule {rule} warps a block {res['warps'][rule]:.4f} ms; best "
+              f"{best} {res['warps'][best]:.4f} ms")
+        out["k4"][n] = res
+        del p32, k1, got, pt, base
         k1 = kdec.launch_decode_select(p16)
         res = {"rule": kdec.mma_ilp_launch(n, sms), "k1_bf16_ms": cuda_time_ms(
             lambda: kdec.launch_decode_select(p16), reps), "shapes": {}}
@@ -1921,21 +1995,36 @@ def kernel_device_ms(fn, needle, reps=10):
     kernel alone, without the host's launch cost, which CUDA events around
     back-to-back calls include once it exceeds the kernel's own time. The
     mean is over the kernel records the profiler kept, which may be fewer
-    than ``reps``."""
+    than ``reps``. A session now and then comes back without the kernel's
+    records; after PROFILE_TRIES such sessions the time is taken with CUDA
+    events around single synchronised calls instead (the kernel plus the
+    device's launch gap), and a line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == DeviceType.CUDA and needle in ev.name]
-    check(us, f"the profiler kept no record of a kernel named *{needle}*")
-    return sum(us) / len(us) / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and needle in ev.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    print(f"the profiler kept no record of a kernel named *{needle}* in {PROFILE_TRIES} "
+          "sessions; its time is from CUDA events around single calls")
+    ms = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return sum(ms) / len(ms)
 
 
 # phase 13's shapes of the tiled f32 K1 and K2: (label, scenes, samples)
@@ -2276,6 +2365,161 @@ def route_tiles(inp, compute_dtype):
         packed, rows, tile_gen, h0.shape[1], soc.shape[1], t, fmt, compute_dtype)
 
 
+def redesigned_ablation_f32():
+    """Phase 13, K5 and K4 on the tiled f32 rollout, at the ablation
+    kernels' 20,480 rows and the entry points' 1,310,720 (the benchmarks'
+    inputs). K5 equal to the tiled K1 and to the warp-per-row K1 bit for
+    bit, the kept warp-per-pair K5 to the warp-per-row K1; timed in turns
+    with the kept kernel, the tiled K1 beside it (K5's question: does the
+    tiled K1 leave latency that a second group a warp hides?). K4 alone on
+    the route's buffer equal to the kept warp-per-row kernel bit for bit and
+    within KERNEL_ATOL of its plain tiles, its route equal to the kept route
+    bit for bit; each timed in turns with the kept one. Device times from
+    the profiler, the launch, registers and resident warps."""
+    import torch
+
+    from mggan_tpu_torch.ablations import decode_ablation as dab
+    from mggan_tpu_torch.ablations import make_inputs
+    from mggan_tpu_torch.ablations import sorted_select_ablation as sab
+    from mggan_tpu_torch.ops.kernels import build
+    from mggan_tpu_torch.ops.kernels import decode_sorted as ks
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    same_bits = lambda a_, b_: all(torch.equal(x, y) for x, y in zip(a_, b_))
+    max_err = lambda a_, b_: max(float((x - y).abs().max()) for x, y in zip(a_, b_))
+    k5, k4 = {"shapes": {}}, {"shapes": {}}
+    for n in ABL_BF16_ROWS:
+        inp = make_inputs(n, SEED)
+        args, p32, _ = dab.prepare(inp)
+        reps = 5 if n > 100_000 else 20
+        new = lambda: kdec.launch_decode_select(p32, ilp=True)
+        kept = lambda: kdec.launch_decode_select_ilp_warp(p32)
+        k1 = lambda: kdec.launch_decode_select(p32)
+        got, got_kept = new(), kept()
+        k1_out, k1_warp = k1(), kdec.launch_decode_select_warp(p32)
+        torch.cuda.synchronize()
+        same, same_warp = same_bits(got, k1_out), same_bits(got, k1_warp)
+        same_kept = same_bits(got_kept, k1_warp)
+        want = kdec.decode_select_reference(*args)
+        mx, mx_kept = max_err(got, want), max_err(got_kept, want)
+        old_ms, new_ms = alternate_ms(kept, new, reps)
+        k1_ms = cuda_time_ms(k1, reps)
+        dev_new = kernel_device_ms(new, "decode_select_ilp_tiled_kernel")
+        dev_old = kernel_device_ms(kept, "decode_select_ilp_kernel<float>")
+        dev_k1 = kernel_device_ms(k1, "decode_select_tiled_kernel")
+        plain_ms = cuda_time_ms(lambda: kdec.decode_select_reference(*args), 2, warmup=1)
+        bound = decode_select_bound_ms(p32)
+        rows, tile, blocks = kdec.tiled_ilp_launch(n, sms)
+        k5["shapes"][n] = {
+            "n_rows": n, "equals_tiled_k1_bit_for_bit": same,
+            "equals_warp_k1_bit_for_bit": same_warp,
+            "warp_baseline_equals_warp_k1": same_kept, "max_abs_err": mx,
+            "warp_baseline_max_abs_err": mx_kept, "ms": new_ms, "warp_baseline_ms": old_ms,
+            "k1_ms": k1_ms, "device_ms": dev_new, "warp_baseline_device_ms": dev_old,
+            "k1_device_ms": dev_k1, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "rows_per_warp": rows, "tile_rows": tile, "blocks": blocks}
+        print(f"K5 tiled N={n} (two groups of {rows} rows a warp, tiles of {tile} rows, {blocks} "
+              f"blocks): equal to the tiled K1 bit for bit {same}, to "
+              f"the warp-per-row K1 {same_warp}, the kept warp-per-pair K5 to the warp-per-row "
+              f"K1 {same_kept}; max_abs_err {mx:.3e} (atol {KERNEL_ATOL:g}; kept {mx_kept:.3e}); "
+              f"kernel {new_ms:.4f} ms, kept {old_ms:.4f} ms (same call, in turns; device time "
+              f"alone {dev_new:.4f} and {dev_old:.4f} ms), the tiled K1 {k1_ms:.4f} ms (device "
+              f"{dev_k1:.4f}; K5 / K1 {dev_new / dev_k1:.3f}), plain {plain_ms:.3f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]}")
+        check(same and same_warp, f"K5 at {n} rows differs from K1")
+        check(same_kept, f"the kept K5 at {n} rows differs from the warp-per-row K1")
+        check(mx <= KERNEL_ATOL, f"K5 at {n} rows: {mx:.3e} from its plain version")
+        if n == ABL_BF16_ROWS[-1]:
+            k1_rows = kdec.tiled_launch(n, sms)[0]
+            k5["config"] = {
+                "new": {f"R={r}": {
+                    "warps_per_sm": kdec.tiled_ilp_warps_per_sm(p32, r),
+                    "registers": ptxas_registers(
+                        "decode_select_tiled", f"decode_select_ilp_tiled_kernelILi{r}ELi32ELi16E")}
+                    for r in kdec.TILED_ILP_ROWS},
+                "k1": {"warps_per_sm": kdec.tiled_warps_per_sm(p32, k1_rows),
+                       "registers": ptxas_registers(
+                           "decode_select_tiled",
+                           f"decode_select_tiled_kernelILi{k1_rows}ELi32ELi16E")},
+                "warp_baseline": {
+                    "warps_per_sm": build.warps_per_sm(
+                        "decode_select", "mggan_decode_select_warps_per_sm", 2,
+                        nbytes_of(p32["tensors"][0])),
+                    "registers": ptxas_registers("decode_select", "decode_select_ilp_kernel",
+                                                 "IfE")}}
+        del got, got_kept, k1_out, k1_warp, want
+
+        packed, rows_buf, tile_gen, pt = route_tiles(inp, None)
+        new = lambda: ks.launch_sorted_tiles(pt)
+        kept = lambda: ks.launch_sorted_tiles_warp(pt)
+        got, got_kept = new(), kept()
+        route, route_kept = (ks.decode_select_sorted(*sab.route_args(inp)),
+                             ks.decode_select_sorted_warp(*sab.route_args(inp)))
+        torch.cuda.synchronize()
+        same, same_route = torch.equal(got, got_kept), same_bits(route, route_kept)
+        want = ks.sorted_tiles_reference(tile_gen, ks.TILE, packed, rows_buf, 32, 32, 12, "rel")
+        mx, mx_kept = max_err((got,), (want,)), max_err((got_kept,), (want,))
+        route_plain = lambda: ks.decode_select_sorted_reference(*sab.route_args(inp))
+        route_mx = max_err(route, route_plain())
+        route_plain_ms = cuda_time_ms(route_plain, 2, warmup=1)
+        route_bound = sorted_route_bound_ms(sab.route_args(inp))
+        old_ms, new_ms = alternate_ms(kept, new, reps)
+        route_old_ms, route_ms = alternate_ms(
+            lambda: ks.decode_select_sorted_warp(*sab.route_args(inp)),
+            lambda: ks.decode_select_sorted(*sab.route_args(inp)), reps)
+        dev_new = kernel_device_ms(new, "decode_sorted_tiled_kernel")
+        dev_old = kernel_device_ms(kept, "decode_sorted_kernel<float>")
+        plain_ms = cuda_time_ms(lambda: ks.sorted_tiles_reference(
+            tile_gen, ks.TILE, packed, rows_buf, 32, 32, 12, "rel"), 2, warmup=1)
+        bound = sorted_tiles_bound_ms(pt)
+        warps = ks.TILED_WARPS[pt["variant"]]
+        k4["shapes"][n] = {
+            "n_rows": n, "n_buf": pt["dims"][0], "equals_warp_kernel_bit_for_bit": same,
+            "route_equals_warp_route_bit_for_bit": same_route, "max_abs_err": mx,
+            "warp_baseline_max_abs_err": mx_kept, "ms": new_ms, "warp_baseline_ms": old_ms,
+            "device_ms": dev_new, "warp_baseline_device_ms": dev_old, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "rows_per_warp": ks.TILED_GROUP,
+            "warps_per_block": warps, "route": {
+                "ms": route_ms, "warp_route_ms": route_old_ms, "max_abs_err": route_mx,
+                "plain_ms": route_plain_ms, "bound_ms": route_bound[0],
+                "bound_by": route_bound[1]}}
+        print(f"K4 tiled alone on the route's buffer, N={n} ({pt['dims'][0]} buffer rows, "
+              f"{ks.TILED_GROUP} rows a group, {warps} warps a block): equal to the kept warp-per-row K4 "
+              f"bit for bit {same}, its route to the kept route {same_route}; max_abs_err "
+              f"{mx:.3e} (atol {KERNEL_ATOL:g}; kept {mx_kept:.3e}); kernel {new_ms:.4f} ms, kept "
+              f"{old_ms:.4f} ms (same call, in turns; device time alone {dev_new:.4f} and "
+              f"{dev_old:.4f} ms), plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms by "
+              f"{bound[1]}; route {route_ms:.4f} ms, kept route {route_old_ms:.4f} ms (in turns), "
+              f"max_abs_err {route_mx:.3e} against its plain version ({route_plain_ms:.3f} ms), "
+              f"bound {route_bound[0]:.4f} ms by {route_bound[1]}")
+        check(bool(torch.isfinite(got).all()), f"K4 at {n} rows: non-finite")
+        check(same and same_route, f"K4 at {n} rows differs from the kept warp-per-row K4")
+        check(mx <= KERNEL_ATOL and route_mx <= KERNEL_ATOL,
+              f"K4 at {n} rows: {mx:.3e} from its plain tiles, the route {route_mx:.3e}")
+        if n == ABL_BF16_ROWS[-1]:
+            k4["config"] = {
+                "new": {f"variant {v} ({w} warps a block)": {
+                    "warps_per_sm": ks.tiled_warps_per_sm(pt, v),
+                    "registers": ptxas_registers(
+                        "decode_sorted_tiled", f"decode_sorted_tiled_kernelILi{w}ELi32ELi16E"),
+                    "smem_bytes": ks.tiled_smem(pt, v)}
+                    for v, w in enumerate(ks.TILED_WARPS)},
+                "warp_baseline": {
+                    "warps_per_sm": build.warps_per_sm(
+                        "decode_sorted", "mggan_decode_sorted_warps_per_sm", 0,
+                        pt["warp_smem_bytes"]),
+                    "registers": ptxas_registers("decode_sorted", "decode_sorted_kernel", "IfE"),
+                    "smem_bytes": pt["warp_smem_bytes"]}}
+        del inp, args, p32, packed, rows_buf, tile_gen, pt, got, got_kept, want, route, route_kept
+        torch.cuda.empty_cache()
+    print(f"K5 launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(k5['config'])}")
+    print(f"K4 launch shapes (registers per thread, spills from nvcc): "
+          f"{json.dumps(k4['config'])}")
+    return {"decode_select_ilp": k5, "sorted_tiles": k4}
+
+
 def redesigned_ablation_bf16():
     """Phase 13, K5-bf16 and K4-bf16 on the tensor-core rollout, at the
     ablation kernels' 20,480 rows and the entry points' 1,310,720 (the
@@ -2405,10 +2649,10 @@ def redesigned_ablation_bf16():
                 "warp_baseline": {
                     "warps_per_sm": build.warps_per_sm(
                         "decode_sorted", "mggan_decode_sorted_warps_per_sm", 1,
-                        pt["smem_bytes"]),
+                        pt["warp_smem_bytes"]),
                     "registers": ptxas_registers("decode_sorted", "decode_sorted_kernel",
                                                  "bfloat16"),
-                    "smem_bytes": pt["smem_bytes"]}}
+                    "smem_bytes": pt["warp_smem_bytes"]}}
         del inp, args, p16, packed, rows, tile_gen, pt, got, got_kept, want
         torch.cuda.empty_cache()
     print(f"K5-bf16 launch shapes (registers per thread, spills from nvcc): "
@@ -2419,17 +2663,17 @@ def redesigned_ablation_bf16():
 
 
 def ablation_entries(checks, bwd16, path, by_path, redesigned):
-    """The kernels line's entries of the ablation path's kernels; B1's
-    (redesigned on the tiled rollout), K5-bf16's and K4-bf16's (on the
-    tensor-core rollout) carry phase 13's readings ``redesigned`` and their
-    kept warp-per-row kernels' entries."""
+    """The kernels line's entries of the ablation path's kernels; B1's, K5's
+    and K4's (route and alone; redesigned on the tiled rollout), K5-bf16's
+    and K4-bf16's (on the tensor-core rollout) carry phase 13's readings
+    ``redesigned`` and their kept warp-per-row kernels' entries."""
     b1 = redesigned["decode_select_act"]
     dec_ms, sort_ms, warps = path["decodeabl_ms"], path["sortedparts_ms"], path["warps_per_sm"]
     bounds = path["bounds_1310720"]
     no_library = ("no single PyTorch call runs a rollout that feeds back its own output")
     table = (
         # name, source, replaces, DECODEABL/SORTEDPARTS key, bounds key
-        ("decode_select_ilp", "decode_select.cu", "mggan_tpu/ops/pallas/decoder.py:199",
+        ("decode_select_ilp", "decode_select_tiled.cu", "mggan_tpu/ops/pallas/decoder.py:199",
          ("decodeabl", "kernel_ilp"), "kernel_select"),
         ("decode_select_ilp_bf16", "decode_select_mma.cu",
          "mggan_tpu/ops/pallas/decoder.py:199 (compute_dtype=bfloat16)",
@@ -2441,12 +2685,12 @@ def ablation_entries(checks, bwd16, path, by_path, redesigned):
          "kernel_select"),
         ("decode_select_act_lin", "decode_ablation.cu", "benchmarks/decode_ablation.py:39 (lin)",
          ("decodeabl", "kernel_lin"), "kernel_select"),
-        ("decode_sorted", "decode_sorted.cu", "mggan_tpu/ops/pallas/decoder.py:353",
+        ("decode_sorted", "decode_sorted_tiled.cu", "mggan_tpu/ops/pallas/decoder.py:353",
          ("sortedparts", "route"), "route"),
         ("decode_sorted_bf16", "decode_sorted_mma.cu",
          "mggan_tpu/ops/pallas/decoder.py:353 (compute_dtype=bfloat16)",
          ("sortedparts", "route_bf16"), "route_bf16"),
-        ("sorted_tiles", "decode_sorted.cu", "benchmarks/sorted_select_ablation.py:77",
+        ("sorted_tiles", "decode_sorted_tiled.cu", "benchmarks/sorted_select_ablation.py:77",
          ("sortedparts", "kernel_only"), "kernel_only"),
     )
     warps_key = {"route": "sorted_kernel_only", "route_bf16": "sorted_route_bf16",
@@ -2474,12 +2718,28 @@ def ablation_entries(checks, bwd16, path, by_path, redesigned):
                 redesign={"shapes": shapes, "config": b1["config"][act]},
                 baseline=baseline_entry(f"{name}_warp", source, replaces, shapes, ABL_ROWS,
                                         by_path))
-        if name in ("decode_select_ilp_bf16", "decode_sorted_bf16"):
-            old_source = "decode_select.cu" if name == "decode_select_ilp_bf16" \
-                else "decode_sorted.cu"
+        if name in ("decode_select_ilp", "decode_select_ilp_bf16", "decode_sorted_bf16"):
+            old_source = "decode_sorted.cu" if name == "decode_sorted_bf16" \
+                else "decode_select.cu"
             entries[-1].update(redesign=redesigned[name], baseline=baseline_entry(
                 f"{name}_warp", old_source, replaces, redesigned[name]["shapes"], ABL_ROWS,
                 by_path))
+        if name == "sorted_tiles":
+            entries[-1].update(redesign=redesigned[name], baseline=baseline_entry(
+                "decode_sorted_warp", "decode_sorted.cu", replaces, redesigned[name]["shapes"],
+                ABL_ROWS, by_path))
+        if name == "decode_sorted":  # the route on the tiled kernel and on the kept one
+            shapes = {n: {"n_rows": n, "ms": v["route"]["ms"],
+                          "warp_baseline_ms": v["route"]["warp_route_ms"],
+                          # the same bits (checked)
+                          "warp_baseline_max_abs_err": v["route"]["max_abs_err"],
+                          **{k: v["route"][k] for k in ("max_abs_err", "plain_ms", "bound_ms",
+                                                        "bound_by")},
+                          "equals_warp_route_bit_for_bit":
+                              v["route_equals_warp_route_bit_for_bit"]}
+                      for n, v in redesigned["sorted_tiles"]["shapes"].items()}
+            entries[-1].update(redesign={"shapes": shapes}, baseline=baseline_entry(
+                "decode_sorted_warp", "decode_sorted.cu", replaces, shapes, ABL_ROWS, by_path))
     entries.append({
         "name": "decode_all_bwd_after_bf16", "status": "ported (ablation path)",
         "route": "cuda", "source": "mggan_tpu_torch/csrc/decode_all.cu",
@@ -2668,7 +2928,8 @@ def main():
     for name in ("decode_select_warp", "decode_all_fwd_warp", "decode_select_bf16_warp",
                  "decode_all_bwd_warp", "decode_all_fwd_bf16_warp", "decode_select_act_f32_warp",
                  "decode_select_act_bf16_warp", "decode_select_act_lin_warp",
-                 "decode_select_ilp_bf16_warp", "decode_sorted_bf16_warp"):
+                 "decode_select_ilp_bf16_warp", "decode_sorted_bf16_warp",
+                 "decode_select_ilp_warp", "decode_sorted_warp"):
         # the kept yardsticks stay off every path
         check(not by_path(name), f"{name} was launched on a path: {by_path(name)}")
     print(json.dumps({

@@ -10,8 +10,8 @@ its time into causes:
 * ``kernel_f32`` / ``kernel_bf16`` / ``kernel_lin``: B1, the tiled K1 with
   its gate activations exact, in bf16 arithmetic, or linear (wrong by
   design): beside ``kernel_select``, the activations' share of K1;
-* ``kernel_ilp``: K5, a warp per pair of rows (bit-identical to the
-  warp-per-row K1);
+* ``kernel_ilp``: K5, the tiled K1 with two groups of R rows of one
+  generator a warp (bit-identical to the tiled and the warp-per-row K1);
 * ``kernel_select_bf16``: K1-bf16 (the tensor-core kernel of the bf16 route);
 * ``kernel_ilp_bf16``: K5-bf16, K1-bf16's tensor-core rollout with two groups
   of 16 rows a warp (bit-identical to K1-bf16).
@@ -32,7 +32,6 @@ import torch
 
 from mggan_tpu_torch.ablations import N, T, cuda_time_ms, make_inputs
 from mggan_tpu_torch.device import resolve_device
-from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.ops.kernels import decode_ablation as kab
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
@@ -63,15 +62,12 @@ def variants(inputs):
 def resident_warps(inputs):
     """Resident warps per SM of each kernel at these shapes."""
     _, p32, p16 = prepare(inputs)
-    smem = lambda p: p["tensors"][0].numel() * 4
-    q = lambda stem, fn, v, p: build.warps_per_sm(stem, fn, v, smem(p))
-    sel = "mggan_decode_select_warps_per_sm"
     n, sms = p32["dims"][0], kdec.sm_count(p32["tensors"][1].device)
     rows = kdec.tiled_launch(n, sms)[0]
     return {
         "kernel_select": kdec.tiled_warps_per_sm(p32, rows),
         "kernel_select_bf16": kdec.mma_warps_per_sm(p16["dims"][2]),
-        "kernel_ilp": q("decode_select", sel, 2, p32),
+        "kernel_ilp": kdec.tiled_ilp_warps_per_sm(p32, kdec.tiled_ilp_launch(n, sms)[0]),
         "kernel_ilp_bf16": kdec.mma_ilp_warps_per_sm(p16["dims"][2],
                                                      kdec.mma_ilp_launch(n, sms)[0]),
         **{f"kernel_{a}": kab.tiled_warps_per_sm(p32, a, rows) for a in kab.ACTS},

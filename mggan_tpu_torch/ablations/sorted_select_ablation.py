@@ -10,8 +10,9 @@ layout is built from:
   layout avoids);
 * ``row_gather68``: the gather of the 68-float rows ``[h0 | social | xy |
   dxdy]`` into the buffer's order;
-* ``kernel_only``: B2, K4's kernel alone on rows already grouped, with
-  ``tile_gen = arange(tiles) * G // tiles`` as the JAX script sets it;
+* ``kernel_only``: B2, K4's kernel (the tiled one) alone on rows already
+  grouped, with ``tile_gen = arange(tiles) * G // tiles`` as the JAX script
+  sets it;
 * ``kernel_only_bf16``: K4-bf16's tensor-core kernel alone on the same
   grouped rows (the bf16 route less its layout and gathers);
 * ``out_gather``: the gather of the 48-float outputs back to row order;
@@ -33,7 +34,6 @@ import torch
 
 from mggan_tpu_torch.ablations import G, H, N, T, F, cuda_time_ms, make_inputs
 from mggan_tpu_torch.device import resolve_device
-from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
@@ -92,14 +92,13 @@ def parts(inputs):
 
 
 def resident_warps(inputs):
-    """Resident warps per SM of K4's f32 kernel and of K4-bf16 at these
-    shapes, with their shared memory a block."""
+    """Resident warps per SM of K4's f32 kernel (the tiled one, at the
+    route's launch variant) and of K4-bf16 at these shapes, with their
+    shared memory a block."""
     p32 = grouped_tiles(inputs)[3]
     p16 = grouped_tiles(inputs, compute_dtype=torch.bfloat16)[3]
-    return {"kernel_only": build.warps_per_sm("decode_sorted", "mggan_decode_sorted_warps_per_sm",
-                                              0, p32["smem_bytes"]),
-            "route_bf16": ks.mma_warps_per_sm(p16), "smem_bytes": p32["smem_bytes"],
-            "smem_bytes_bf16": p16["mma_smem_bytes"]}
+    return {"kernel_only": ks.tiled_warps_per_sm(p32), "route_bf16": ks.mma_warps_per_sm(p16),
+            "smem_bytes": p32["smem_bytes"], "smem_bytes_bf16": p16["mma_smem_bytes"]}
 
 
 def run(inputs, reps: int = 5):

@@ -1,7 +1,8 @@
 // Fused-selection decoder rollout (K1), warp per row, for Hopper (sm_90a):
 // the first design of K1, kept as the yardstick of the tiled K1
 // (decode_select_tiled.cu, which the f32 route of decode_select launches)
-// and as the rollout K5 and B1 are checked against bit for bit.
+// and as the rollout K5 and B1 are checked against bit for bit; and the
+// first design of K5, kept as the tiled K5's yardstick.
 //
 // Replaces mggan_tpu/ops/pallas/decoder.py::_fwd_select_kernel (wrapped by
 // pallas_decode_select). For each row n with sampled generator g = idx[n] it
@@ -53,13 +54,17 @@
 // the reference of the kept warp-per-row K5-bf16 (which equals it bit for
 // bit).
 //
-// K5 (mggan_decode_select_ilp) replaces _fwd_select_kernel_ilp
-// (pallas_decode_select(ilp=True)): the same function, with one warp
-// advancing two rows at once (decoder_rollout.cuh::rollout_row2), so each
-// step's shuffles, shared-memory loads and FMAs of one row fill the other's
-// latency. Each row keeps K1's operations in K1's order, so the output is
-// bit-identical to K1's; with an odd N the last pair has one row. If K5 is
-// faster than K1, K1 is bound by latency rather than by an issue pipe.
+// The first design of K5 (mggan_decode_select_ilp_warp), which replaced
+// _fwd_select_kernel_ilp (pallas_decode_select(ilp=True)): the same
+// function, with one warp advancing two rows at once
+// (decoder_rollout.cuh::rollout_row2), so each step's shuffles,
+// shared-memory loads and FMAs of one row fill the other's latency. Each
+// row keeps K1's operations in K1's order, so the output is bit-identical
+// to K1's; with an odd N the last pair has one row. It took 8% less time
+// than the warp-per-row K1 (PERF.md): that K1 was bound by its
+// shared-memory loads and instruction issue more than by latency. It stays
+// as the yardstick of the tiled K5 (decode_select_tiled.cu, two groups of
+// rows of one generator a warp); no path launches it.
 // mggan_decode_select_ilp_bf16_warp is the same on the bf16 image: the
 // first design of K5-bf16, kept as the yardstick of the tensor-core K5-bf16
 // (decode_select_mma.cu); no path launches it.
@@ -205,17 +210,17 @@ extern "C" {
 
 // Launch the rollout on `stream`: the warp-per-row K1 with the f32 weight
 // image (mggan_decode_select_warp) or the bf16 one
-// (mggan_decode_select_bf16_warp), and K5, a warp per pair of rows, with
-// either (mggan_decode_select_ilp, _ilp_bf16_warp).
+// (mggan_decode_select_bf16_warp), and the warp-per-pair K5 with either
+// (mggan_decode_select_ilp_warp, _ilp_bf16_warp).
 // Return cudaGetLastError() after the launch (0 on success); the caller
 // checks shapes and sizes beforehand.
 MGGAN_SELECT_ENTRY(mggan_decode_select_warp, float, false)
 MGGAN_SELECT_ENTRY(mggan_decode_select_bf16_warp, __nv_bfloat16, false)
-MGGAN_SELECT_ENTRY(mggan_decode_select_ilp, float, true)
+MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_warp, float, true)
 MGGAN_SELECT_ENTRY(mggan_decode_select_ilp_bf16_warp, __nv_bfloat16, true)
 
 // Resident warps per SM of variant 0 (the warp-per-row K1), 1 (the
-// warp-per-row bf16 K1), 2 (K5), 3 (the warp-per-row K5-bf16)
+// warp-per-row bf16 K1), 2 (the warp-per-pair K5), 3 (the warp-per-row K5-bf16)
 // with `smem` bytes of weights a block; returns a CUDA error code.
 int mggan_decode_select_warps_per_sm(int variant, long long smem, int* warps) {
   switch (variant) {

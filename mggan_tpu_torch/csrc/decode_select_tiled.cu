@@ -44,10 +44,53 @@
 // hiding the activations' latency only in part. On an H100 80GB HBM3 at
 // 700 W it takes 7.3 ms at 1,310,720 rows, 3.2x the fp32-FMA bound, which
 // counts only the products (PERF.md).
+//
+// K5 (mggan_decode_select_ilp) replaces _fwd_select_kernel_ilp
+// (pallas_decode_select(ilp=True)): the same function, with each warp
+// advancing two groups of R rows of one generator at once
+// (select_tiled.cuh::decode_select_ilp_tiled_kernel,
+// rollout_tile.cuh::rollout_tiles<2>),
+// each stage issued for one group, then the other. Buckets are padded to
+// 2R rows, so a bucket is whole pairs; a lone group runs paired with a
+// group of padding rows. Each row keeps rollout_row's operations in their
+// order, so K5 equals the tiled and the warp-per-row K1 bit for bit. Two
+// groups hold twice a warp's state: at R = 4, 182 registers without spills
+// (8 warps an SM) or 128 with 72 bytes spilled (16 warps; 1.3x faster at
+// 1,310,720 rows on an H100), so the kernel takes two blocks an SM, as K1.
+// R (2 or 4) and the tile's rows come from decoder.py::tiled_ilp_launch
+// (chip_smoke.py --sweep). If K5 were faster than K1, the tiled K1 would
+// leave latency that a second group hides (PERF.md: it is not). The
+// first design of K5, a warp per pair of rows, stays in decode_select.cu
+// as its yardstick (mggan_decode_select_ilp_warp).
 
 #include "select_tiled.cuh"
 
 using namespace mggan;
+
+namespace {
+
+using IlpKernel = decltype(&decode_select_ilp_tiled_kernel<2, 0, 0>);
+
+// K5's instantiation for two groups of rows_per_warp (2 or 4) rows a warp:
+// the flagship's H = 32, hid = 16 fixed at compile time, other widths the
+// generic one; null for another R.
+inline IlpKernel ilp_kernel(int rows_per_warp, int h, int hid) {
+  const bool flagship = h == 32 && hid == 16;
+  switch (rows_per_warp) {
+    case 2: return flagship ? decode_select_ilp_tiled_kernel<2, 32, 16>
+                            : decode_select_ilp_tiled_kernel<2, 0, 0>;
+    case 4: return flagship ? decode_select_ilp_tiled_kernel<4, 32, 16>
+                            : decode_select_ilp_tiled_kernel<4, 0, 0>;
+    default: return nullptr;
+  }
+}
+
+inline size_t ilp_smem(int rows_per_warp, int num_gens, int per_gen, int h, int t) {
+  return rows_per_warp == 2 ? ilp_smem_bytes<2>(num_gens, per_gen, h, t)
+                            : ilp_smem_bytes<4>(num_gens, per_gen, h, t);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -73,6 +116,41 @@ int mggan_decode_select_tiled_warps_per_sm(int rows_per_warp, int num_gens, int 
                                            int h_dim, int hid_dim, int pred_len, int* warps) {
   return select_tiled_warps_per_sm<ActExact>(rows_per_warp, num_gens, per_gen, h_dim, hid_dim,
                                              pred_len, warps);
+}
+
+// K5 on `stream`: as mggan_decode_select, with two groups of rows_per_warp
+// (2 or 4) rows a warp. Returns cudaGetLastError() after the launch (0 on
+// success); the caller picks the launch (decoder.py::tiled_ilp_launch).
+int mggan_decode_select_ilp(const void* wpack, const void* h0, const void* socb,
+                            const void* xy0, const void* dxdy0, const void* idx, void* out_abs,
+                            void* out_rel, long long n_rows, long long m_rows, int num_gens,
+                            int h_dim, int hid_dim, int in_dim, int pred_len, int fmt,
+                            int per_gen, int rows_per_warp, int tile_rows, int blocks,
+                            void* stream) {
+  const IlpKernel kernel = ilp_kernel(rows_per_warp, h_dim, hid_dim);
+  if (kernel == nullptr || num_gens > 32 || tile_rows < 1 || tile_rows > kTiledMaxTile ||
+      blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ilp_smem(rows_per_warp, num_gens, per_gen, h_dim, pred_len);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kTiledThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)wpack, (const float*)h0, (const float*)socb, (const float*)xy0,
+      (const float*)dxdy0, (const int32_t*)idx, (float*)out_abs, (float*)out_rel,
+      (int64_t)n_rows, (int64_t)m_rows, num_gens, h_dim, hid_dim, in_dim, pred_len, fmt,
+      per_gen, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+// Resident warps per SM of K5 for two groups of rows_per_warp rows a warp
+// at these widths; returns a CUDA error code.
+int mggan_decode_select_ilp_warps_per_sm(int rows_per_warp, int num_gens, int per_gen,
+                                         int h_dim, int hid_dim, int pred_len, int* warps) {
+  const IlpKernel kernel = ilp_kernel(rows_per_warp, h_dim, hid_dim);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)resident_warps(kernel, kTiledThreads,
+                             ilp_smem(rows_per_warp, num_gens, per_gen, h_dim, pred_len),
+                             warps);
 }
 
 const char* mggan_cuda_error_string(int code) {

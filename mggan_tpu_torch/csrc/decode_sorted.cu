@@ -1,6 +1,8 @@
 // Sorted-selection decoder rollout (K4) for Hopper (sm_90a), warp per row:
-// the f32 K4 and B2, and the first design of K4-bf16, kept as the yardstick
-// of the tensor-core K4-bf16 (decode_sorted_mma.cu; no path launches it).
+// the first designs of the f32 K4 (and B2, its kernel alone) and of
+// K4-bf16, kept as the yardsticks of the tiled K4 (decode_sorted_tiled.cu)
+// and the tensor-core K4-bf16 (decode_sorted_mma.cu); no path launches
+// them.
 //
 // Replaces mggan_tpu/ops/pallas/decoder.py::_fwd_sorted_kernel (wrapped by
 // pallas_decode_select_sorted; launched alone by
@@ -26,12 +28,10 @@
 // K1's 2 x 80 KB. The tile is the CUDA block's rows, not the TPU's 1024:
 // padding costs at most G tiles of rows.
 //
-// What bounds it on the H100: as K1 (operations: the same FMAs per row,
-// 67 TFLOP/s fp32), plus each block's staging of ~22 KB from L2. A warp
-// still runs one row, so each weight load serves one row: K4 answers
-// whether the shared-memory footprint and occupancy limit K1, not yet what
-// sharing loads across rows of one generator would give (several rows per
-// warp, or mma on such groups, is the next step).
+// What bounds it on the H100: as the warp-per-row K1 (the shared-memory
+// pipe and instruction issue: each weight load serves one row), plus each
+// block's staging of ~22 KB from L2. The tiled K4 rolls out R rows of the
+// tile's generator a warp instead, on the tiled K1's rollout.
 
 #include "decoder_rollout.cuh"
 
@@ -121,14 +121,14 @@ extern "C" {
 // Rows per tile (one block each).
 int mggan_decode_sorted_tile() { return kTile; }
 
-// K4 on `stream` over n_buf / kTile tiles, with the f32 weight image
-// (mggan_decode_sorted) or the bf16 one (mggan_decode_sorted_bf16_warp, the
-// yardstick). Returns cudaGetLastError() after the launch; the caller
-// checks the arguments.
-int mggan_decode_sorted(const void* wpack, const void* w1s, const void* b1,
-                        const void* tile_gen, const void* rows, void* out, long long n_buf,
-                        int num_gens, int feat, int h_dim, int hid_dim, int in_dim,
-                        int pred_len, int fmt, int per_gen, void* stream) {
+// The warp-per-row K4 on `stream` over n_buf / kTile tiles, with the f32
+// weight image (mggan_decode_sorted_warp) or the bf16 one
+// (mggan_decode_sorted_bf16_warp): the yardsticks. Returns
+// cudaGetLastError() after the launch; the caller checks the arguments.
+int mggan_decode_sorted_warp(const void* wpack, const void* w1s, const void* b1,
+                             const void* tile_gen, const void* rows, void* out, long long n_buf,
+                             int num_gens, int feat, int h_dim, int hid_dim, int in_dim,
+                             int pred_len, int fmt, int per_gen, void* stream) {
   return launch<float>(wpack, w1s, b1, tile_gen, rows, out, n_buf, num_gens, feat, h_dim,
                        hid_dim, in_dim, pred_len, fmt, per_gen, stream);
 }

@@ -1,6 +1,8 @@
 // One warp's rollout of R rows of one generator, f32 on the CUDA cores:
 // the row loop of the tiled K1 (select_tiled.cuh, decode_select_tiled.cu),
-// the tiled K2 (decode_all.cu) and the tiled B1 (decode_ablation.cu).
+// the tiled K2 (decode_all.cu), the tiled B1 (decode_ablation.cu) and the
+// tiled K4 (decode_sorted_tiled.cu); K5 (decode_select_tiled.cu) advances
+// two such groups a warp.
 //
 // Lane j owns hidden unit j (lane q hidden2pos unit q) for all R rows, so
 // every weight a lane reads from shared memory (a 16-byte [k][j][gate]
@@ -248,6 +250,204 @@ __device__ __forceinline__ void rollout_tile(const float* __restrict__ W, const 
       reinterpret_cast<float2*>(out_abs)[out_row[r] * T + lane] = make_float2(v.x, v.y);
       reinterpret_cast<float2*>(out_rel)[out_row[r] * T + lane] = make_float2(v.z, v.w);
     }
+  }
+  __syncwarp();  // the staging is free for the warp's next rows
+}
+
+// Rolls out kG groups of R rows of the generator whose f32 weight block is
+// W (shared memory), the recurrence of rollout_row: row r of group s from
+// h = h0[s][r] (this lane's unit), c = 0, position (x0, y0) and offset
+// (dx0, dy0), with socb sb[s][r] (this lane's hidden2pos unit). Its abs and
+// rel go to row out_row[s][r] of out_abs / out_rel ((rows, T, 2) each)
+// and, with hc, each step's h and c to row out_row[s][r] of hc ((rows, T,
+// 2, H)); out_row[s][r] < 0 marks a padding row, which computes on whatever
+// it was given and stores nothing. kH, kHid > 0 fix H and hid at compile
+// time (0: from L). `stage` is the warp's kG tile_stage_floats(R, H, T)
+// floats of shared memory, group s's at s tile_stage_floats(R, H, T). Act
+// supplies the gate activations sig and tnh (ActExact, K1's and K2's:
+// sigmoid and tanhf; B1 in decode_ablation.cu takes the others), applied as
+// rollout_row<float, Act> applies them.
+//
+// Each step issues every stage for group 0, then for group 1, ...: the
+// gates and activations, the sweep over the new h (hidden2pos and the next
+// step's recurrent gates), the nd sums. Groups share nothing but the
+// weights, so with kG = 2 (K5, select_tiled.cuh) one group's work can fill
+// the other's latency, and each row's operations stay rollout_tile's in
+// their order. rollout_tile stays a template of its own: written as
+// rollout_tiles<1>, the same operations compiled to other registers for
+// the tiled K1, K2 and B1 (123 instead of 118 for K1 at R = 4).
+//
+// With hid = 16 fixed and R even, hidden2pos is split over the half-warps:
+// lane l takes unit l % 16 of rows (l / 16) R/2 ... (l / 16) R/2 + R/2 - 1
+// of each group, so no lane idles through W1h and each half-warp's
+// butterfly sums one row at once. rollout_row's butterfly over 32 lanes
+// first adds the zeros of lanes >= hid (x + 0, which turns -0 into +0),
+// then sums within 16 lanes: the split adds that zero and runs the same
+// four levels, so every row's sum is the same sum.
+template <int kG, int R, int kH, int kHid, typename Act = ActExact>
+__device__ __forceinline__ void rollout_tiles(const float* __restrict__ W, const Layout& Lrt,
+                                              int lane, float* __restrict__ stage,
+                                              const float (&h0)[kG][R],
+                                              const float (&x0)[kG][R],
+                                              const float (&y0)[kG][R],
+                                              const float (&dx0)[kG][R],
+                                              const float (&dy0)[kG][R],
+                                              const float (&sb)[kG][R],
+                                              const int64_t (&out_row)[kG][R],
+                                              float* __restrict__ out_abs,
+                                              float* __restrict__ out_rel,
+                                              float* __restrict__ hc) {
+  constexpr bool kSplit = kHid == 16 && R % 2 == 0;
+  constexpr int P = kSplit ? R / 2 : R;  // hidden2pos rows of a lane
+  const int H = kH > 0 ? kH : Lrt.h, hid = kHid > 0 ? kHid : Lrt.hid, T = Lrt.pred_len;
+  const Layout L(H, hid, Lrt.in, T, Lrt.fmt);
+  const int hp = tile_h_stride(H);
+  const bool own = lane < H;
+  const int wcol = kSplit ? lane & 15 : lane;  // the lane's hidden2pos unit
+  const bool wown = kSplit || lane < hid;
+  const int prow0 = kSplit ? (lane >> 4) * P : 0;  // its first hidden2pos row
+  const Weights<float> w = weights_at<float>(W, L);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 bias = own ? w.b[lane] : zero4;
+  const float w2x = wown ? w.w2[wcol * 2] : 0.f;
+  const float w2y = wown ? w.w2[wcol * 2 + 1] : 0.f;
+  const float b2x = w.b2[0], b2y = w.b2[1];
+  float* hs[kG];   // [r][hp] of each group
+  float4* os[kG];  // [r][t] of each group
+#pragma unroll
+  for (int s = 0; s < kG; ++s) {
+    hs[s] = stage + s * tile_stage_floats(R, H, T);
+    os[s] = reinterpret_cast<float4*>(hs[s] + R * hp);
+  }
+
+  float c[kG][R], x[kG][R], y[kG][R], dx[kG][R], dy[kG][R], a[kG][R], sbp[kG][R];
+  float4 rec[kG][R];
+#pragma unroll
+  for (int s = 0; s < kG; ++s)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c[s][r] = 0.f;
+      x[s][r] = x0[s][r]; y[s][r] = y0[s][r]; dx[s][r] = dx0[s][r]; dy[s][r] = dy0[s][r];
+      rec[s][r] = zero4;
+      a[s][r] = 0.f;
+      sbp[s][r] = sb[s][r];
+      if (own) hs[s][r * hp + lane] = h0[s][r];
+    }
+  if constexpr (kSplit) {  // socb of the lane's hidden2pos rows, from the lanes that hold it
+#pragma unroll
+    for (int s = 0; s < kG; ++s)
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float lo = __shfl_sync(kFull, sb[s][j], wcol);
+        const float hi = __shfl_sync(kFull, sb[s][P + j], wcol);
+        sbp[s][j] = lane >> 4 ? hi : lo;
+      }
+  }
+  __syncwarp();
+  // recurrent part of the first step's gates: h0 @ Whh
+#pragma unroll
+  for (int s = 0; s < kG; ++s)
+    tile_sweep<R, true, 0>(hs[s], hp, w.whh, w.w1, H, hid, lane, own, wcol, wown, prow0, rec[s],
+                           a[s]);
+
+  for (int t = 0; t < T; ++t) {
+    float h[kG][R];
+#pragma unroll
+    for (int s = 0; s < kG; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float4 acc = rec[s][r];
+        acc.x += bias.x; acc.y += bias.y; acc.z += bias.z; acc.w += bias.w;
+        h[s][r] = 0.f;
+        if (own) {
+          add_input<float>(acc, w.wemb, L, lane, x[s][r], y[s][r], dx[s][r], dy[s][r]);
+          c[s][r] = Act::cell(Act::sig(acc.y), c[s][r], Act::sig(acc.x), Act::tnh(acc.z));
+          h[s][r] = Act::sig(acc.w) * Act::tnh(c[s][r]);
+          if (hc != nullptr && out_row[s][r] >= 0) {
+            float* at = hc + (out_row[s][r] * T + t) * 2 * H;
+            at[lane] = h[s][r];
+            at[H + lane] = c[s][r];
+          }
+        }
+      }
+    __syncwarp();  // every lane has read the previous h
+#pragma unroll
+    for (int s = 0; s < kG; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (own) hs[s][r * hp + lane] = h[s][r];
+    __syncwarp();
+
+    // one sweep over the new h: hidden2pos now, recurrent gates for t + 1
+#pragma unroll
+    for (int s = 0; s < kG; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        a[s][r] = sbp[s][r];
+        rec[s][r] = zero4;
+      }
+#pragma unroll
+    for (int s = 0; s < kG; ++s) {
+      if (t + 1 < T)
+        tile_sweep<R, true, P>(hs[s], hp, w.whh, w.w1, H, hid, lane, own, wcol, wown, prow0,
+                               rec[s], a[s]);
+      else
+        tile_sweep<R, false, P>(hs[s], hp, w.whh, w.w1, H, hid, lane, own, wcol, wown, prow0,
+                                rec[s], a[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < kG; ++s) {
+      if constexpr (kSplit) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const float ar = a[s][j] > 0.f ? a[s][j] : 0.01f * a[s][j];
+          float px = __fadd_rn(ar * w2x, 0.f);  // the first level: + the zero of lane l + 16
+          float py = __fadd_rn(ar * w2y, 0.f);
+          for (int k = 8; k > 0; k >>= 1) {
+            px += __shfl_xor_sync(kFull, px, k);
+            py += __shfl_xor_sync(kFull, py, k);
+          }
+          dx[s][j] = __shfl_sync(kFull, px, 0) + b2x;
+          dy[s][j] = __shfl_sync(kFull, py, 0) + b2y;
+          dx[s][P + j] = __shfl_sync(kFull, px, 16) + b2x;
+          dy[s][P + j] = __shfl_sync(kFull, py, 16) + b2y;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float ar = a[s][r] > 0.f ? a[s][r] : 0.01f * a[s][r];
+          float px = wown ? ar * w2x : 0.f;
+          float py = wown ? ar * w2y : 0.f;
+          for (int k = 16; k > 0; k >>= 1) {
+            px += __shfl_xor_sync(kFull, px, k);
+            py += __shfl_xor_sync(kFull, py, k);
+          }
+          dx[s][r] = px + b2x;
+          dy[s][r] = py + b2y;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kG; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        x[s][r] += dx[s][r];
+        y[s][r] += dy[s][r];
+        if (lane == 0) os[s][r * T + t] = make_float4(x[s][r], y[s][r], dx[s][r], dy[s][r]);
+      }
+  }
+  __syncwarp();
+  // lane t stores step t of every row: one coalesced store per row and output
+  if (lane < T) {
+#pragma unroll
+    for (int s = 0; s < kG; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (out_row[s][r] < 0) continue;
+        const float4 v = os[s][r * T + lane];
+        reinterpret_cast<float2*>(out_abs)[out_row[s][r] * T + lane] = make_float2(v.x, v.y);
+        reinterpret_cast<float2*>(out_rel)[out_row[s][r] * T + lane] = make_float2(v.z, v.w);
+      }
   }
   __syncwarp();  // the staging is free for the warp's next rows
 }

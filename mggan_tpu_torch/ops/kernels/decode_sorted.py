@@ -24,7 +24,16 @@ The index maths and the gathers were plain XLA around the Pallas kernel in
 JAX, and stay plain tensor ops here. The tile is the CUDA block's rows
 (``TILE``), not the TPU's 1024, on both devices.
 
-The f32 kernel (and B2) is ``csrc/decode_sorted.cu``, a warp per row.
+The f32 kernel (and B2) is ``csrc/decode_sorted_tiled.cu``: a block per
+tile stages the tile's generator, computes the tile's socb, and each warp
+rolls out groups of ``TILED_GROUP`` rows of the tile with the tiled K1's
+rollout (``csrc/rollout_tile.cuh``), 8 or 4 warps a block
+(``tiled_variant``), bit-identical to the warp-per-row kernel it
+replaced. That kernel stays in ``csrc/decode_sorted.cu`` for comparison
+on the card (``launch_sorted_tiles_warp`` and the route
+``decode_select_sorted_warp``, counted as ``decode_sorted_warp``); no path
+launches it.
+
 ``compute_dtype=torch.bfloat16`` is K4-bf16, with K1's bf16 numerics
 (``decoder.py``'s module note): ``csrc/decode_sorted_mma.cu``, K1-bf16's
 tensor-core rollout on the tile's 8 groups of 16 rows, weights as the
@@ -50,13 +59,19 @@ from mggan_tpu_torch.ops import kernels
 from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
-SOURCE = "decode_sorted"  # csrc/decode_sorted.cu: K4, B2, the warp-per-row K4-bf16
+SOURCE = "decode_sorted"  # csrc/decode_sorted.cu: the warp-per-row K4 and K4-bf16
+TILED_SOURCE = "decode_sorted_tiled"  # csrc/decode_sorted_tiled.cu: K4, B2
 MMA_SOURCE = "decode_sorted_mma"  # csrc/decode_sorted_mma.cu: K4-bf16
 KERNEL = "decode_sorted"  # K4, through the route
+KERNEL_WARP = "decode_sorted_warp"  # the warp-per-row K4, for comparison
 KERNEL_BF16 = "decode_sorted_bf16"  # K4-bf16, through the route or alone
 KERNEL_BF16_WARP = "decode_sorted_bf16_warp"  # the warp-per-row K4-bf16, for comparison
 KERNEL_TILES = "sorted_tiles"  # B2: the f32 kernel launched alone on grouped rows
-TILE = 128  # rows per CUDA block (kTile in csrc/decode_sorted.cu and decode_sorted_mma.cu)
+TILE = 128  # rows per CUDA block (kTile in csrc/decode_sorted*.cu)
+# K4's groups of rows a warp, and its launch variants: warps a block (16 or
+# 20 warps an SM); ``tiled_variant`` picks one.
+TILED_GROUP = 4
+TILED_WARPS = (8, 4)
 # K4-bf16's launch variants: warps a block (16 warps an SM in each), and the
 # one the route takes, from the launch sweep of chip_smoke.py --sweep on an
 # H100.
@@ -148,35 +163,47 @@ def sorted_tiles_reference(tile_gen, tile: int, packed, rows, h_dim: int, feat: 
 
 
 @functools.cache
-def _lib(stem: str = SOURCE):
-    """The library of ``csrc/<stem>.cu`` (the warp-per-row kernels or
-    K4-bf16's), its entry points typed and its tile checked."""
+def _lib(stem: str = TILED_SOURCE):
+    """The library of ``csrc/<stem>.cu`` (K4's, the warp-per-row kernels or
+    K4-bf16's), its entry points typed and its tile checked (and the tiled
+    K4's group and launch variants)."""
     lib = build.load(stem)
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    mma = stem == MMA_SOURCE
-    prefix = "mggan_decode_sorted_mma" if mma else "mggan_decode_sorted"
-    entries = ((lib.mggan_decode_sorted_bf16,) if mma
-               else (lib.mggan_decode_sorted, lib.mggan_decode_sorted_bf16_warp))
-    for fn in entries:
-        fn.argtypes = [ptr] * 6 + [ll] + [i32] * 8 + [ptr]
+    prefix, entries, smem_args = {
+        TILED_SOURCE: ("mggan_decode_sorted_tiled", ("mggan_decode_sorted",), 6),
+        SOURCE: ("mggan_decode_sorted", ("mggan_decode_sorted_warp",
+                                         "mggan_decode_sorted_bf16_warp"), 3),
+        MMA_SOURCE: ("mggan_decode_sorted_mma", ("mggan_decode_sorted_bf16",), 2),
+    }[stem]
+    ints = 9 if stem == TILED_SOURCE else 8  # the tiled K4: per_gen, then the launch variant
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 6 + [ll] + [i32] * ints + [ptr]
         fn.restype = i32
     tile, smem = getattr(lib, f"{prefix}_tile"), getattr(lib, f"{prefix}_smem")
     tile.restype = i32
-    smem.argtypes = [i32] * (2 if mma else 3)
+    smem.argtypes = [i32] * smem_args
     smem.restype = ll
     lib.mggan_cuda_error_string.argtypes = [i32]
     lib.mggan_cuda_error_string.restype = ctypes.c_char_p
     if tile() != TILE:
         raise RuntimeError(f"csrc/{stem}.cu tiles {tile()} rows, decode_sorted.py {TILE}")
+    if stem == TILED_SOURCE:
+        warps = [lib.mggan_decode_sorted_tiled_warps(v) for v in range(len(TILED_WARPS))]
+        if lib.mggan_decode_sorted_tiled_rows() != TILED_GROUP or tuple(warps) != TILED_WARPS:
+            raise RuntimeError(f"csrc/{stem}.cu's groups and launch variants are not "
+                               f"{TILED_GROUP} rows and {TILED_WARPS} warps")
     return lib
 
 
 def prepare_sorted_tiles(packed, rows, tile_gen, h_dim: int, feat: int, pred_len: int,
                          inp_format: str, compute_dtype=None):
     """The weight image (f32 or bf16), ``W1s``, ``b1`` and the checked row
-    buffer and tile generators the kernel takes (``launch_sorted_tiles``);
-    in bf16 also K4-bf16's fragment image (``decoder.mma_weights``) and
-    its shared memory a block."""
+    buffer and tile generators the kernel takes (``launch_sorted_tiles``),
+    with the shared memory a block of the route's launch (in f32, the tiled
+    K4's at ``tiled_variant``'s pick, ``variant``) and of the warp-per-row
+    kernel; in bf16 also K4-bf16's fragment image
+    (``decoder.mma_weights``)."""
     bf16 = kdec.is_bf16(compute_dtype)
     wflat, per_gen = kdec.kernel_weights(packed, compute_dtype)
     g, in_dim, four_h = packed["w_emb"].shape
@@ -198,34 +225,72 @@ def prepare_sorted_tiles(packed, rows, tile_gen, h_dim: int, feat: int, pred_len
     kdec.check_arg("b1", b1, (g, hid), f32, dev)
     kdec.check_arg("tile_gen", tile_gen, (n_buf // TILE,), torch.int32, dev)
     kdec.check_arg("rows", rows, (n_buf, h_dim + feat + 4), f32, dev)
-    smem = _lib().mggan_decode_sorted_smem(feat, hid, per_gen)
+    smem = _lib(SOURCE).mggan_decode_sorted_smem(feat, hid, per_gen)
     if smem > kdec.MAX_SHARED_BYTES:
         raise ValueError(f"one generator's weights ({smem} B) exceed one block's shared memory")
     args = {"tensors": (wflat, w1s, b1, tile_gen, rows),
             "dims": (n_buf, g, feat, h_dim, hid, in_dim, pred_len, kdec.FORMATS[inp_format],
                      per_gen),
-            "bf16": bf16, "smem_bytes": smem}
+            "bf16": bf16, "warp_smem_bytes": smem}
     if bf16:  # K4-bf16 stages its generator's fragment image, W1s, b1 and the tile's socb
         args["mma_wpack"] = kdec.mma_weights(packed).reshape(-1)
         args["mma_smem_bytes"] = _lib(MMA_SOURCE).mggan_decode_sorted_mma_smem(feat, hid)
         if args["mma_smem_bytes"] > kdec.MAX_SHARED_BYTES:
             raise ValueError(f"K4-bf16's block ({args['mma_smem_bytes']} B) exceeds one "
                              "block's shared memory")
+    else:  # the tiled K4 stages its generator, W1s, b1, the tile's socb and the warps' h
+        args["variant"] = tiled_variant(n_buf, kdec.sm_count(dev))
+        args["smem_bytes"] = tiled_smem(args)
+        if args["smem_bytes"] > kdec.MAX_SHARED_BYTES:
+            raise ValueError(f"K4's block ({args['smem_bytes']} B) exceeds one block's shared "
+                             "memory")
     return args
 
 
-def launch_sorted_tiles(args, count_as: str | None = None, variant: int = MMA_VARIANT):
+def tiled_variant(n_buf: int, sms: int) -> int:
+    """The tiled K4's launch variant (an index of ``TILED_WARPS``) for a
+    buffer of ``n_buf`` rows on ``sms`` SMs: 8 warps a block (each warp
+    takes 4 groups, so a tile is done sooner) while the tiles fit in one
+    wave of resident 8-warp blocks (2 an SM), else 4 (20 warps an SM, 5
+    blocks). From the launch sweep of ``chip_smoke.py --sweep`` on an H100:
+    8 warps 30-50% faster at 9,728 and 20,480 rows, 4 warps 8% faster at
+    81,920 and 1,310,720; groups of 1 or 2 rows were slower at all four."""
+    return 1 if n_buf // TILE > 2 * sms else 0
+
+
+def tiled_smem(args, variant: int | None = None) -> int:
+    """Shared memory a block of the tiled K4's launch variant ``variant``
+    (the arguments' by default) takes at these arguments' widths, in
+    bytes."""
+    _, _, feat, h, hid, _, t, _, per_gen = args["dims"]
+    variant = args["variant"] if variant is None else variant
+    return _lib().mggan_decode_sorted_tiled_smem(variant, feat, h, hid, t, per_gen)
+
+
+def launch_sorted_tiles(args, count_as: str | None = None, variant: int | None = None):
     """The K4 kernel on the current stream over every tile of the checked
-    buffer (``prepare_sorted_tiles``) -> ``(n_buf, 2, T, 2)``: the f32
-    kernel, counted under ``count_as`` (B2's name by default; the route
+    buffer (``prepare_sorted_tiles``) -> ``(n_buf, 2, T, 2)``: the tiled f32
+    kernel with ``TILED_WARPS[variant]`` warps a block (by default
+    ``tiled_variant``'s pick for the buffer), counted under ``count_as`` (B2's name by default; the route
     counts as K4), or K4-bf16 on bf16 arguments, counted as
-    ``decode_sorted_bf16`` with ``MMA_WARPS[variant]`` warps a block."""
+    ``decode_sorted_bf16`` with ``MMA_WARPS[variant]`` warps a block
+    (``MMA_VARIANT`` by default)."""
     if args["bf16"]:
         tensors = (args["mma_wpack"],) + args["tensors"][1:]
-        dims = args["dims"][:8] + (variant,)
+        dims = args["dims"][:8] + (MMA_VARIANT if variant is None else variant,)
         return _run(tensors, dims, _lib(MMA_SOURCE).mggan_decode_sorted_bf16, KERNEL_BF16)
-    return _run(args["tensors"], args["dims"], _lib().mggan_decode_sorted,
-                count_as or KERNEL_TILES)
+    dims = args["dims"] + (args["variant"] if variant is None else variant,)
+    return _run(args["tensors"], dims, _lib().mggan_decode_sorted, count_as or KERNEL_TILES)
+
+
+def launch_sorted_tiles_warp(args):
+    """The warp-per-row f32 K4 that the tiled design replaced, on f32
+    arguments from ``prepare_sorted_tiles``: the same function, bit for bit,
+    for comparing the two on the card (counted as ``decode_sorted_warp``)."""
+    if args["bf16"]:
+        raise ValueError("the warp-per-row f32 K4 takes f32 arguments")
+    return _run(args["tensors"], args["dims"], _lib(SOURCE).mggan_decode_sorted_warp,
+                KERNEL_WARP)
 
 
 def launch_sorted_tiles_bf16_warp(args):
@@ -234,28 +299,40 @@ def launch_sorted_tiles_bf16_warp(args):
     comparing the two on the card (counted as ``decode_sorted_bf16_warp``)."""
     if not args["bf16"]:
         raise ValueError("the warp-per-row K4-bf16 takes bf16 arguments")
-    return _run(args["tensors"], args["dims"], _lib().mggan_decode_sorted_bf16_warp,
+    return _run(args["tensors"], args["dims"], _lib(SOURCE).mggan_decode_sorted_bf16_warp,
                 KERNEL_BF16_WARP)
+
+
+def _warps(fn, *ints) -> int:
+    fn.argtypes = [ctypes.c_int] * len(ints) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    rc = fn(*ints, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {rc}")
+    return warps.value
+
+
+def tiled_warps_per_sm(args, variant: int | None = None) -> int:
+    """Resident warps per SM of the tiled K4's launch variant ``variant``
+    (the arguments' by default) at these f32 arguments' widths."""
+    _, _, feat, h, hid, _, t, _, per_gen = args["dims"]
+    variant = args["variant"] if variant is None else variant
+    return _warps(_lib().mggan_decode_sorted_tiled_warps_per_sm, variant, feat, h, hid, t,
+                  per_gen)
 
 
 def mma_warps_per_sm(args, variant: int = MMA_VARIANT) -> int:
     """Resident warps per SM of K4-bf16's launch variant ``variant`` at
     these bf16 arguments' widths."""
-    fn = _lib(MMA_SOURCE).mggan_decode_sorted_bf16_warps_per_sm
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
     feat, hid = args["dims"][2], args["dims"][4]
-    warps = ctypes.c_int(0)
-    rc = fn(variant, feat, hid, ctypes.byref(warps))
-    if rc:
-        raise RuntimeError(f"mggan_decode_sorted_bf16_warps_per_sm failed with CUDA error {rc}")
-    return warps.value
+    return _warps(_lib(MMA_SOURCE).mggan_decode_sorted_bf16_warps_per_sm, variant, feat, hid)
 
 
 def _run(tensors, dims, fn, count_as):
     n_buf, t = dims[0], dims[6]
     out = torch.empty((n_buf, 2, t, 2), dtype=torch.float32, device=tensors[0].device)
-    lib = _lib()
+    lib = _lib(SOURCE)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         rc = fn(*(x.data_ptr() for x in tensors), out.data_ptr(), *dims, stream)
@@ -323,3 +400,19 @@ def decode_select_sorted(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
         return launch_sorted_tiles(prepared, KERNEL)
 
     return _route(*args, tiles)
+
+
+def decode_select_sorted_warp(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
+                              pred_len: int, inp_format: str):
+    """The f32 route on the warp-per-row K4 that the tiled kernel replaced
+    (counted as ``decode_sorted_warp``): the same layout and gathers, for
+    comparing the two routes bit for bit on the card; no path calls it."""
+    kdec.refuse_autograd("decode_select_sorted_warp", stacked, last_xy, last_dxdy,
+                         social_feats, h0)
+
+    def tiles(packed, rows, tile_gen, h_dim, feat):
+        return launch_sorted_tiles_warp(prepare_sorted_tiles(packed, rows, tile_gen, h_dim, feat,
+                                                             pred_len, inp_format))
+
+    return _route(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx, pred_len, inp_format,
+                  None, tiles)

@@ -32,9 +32,13 @@ no path launches it.
 
 ``ilp=True`` is the TPU kernel's ILP variant K5 (``_fwd_select_kernel_ilp``),
 whose plain version is K1's. On f32 CUDA tensors it launches
-``mggan_decode_select_ilp`` of ``csrc/decode_select.cu`` (counted as
-``decode_select_ilp``), a warp per pair of rows, bit-identical to the
-warp-per-row K1. On bf16 ones it launches K5-bf16,
+``mggan_decode_select_ilp`` of ``csrc/decode_select_tiled.cu`` (counted as
+``decode_select_ilp``): the tiled K1's tiles and rollout with two groups of
+R rows of one generator a warp, bit-identical to the tiled and the
+warp-per-row K1, launched by ``tiled_ilp_launch``. The warp-per-pair K5 it
+replaced stays in ``csrc/decode_select.cu`` for comparison on the card
+(``launch_decode_select_ilp_warp``, counted as ``decode_select_ilp_warp``);
+no path launches it. On bf16 ones it launches K5-bf16,
 ``mggan_decode_select_ilp_bf16`` of ``csrc/decode_select_mma.cu`` (counted as
 ``decode_select_ilp_bf16``): K1-bf16's tiles and tensor-core rollout with two
 groups of 16 rows of one generator a warp, bit-identical to K1-bf16, launched
@@ -67,7 +71,7 @@ from mggan_tpu_torch.utils.pytree import tree_leaves
 KERNEL = "decode_select"  # K1 in f32: csrc/decode_select_tiled.cu
 TILED_SOURCE = "decode_select_tiled"
 KERNEL_WARP = "decode_select_warp"  # the warp-per-row f32 K1, for comparison
-WARP_SOURCE = "decode_select"  # csrc/decode_select.cu: the warp-per-row K1, K5
+WARP_SOURCE = "decode_select"  # csrc/decode_select.cu: the kept warp-per-row K1 and K5
 KERNEL_BF16 = "decode_select_bf16"
 KERNEL_BF16_WARP = "decode_select_bf16_warp"  # the warp-per-row bf16 kernel, for comparison
 MMA_SOURCE = "decode_select_mma"  # csrc/decode_select_mma.cu, K1-bf16
@@ -79,7 +83,12 @@ TILED_ROWS = (4, 2, 1)
 TILED_TILES = (1024, 512, 256, 128, 64, 32, 16, 8)
 TILED_WARPS = 8
 TILED_BLOCKS_PER_SM = 2
-KERNEL_ILP = "decode_select_ilp"  # K5
+KERNEL_ILP = "decode_select_ilp"  # K5: csrc/decode_select_tiled.cu
+KERNEL_ILP_WARP = "decode_select_ilp_warp"  # the warp-per-pair K5, for comparison
+# K5's launch (csrc/decode_select_tiled.cu, 2 blocks an SM): rows of each
+# of a warp's two groups, and rows of a tile, largest first.
+TILED_ILP_ROWS = (4, 2)
+TILED_ILP_TILES = TILED_TILES[:-1]
 KERNEL_ILP_BF16 = "decode_select_ilp_bf16"  # K5-bf16: csrc/decode_select_mma.cu
 KERNEL_ILP_BF16_WARP = "decode_select_ilp_bf16_warp"  # the warp-per-row K5-bf16
 # K5-bf16's launch (csrc/decode_select_mma.cu): each launch variant's
@@ -262,6 +271,21 @@ def tiled_launch(n: int, sms: int):
     resident = sms * TILED_BLOCKS_PER_SM
     rows = next((r for r in TILED_ROWS if n >= 4 * r * resident * TILED_WARPS), 1)
     tile = next((t for t in TILED_TILES if -(-n // t) >= 2 * resident), TILED_TILES[-1])
+    return rows, tile, max(1, min(-(-n // tile), resident))
+
+
+def tiled_ilp_launch(n: int, sms: int):
+    """K5's launch for ``n`` rows on ``sms`` SMs: ``(rows_per_warp,
+    tile_rows, blocks)``, two groups of R rows a warp. R = 4 where every
+    resident warp gets at least 16 pairs of groups of 4 rows, else 2; rows
+    of a tile: the largest of ``TILED_ILP_TILES`` that gives every resident
+    block at least 4 tiles, else the smallest; blocks: one per tile, at most
+    the resident ones (2 an SM). From the launch sweep of ``chip_smoke.py
+    --sweep`` on an H100: within 2% of the fastest launch at 9,728, 20,480,
+    81,920 and 1,310,720 rows."""
+    resident = sms * TILED_BLOCKS_PER_SM
+    rows = 4 if n >= 16 * 2 * 4 * resident * TILED_WARPS else 2
+    tile = next((t for t in TILED_ILP_TILES if -(-n // t) >= 4 * resident), TILED_ILP_TILES[-1])
     return rows, tile, max(1, min(-(-n // tile), resident))
 
 
@@ -454,13 +478,15 @@ def launch_decode_select(args, ilp: bool = False, shape=None):
     say; K5 with ``ilp``) on the current stream with checked arguments
     from ``prepare_decode_select``; returns ``(abs, rel)``. ``shape``
     replaces ``tiled_launch``'s pick for the tiled f32 K1,
-    ``(rows_per_warp, tile_rows, blocks)``, and ``mma_ilp_launch``'s for
-    K5-bf16, ``(variant, tile_rows)``: for comparing launch shapes on the
-    card."""
+    ``(rows_per_warp, tile_rows, blocks)``, ``tiled_ilp_launch``'s for
+    K5, likewise, and
+    ``mma_ilp_launch``'s for K5-bf16, ``(variant, tile_rows)``: for
+    comparing launch shapes on the card."""
     if ilp and args["bf16"]:
         return _launch(args, MMA_SOURCE, "mggan_decode_select_ilp_bf16", KERNEL_ILP_BF16, shape)
     if ilp:
-        return _launch(args, WARP_SOURCE, "mggan_decode_select_ilp", KERNEL_ILP)
+        return _launch(args, TILED_SOURCE, "mggan_decode_select_ilp", KERNEL_ILP, shape,
+                       rule=tiled_ilp_launch)
     if args["bf16"]:
         return _launch(args, MMA_SOURCE, "mggan_decode_select_bf16", KERNEL_BF16)
     return launch_tiled(args, TILED_SOURCE, "mggan_decode_select", KERNEL, shape)
@@ -474,7 +500,7 @@ def launch_tiled(args, stem, symbol, count_as, shape=None):
     ``count_as``; returns ``(abs, rel)``."""
     if args["bf16"]:
         raise ValueError("the tiled kernels take f32 arguments")
-    return _launch(args, stem, symbol, count_as, shape, tiled=True)
+    return _launch(args, stem, symbol, count_as, shape, rule=tiled_launch)
 
 
 def tiled_warps_per_sm(args, rows_per_warp: int) -> int:
@@ -489,6 +515,21 @@ def tiled_warps_per_sm(args, rows_per_warp: int) -> int:
     rc = fn(rows_per_warp, g, per_gen, h, hid, t, ctypes.byref(warps))
     if rc:
         raise RuntimeError(f"mggan_decode_select_tiled_warps_per_sm failed with CUDA error {rc}")
+    return warps.value
+
+
+def tiled_ilp_warps_per_sm(args, rows_per_warp: int) -> int:
+    """Resident warps per SM of K5 with two groups of ``rows_per_warp``
+    rows a warp at these f32 arguments' widths."""
+    lib = build.load(TILED_SOURCE)
+    fn = lib.mggan_decode_select_ilp_warps_per_sm
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _, _, g, h, hid, _, t, _, per_gen = args["dims"]
+    warps = ctypes.c_int(0)
+    rc = fn(rows_per_warp, g, per_gen, h, hid, t, ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"mggan_decode_select_ilp_warps_per_sm failed with CUDA error {rc}")
     return warps.value
 
 
@@ -526,6 +567,16 @@ def launch_decode_select_bf16_warp(args):
     return _launch(args, WARP_SOURCE, "mggan_decode_select_bf16_warp", KERNEL_BF16_WARP)
 
 
+def launch_decode_select_ilp_warp(args):
+    """The warp-per-pair K5 that the tiled design replaced, on f32 arguments
+    from ``prepare_decode_select``: the same function, equal to the
+    warp-per-row K1 bit for bit, for comparing the two designs on the card
+    (counted as ``decode_select_ilp_warp``)."""
+    if args["bf16"]:
+        raise ValueError("the warp-per-pair K5 takes f32 arguments")
+    return _launch(args, WARP_SOURCE, "mggan_decode_select_ilp_warp", KERNEL_ILP_WARP)
+
+
 def launch_decode_select_ilp_bf16_warp(args):
     """The warp-per-row K5-bf16 that the tensor-core design replaced, on
     bf16 arguments from ``prepare_decode_select``: the same function, equal
@@ -550,7 +601,7 @@ def mma_ilp_warps_per_sm(num_gens: int, variant: int) -> int:
     return warps.value
 
 
-def _launch(args, stem, symbol, count_as, shape=None, tiled=False):
+def _launch(args, stem, symbol, count_as, shape=None, rule=None):
     tensors, dims = args["tensors"], args["dims"]
     n, pred_len = dims[0], dims[6]
     dev = tensors[1].device
@@ -568,8 +619,8 @@ def _launch(args, stem, symbol, count_as, shape=None, tiled=False):
             dims = dims[:8] + (tile, variant)
         else:
             dims = dims[:8] + (mma_tile_rows(n, sms),)
-    elif tiled:  # rows a warp, rows a tile and blocks after per_gen
-        dims = dims + tuple(shape or tiled_launch(n, sm_count(dev)))
+    elif rule is not None:  # the tiled kernels: the launch after per_gen
+        dims = dims + tuple(shape or rule(n, sm_count(dev)))
     fn, err_str = _kernel_fn(stem, symbol, len(dims) - 2)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -167,10 +167,12 @@ def _select_case(n_agents, k, seed, feat=32):
 @pytest.mark.parametrize("k", [20, 7])  # 7 x 37 rows: odd, the last pair has one row
 def test_ilp_equals_k1_bit_for_bit(cuda, compute_dtype, k):
     """K5 keeps the warp-per-row K1's operations per row, so its output
-    has that kernel's bits; so does B1's f32 variant (K1's activations). In
-    bf16, K5-bf16 runs K1-bf16's tensor-core rollout two groups a warp and
-    has the tensor-core K1-bf16's bits, and the kept warp-per-row K5-bf16
-    the warp-per-row K1-bf16's."""
+    has that kernel's bits, and the tiled K1's, at each rows a group and
+    tile; so do the kept warp-per-pair K5
+    and B1's f32 variant (K1's activations). In bf16, K5-bf16 runs
+    K1-bf16's tensor-core rollout two groups a warp and has the tensor-core
+    K1-bf16's bits, and the kept warp-per-row K5-bf16 the warp-per-row
+    K1-bf16's."""
     stacked, rows, idx = _select_case(37, k, seed=5)
     on = [_on(x, cuda) for x in (stacked, *rows, idx)]
     before = dict(kernels.launches)
@@ -189,6 +191,20 @@ def test_ilp_equals_k1_bit_for_bit(cuda, compute_dtype, k):
         b1 = kab.decode_select_act(*on, T, "f32")
         for a, b in zip(k1, b1):
             assert torch.equal(a, b)
+        tiled, kept = kdec.launch_decode_select(prepared), kdec.launch_decode_select_ilp_warp(
+            prepared)
+        n, sms = idx.shape[0], kdec.sm_count(cuda)
+        variants = [kdec.launch_decode_select(prepared, ilp=True, shape=(
+            r, tile, max(1, min(-(-n // tile), sms * kdec.TILED_BLOCKS_PER_SM))))
+            for r in kdec.TILED_ILP_ROWS for tile in kdec.TILED_TILES]
+        torch.cuda.synchronize()
+        assert kernels.launches[kdec.KERNEL_ILP_WARP] == \
+            before.get(kdec.KERNEL_ILP_WARP, 0) + 1
+        for a, b, c in zip(k1, tiled, kept):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        for out in variants:
+            for a, b in zip(out, tiled):
+                assert torch.equal(a, b)
     else:
         kept = kdec.launch_decode_select_ilp_bf16_warp(prepared)
         k1_warp = kdec.launch_decode_select_bf16_warp(prepared)
@@ -254,7 +270,8 @@ def test_activation_variants_match_reference(cuda, act):
 def test_sorted_route_matches_reference(cuda, inp_format, feat, skew, compute_dtype):
     """K4's route on the card against its plain version on the CPU (the
     same layout), and against K1 on the same draws (in bf16 the tensor-core
-    K1-bf16: the same rollout, with socb summed in another order)."""
+    K1-bf16: the same rollout, with socb summed in another order); in f32
+    equal to the route on the kept warp-per-row K4 bit for bit."""
     gen = torch.Generator().manual_seed(7)
     stacked = common.stacked_decoders_init(gen, 4, 16, 32, inp_format, feat)
     rng = np.random.RandomState(7)
@@ -271,6 +288,12 @@ def test_sorted_route_matches_reference(cuda, inp_format, feat, skew, compute_dt
     assert kernels.launches[name] == before.get(name, 0) + 1
     want = ks.decode_select_sorted(stacked, *rows, idx, T, inp_format, compute_dtype)
     k1 = kdec.decode_select(*on, T, inp_format, compute_dtype=compute_dtype)
+    if not compute_dtype:  # the tiled K4 keeps the warp-per-row K4's bits
+        kept = ks.decode_select_sorted_warp(*on, T, inp_format)
+        torch.cuda.synchronize()
+        assert kernels.launches[ks.KERNEL_WARP] == before.get(ks.KERNEL_WARP, 0) + 1
+        for a, b in zip(got, kept):
+            assert torch.equal(a, b)
     atol = BF16_ATOL if compute_dtype else ATOL
     for a, b, c in zip(got, want, k1):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=atol)
@@ -314,6 +337,72 @@ def test_sorted_bf16_kernels_match_reference(cuda, inp_format, feat, h_dim):
         assert bool(torch.isnan(out[~ok]).all())
         np.testing.assert_allclose(out[ok].cpu().numpy(), want[ok].cpu().numpy(),
                                    atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp_format,feat,h_dim", [
+    ("rel", 32, 32), ("abs_rel", 32, 20), ("abs", 0, 32)])
+def test_sorted_kernels_match_reference(cuda, inp_format, feat, h_dim):
+    """The tiled K4 alone on a buffer of 6 tiles (every generator, a tile
+    with padding rows, a tile with no generator) at each launch variant,
+    equal to the kept warp-per-row K4 bit for bit, and both within ATOL of
+    the plain version (``sorted_tiles_reference``) on the generators'
+    tiles; the tile with no generator comes back NaN."""
+    gen = torch.Generator().manual_seed(18)
+    stacked = common.stacked_decoders_init(gen, 4, h_dim // 2, h_dim, inp_format, feat)
+    packed = _on(kdec.pack_decoder_params(stacked, inp_format), cuda)
+    rng = np.random.RandomState(18)
+    tiles = np.array([0, 1, 2, 2, 3, 7], dtype=np.int32)  # 7: no generator
+    rows = rng.randn(tiles.size * ks.TILE, h_dim + feat + 4).astype(np.float32)
+    rows[3 * ks.TILE + 50:4 * ks.TILE] = 0.0  # padding rows of generator 2's last tile
+    rows, tile_gen = torch.from_numpy(rows).to(cuda), torch.from_numpy(tiles).to(cuda)
+    args = ks.prepare_sorted_tiles(packed, rows, tile_gen, h_dim, feat, T, inp_format)
+    before = dict(kernels.launches)
+    got = [ks.launch_sorted_tiles(args, variant=v) for v in range(len(ks.TILED_WARPS))]
+    kept = ks.launch_sorted_tiles_warp(args)
+    torch.cuda.synchronize()
+    assert kernels.launches[ks.KERNEL_TILES] == \
+        before.get(ks.KERNEL_TILES, 0) + len(ks.TILED_WARPS)
+    assert kernels.launches[ks.KERNEL_WARP] == before.get(ks.KERNEL_WARP, 0) + 1
+    ok = torch.arange(rows.shape[0], device=cuda) < 5 * ks.TILE
+    want = ks.sorted_tiles_reference(tile_gen.clamp(0, 3), ks.TILE, packed, rows, h_dim, feat, T,
+                                     inp_format)
+    for out in got:
+        assert torch.equal(out[ok], kept[ok])
+    for out in got + [kept]:
+        assert bool(torch.isnan(out[~ok]).all())
+    np.testing.assert_allclose(kept[ok].cpu().numpy(), want[ok].cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,inp_format,h_dim", [
+    ("random", "rel", 32), ("random", "abs", 32), ("random", "abs_rel", 20),
+    ("ragged", "rel", 32), ("one row", "abs_rel", 32), ("all on generator 0", "rel", 32),
+    ("rows without a generator", "rel", 32), ("rows without a generator", "abs", 20)])
+def test_k5_equals_tiled_k1_bit_for_bit(cuda, case, inp_format, h_dim):
+    """K5 (two groups of R rows of one generator a warp) at the rule's
+    pick, at each rows a group with tiles of 8, 64 and 1,024 rows, and
+    with one block, equals the tiled K1 bit for bit in abs and
+    rel: 740 rows (M < N), 259 (an odd count: buckets end in a lone group,
+    paired with padding rows), one row, every row on one generator; rows
+    without a generator come back NaN."""
+    stacked, rows, idx = _tiled_k1_case(case, inp_format, h_dim, seed=17)
+    on = [_on(x, cuda) for x in (stacked, *rows, idx)]
+    prepared = kdec.prepare_decode_select(*on, T, inp_format)
+    k1 = kdec.launch_decode_select(prepared)
+    n = idx.shape[0]
+    before = dict(kernels.launches)
+    got = [kdec.decode_select(*on, T, inp_format, ilp=True),
+           kdec.launch_decode_select(prepared, ilp=True, shape=(4, 32, 1))]
+    got += [kdec.launch_decode_select(prepared, ilp=True, shape=(r, tile, -(-n // tile)))
+            for r in kdec.TILED_ILP_ROWS for tile in (8, 64, 1024)]
+    torch.cuda.synchronize()
+    assert kernels.launches[kdec.KERNEL_ILP] == before.get(kdec.KERNEL_ILP, 0) + len(got)
+    bad = ((idx < 0) | (idx >= 4)).to(cuda)
+    for out in got:
+        for a, b in zip(out, k1):
+            assert torch.equal(a[~bad], b[~bad])
+            assert bool(torch.isnan(a[bad]).all()) and bool(torch.isfinite(a[~bad]).all())
 
 
 # K2-bf16's saved (h, c) against the bf16 plain forward's: a flip of one h's
