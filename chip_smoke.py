@@ -95,7 +95,24 @@ Phases, in order; any failure exits nonzero before the result line:
      K4 alone on the route's buffer and through its route, bit for bit
      against the kept warp-per-row kernel and route and within 1e-4 of the
      plain tiles, each timed in turns with its kept kernel;
- 14. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 14. train loop: (a) the flagship ``Trainer`` on ``synthetic_memory`` (48
+     train and 16 val windows of up to 6 peds, batch 8, 3 epochs, train-time
+     augmentation, the device patch bank, validation and a checkpoint every
+     epoch), with its launch counts read around it and every epoch's
+     metrics, ``checkpoint_best`` and ``best_val`` checked; then
+     ``train(until_epoch=1)`` + ``load_from_path`` + ``train()`` against
+     the uninterrupted run (parameters within the train step's card-vs-CPU
+     tolerance: cuDNN's and the index ops' backward are not deterministic
+     on the card); (b) the feed at bench.py's train batch (256 scenes x 16
+     peds from 1,024 synthetic windows): the bank's gather against host
+     assembly bit for bit, ``augment_batch(train=True)`` on the card against
+     the CPU with the same draws (nearest-pixel ties counted), host
+     assembly + copy, the gather and the augmentation timed per batch, and
+     12 epochs each of the Trainer's loop through ``Prefetcher`` with and
+     without the bank, alternated, their median epoch's rate beside the
+     bare step's p50 (the spread and the total beside it), with the loop's
+     idle share;
+ 15. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -699,7 +716,6 @@ def phase_train_card_vs_cpu(n_scenes=4):
     from mggan_tpu_torch.models.factory import construct_gan, tree_to
     from mggan_tpu_torch.training.state import init_train_state
     from mggan_tpu_torch.training.steps import build_train_step, make_draws
-    from mggan_tpu_torch.utils.pytree import tree_items
 
     cfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
     g_pack, d_pack = construct_gan(cfg, seed=SEED + 2, device="cpu")
@@ -718,21 +734,7 @@ def phase_train_card_vs_cpu(n_scenes=4):
         metric_err = max(metric_err, abs(got - want))
         if abs(got - want) > TRAIN_ATOL + TRAIN_RTOL * abs(want):
             metric_bad.append(k)
-    param_err, noise_err, param_bad = 0.0, 0.0, []
-    for name, a_tree, b_tree, lr, updates in (
-            ("g", s_gpu.g_params, s_cpu.g_params, cfg.g_lr, 2),
-            ("d", s_gpu.d_params, s_cpu.d_params, cfg.d_lr, 1)):
-        flat = dict(tree_items(b_tree))
-        for path, a in tree_items(a_tree):
-            err = float((a.cpu() - flat[path]).abs().max())
-            noisy = path in NOISE_LEAVES
-            limit = 2 * lr * updates + TRAIN_ATOL if noisy else TRAIN_ATOL
-            if noisy:
-                noise_err = max(noise_err, err)
-            else:
-                param_err = max(param_err, err)
-            if err > limit:
-                param_bad.append((name, path, err))
+    param_err, noise_err, param_bad = state_diffs(s_gpu, s_cpu, 2, 1, cfg)
     print(f"train step card vs CPU, {n_scenes} scenes x {PEDS} peds, K={NUM}, injected "
           f"draws: metrics max abs diff {metric_err:.3e} (atol/rtol {TRAIN_ATOL:g}), "
           f"parameters max abs diff {param_err:.3e} (atol {TRAIN_ATOL:g}), conv biases "
@@ -743,9 +745,14 @@ def phase_train_card_vs_cpu(n_scenes=4):
             "noise_leaf_max_abs_diff": noise_err}
 
 
+# CUDA runtime calls in which the host thread waits for the device
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
 def device_profile(fn, reps, label, unit):
     """Device time by kernel name over ``reps`` calls of ``fn``
-    (torch.profiler) and the device's busy share of the wall time."""
+    (torch.profiler), the device's busy share of the wall time and the
+    host's waits for the device (HOST_WAITS calls)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -760,11 +767,13 @@ def device_profile(fn, reps, label, unit):
                 fn(rep)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = {}
+        by_name, syncs = {}, 0
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
                 tot, cnt = by_name.get(ev.name, (0.0, 0))
                 by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+            elif ev.name in HOST_WAITS:
+                syncs += 1
         if by_name:
             break
         print(f"profile, {label}: the profiler kept no device record; profiling again")
@@ -774,13 +783,13 @@ def device_profile(fn, reps, label, unit):
     launches = sum(c for _, c in by_name.values())
     print(f"profile, {label}, {reps} {unit}s: wall {wall_ms / reps:.3f} ms/{unit}, device "
           f"busy {busy_ms / reps:.3f} ms/{unit} (idle share {1 - busy_ms / wall_ms:.3f}), "
-          f"{launches / reps:.0f} device ops/{unit}")
+          f"{launches / reps:.0f} device ops/{unit}, {syncs / reps:.0f} host waits/{unit}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (tot, cnt) in top:
         print(f"  {tot / reps:8.4f} ms/{unit}  x{cnt // reps:<4d} {name[:90]}")
     return {"wall_ms": wall_ms / reps, "device_busy_ms": busy_ms / reps,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else float(np.nan),
-            "device_ops": launches / reps,
+            "device_ops": launches / reps, "host_waits": syncs / reps,
             "top": [[name[:60], tot / reps] for name, (tot, _) in top[:5]],
             "by_name_ms": {name: tot / reps for name, (tot, _) in by_name.items()}}
 
@@ -805,6 +814,265 @@ def phase_profile(model, obs, pat, train, reps=5):
     train_prof = device_profile(one_step, 2, f"train step, {TRAIN_SCENES} scenes x "
                                 f"{PEDS} peds, K={NUM}", "step")
     return serving, train_prof
+
+
+# the train-loop phase (14): part (a) the Trainer end to end, part (b) the
+# feed at bench.py's train batch
+LOOP_BATCH = 8  # 48 train windows: 6 steps an epoch; 16 val windows: 2 batches
+LOOP_EPOCHS = 3
+FEED_WINDOWS = 1024  # 4 steps an epoch of TRAIN_SCENES x PEDS
+LOOP_ROUNDS = 6  # rounds of epochs with the bank, without, without, with
+# Nearest-pixel patches, card vs CPU on the same draws: a source coordinate
+# within float rounding of a half-integer may round the other way when cos
+# or sin differ by an ulp; each differing pixel must lie within TIE_PX of
+# one, and there may be at most MAX_TIES of them in the 256-scene batch.
+TIE_PX = 1e-4
+MAX_TIES = 64
+# The kept warp-per-row yardsticks: on no path.
+WARP_KERNELS = ("decode_select_warp", "decode_all_fwd_warp", "decode_select_bf16_warp",
+                "decode_all_bwd_warp", "decode_all_fwd_bf16_warp",
+                "decode_select_act_f32_warp", "decode_select_act_bf16_warp",
+                "decode_select_act_lin_warp", "decode_select_ilp_bf16_warp",
+                "decode_sorted_bf16_warp", "decode_select_ilp_warp", "decode_sorted_warp")
+
+
+def state_diffs(a, b, g_updates, d_updates, cfg):
+    """Largest parameter differences of two train states after
+    ``g_updates`` and ``d_updates`` optimizer updates, apart and for
+    NOISE_LEAVES, and the leaves beyond TRAIN_ATOL (NOISE_LEAVES: beyond
+    2 * lr * updates + TRAIN_ATOL)."""
+    from mggan_tpu_torch.utils.pytree import tree_items
+
+    param_err, noise_err, bad = 0.0, 0.0, []
+    for name, ta, tb, lr, updates in (("g", a.g_params, b.g_params, cfg.g_lr, g_updates),
+                                      ("d", a.d_params, b.d_params, cfg.d_lr, d_updates)):
+        flat = dict(tree_items(tb))
+        for path, x in tree_items(ta):
+            err = float((x - flat[path].to(x.device)).abs().max())
+            noisy = path in NOISE_LEAVES
+            if noisy:
+                noise_err = max(noise_err, err)
+            else:
+                param_err = max(param_err, err)
+            if err > (2 * lr * updates + TRAIN_ATOL if noisy else TRAIN_ATOL):
+                bad.append((name, path, err))
+    return param_err, noise_err, bad
+
+
+def epoch_lines(writer):
+    return [json.loads(line) for line in
+            (writer.dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def loop_trainer_run(log_dir):
+    """Part (a): the flagship Trainer on ``synthetic_memory`` for
+    LOOP_EPOCHS epochs with augmentation, the patch bank, validation and a
+    checkpoint every epoch, launch counts read around it; then a resume
+    (``train(until_epoch=1)``, ``load_from_path``, ``train()``) against it."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    cfg = flagship_config(dataset="synthetic_memory", batch_size=LOOP_BATCH,
+                          epochs=LOOP_EPOCHS, val_every=1, save_every=1, augment=1,
+                          patch_bank=1, num_samples=NUM, num_expectation_samples=1,
+                          seed=SEED, log_dir=log_dir)
+
+    def trainer(version):
+        writer = ExperimentWriter(log_dir, cfg.experiment, cfg.name, version=version,
+                                  config=cfg, tensorboard=False)
+        return Trainer(cfg, writer, device="cuda")
+
+    whole = trainer(1)
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    whole.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    print("train loop launches:", json.dumps(launches))
+    lines = epoch_lines(whole.writer)
+    check(len(lines) == LOOP_EPOCHS, f"train loop: {len(lines)} epochs logged")
+    bad = [(m["epoch"], k) for m in lines for k, v in m.items() if not np.isfinite(v)]
+    check(not bad, f"train loop: non-finite epoch metrics {bad[:5]}")
+    ckpts = sorted(p.name for p in whole.writer.checkpoint_dir.iterdir())
+    check("checkpoint_best" in ckpts, f"train loop: no checkpoint_best in {ckpts}")
+    check(np.isfinite(whole.state.best_val), f"train loop: best_val {whole.state.best_val}")
+    steps = whole.state.step
+    val_batches = LOOP_EPOCHS * -(-16 // LOOP_BATCH)
+    check(steps == LOOP_EPOCHS * (48 // LOOP_BATCH), f"train loop: {steps} steps")
+    need = {"decode_select": steps + val_batches, "decode_all_fwd": 2 * steps,
+            "decode_all_bwd": steps}
+    for name, n in need.items():
+        check(launches.get(name, 0) >= n,
+              f"train loop: {name} launched {launches.get(name, 0)} times, at least {n} due")
+    warp = [n for n in WARP_KERNELS if launches.get(n)]
+    check(not warp, f"train loop launched kept yardsticks {warp}")
+    print(f"train loop, {LOOP_EPOCHS} epochs of {48 // LOOP_BATCH} steps at {LOOP_BATCH} "
+          f"scenes + {val_batches // LOOP_EPOCHS} val batches: {secs:.2f} s, best_val "
+          f"{whole.state.best_val:.4f}, checkpoints {ckpts}; per epoch: " + "; ".join(
+              f"L2 {m['train/L2_loss']:.3f} val ADE {m['val/ADE k=20']:.3f} "
+              f"{m['perf/steps_per_sec']:.2f} steps/s" for m in lines))
+
+    part = trainer(2).train(until_epoch=1)
+    check(part.state.epoch == 1, f"until_epoch=1 stopped at epoch {part.state.epoch}")
+    resumed, _ = Trainer.load_from_path(part.writer.dir, checkpoint="latest", device="cuda")
+    check(resumed.state.epoch == 1 and resumed.state.step == steps // LOOP_EPOCHS,
+          f"resume: epoch {resumed.state.epoch}, step {resumed.state.step}")
+    resumed.train()
+    check(resumed.state.step == steps, f"resumed run ended at step {resumed.state.step}")
+    param_err, noise_err, bad = state_diffs(whole.state, resumed.state, 2 * steps, steps, cfg)
+    strip = lambda m: {k: v for k, v in m.items() if not k.startswith("perf/")}
+    last_a, last_b = strip(lines[-1]), strip(epoch_lines(resumed.writer)[-1])
+    metric_err = max(abs(last_a[k] - last_b[k]) for k in last_a)
+    print(f"train loop resume (until_epoch=1, load_from_path, train) vs uninterrupted: "
+          f"parameters max abs diff {param_err:.3e} (atol {TRAIN_ATOL:g}), conv biases "
+          f"before train-mode BN {noise_err:.3e} (bound 2*lr per update), last epoch's "
+          f"metrics max abs diff {metric_err:.3e} (not held); best_val "
+          f"{whole.state.best_val:.6f} vs {resumed.state.best_val:.6f}")
+    check(not bad, f"train loop resume: parameters beyond tolerance {bad[:4]}")
+    return {"seconds": secs, "steps": steps, "val_batches": val_batches,
+            "launches": launches, "best_val": whole.state.best_val,
+            "epochs": [{k: m[k] for k in ("epoch", "train/L2_loss", "val/ADE k=20",
+                                           "perf/steps_per_sec")} for m in lines],
+            "resume_param_max_abs_diff": param_err, "resume_noise_leaf_max_abs_diff": noise_err,
+            "resume_metric_max_abs_diff": metric_err}
+
+
+def median_ms(fn, reps):
+    """Median host-clock ms of ``fn()`` ending in a synchronize."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def loop_feed(log_dir, train_p50_ms):
+    """Part (b): the feed at bench.py's train batch (TRAIN_SCENES x PEDS,
+    K=NUM) from FEED_WINDOWS synthetic windows: the bank against host
+    assembly, train-time augmentation card vs CPU, the feed's timings and
+    epochs of the Trainer's loop with and without the bank."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.data import augment
+    from mggan_tpu_torch.data.batcher import PaddedBatcher
+    from mggan_tpu_torch.data.patch_bank import maybe_build_bank
+    from mggan_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mggan_tpu_torch.device import host_to_device
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    ds = make_synthetic_dataset(num_windows=FEED_WINDOWS, max_peds=PEDS)
+    bank = maybe_build_bank(ds, PEDS, device="cuda")
+    check(bank is not None, "feed: the patch bank did not fit its budget")
+    batcher = lambda b: PaddedBatcher(ds, TRAIN_SCENES, max_peds=PEDS, shuffle=True,
+                                      seed=SEED, patch_bank=b, augment=True)
+    host, banked = batcher(None), batcher(bank)
+    idx = np.random.RandomState(SEED).permutation(FEED_WINDOWS)[:TRAIN_SCENES]
+    h_batch = host.make_batch(idx)
+    b_batch = banked.make_batch(idx)
+    check(torch.equal(b_batch["big_patches"].cpu(), torch.from_numpy(h_batch["big_patches"])),
+          "feed: the bank's gather differs from host assembly")
+    part = idx[: TRAIN_SCENES * 25 // 32]  # and pad scenes
+    check(torch.equal(banked.make_batch(part)["big_patches"].cpu(),
+                      torch.from_numpy(host.make_batch(part)["big_patches"])),
+          "feed: the bank's gather of a padded batch differs from host assembly")
+
+    aug_cpu = augment.sample_aug_params(torch.Generator().manual_seed(SEED), TRAIN_SCENES)
+    aug_gpu = tuple(a.cuda() for a in aug_cpu)
+    got = augment.augment_batch(b_batch, True, device="cuda", aug=aug_gpu)
+    want = augment.augment_batch(h_batch, True, device="cpu", aug=aug_cpu)
+    traj_err = float(np.nanmax(np.abs(got["xy"].cpu().numpy() - want["xy"].numpy())))
+    diff = (got["patches"].cpu() != want["patches"]).any(dim=1).any(dim=-1)
+    diff = diff.reshape(TRAIN_SCENES, -1).numpy()
+    sx, sy = augment.source_coords(*aug_cpu)
+    off = lambda c: np.abs(c.numpy() - np.floor(c.numpy()) - 0.5)
+    away = diff & (off(sx) >= TIE_PX) & (off(sy) >= TIE_PX)
+    ties = int(diff.sum())
+    print(f"feed, {TRAIN_SCENES} x {PEDS}: bank gather equals host assembly bit for bit "
+          f"(and a {len(part)}-window batch with {TRAIN_SCENES - len(part)} pad scenes); "
+          f"augment_batch(train=True) card vs "
+          f"CPU, same draws: trajectories max abs diff {traj_err:.3e} (atol {KERNEL_ATOL:g}), "
+          f"nearest patches differ at {ties} of {diff.size} (scene, pixel) positions, "
+          f"{int(away.sum())} away from a half-integer tie (limit {MAX_TIES})")
+    check(traj_err <= KERNEL_ATOL, f"feed: augmented trajectories differ by {traj_err:.3e}")
+    check(not away.any(), "feed: augmented patches differ away from a rounding tie")
+    check(ties <= MAX_TIES, f"feed: {ties} tie pixels")
+
+    def host_copy():  # as augment_batch uploads it: through pinned memory
+        host_to_device(host.make_batch(idx)["big_patches"], torch.device("cuda"))
+
+    host_ms = median_ms(host_copy, 5)
+    gather_ms = cuda_time_ms(lambda: bank.gather(idx), 20)
+    aug_ms = cuda_time_ms(lambda: augment.augment_batch(b_batch, True, device="cuda",
+                                                        aug=aug_gpu), 10)
+    mb = bank.nbytes / 2**20
+    batch_mb = h_batch["big_patches"].nbytes / 1e6
+    print(f"feed per batch ({TRAIN_SCENES} x {PEDS}, {batch_mb:.1f} MB of uint8 patches): host "
+          f"assembly + copy to the card {host_ms:.3f} ms (median of 5), bank gather "
+          f"{gather_ms:.4f} ms, augment_batch(train=True) on the card {aug_ms:.3f} ms "
+          f"(CUDA events); bank {mb:.1f} MiB")
+
+    cfg = flagship_config(dataset="synthetic_memory", batch_size=TRAIN_SCENES, max_peds=PEDS,
+                          epochs=100, augment=1, num_samples=NUM,
+                          num_expectation_samples=1, seed=SEED, log_dir=log_dir)
+    writer = ExperimentWriter(log_dir, cfg.experiment, "feed", version=1, config=cfg,
+                              tensorboard=False)
+    tr = Trainer(cfg, writer, device="cuda")
+    for e, loader in enumerate((banked, host)):  # warm-up
+        tr.train_epoch(loader, e)
+    epochs = {"bank": [], "host": []}
+    for e, name in enumerate(("bank", "host", "host", "bank") * LOOP_ROUNDS):
+        _, perf = tr.train_epoch(banked if name == "bank" else host, e + 2)
+        epochs[name].append(perf)
+    rates = {}
+    for name, runs in epochs.items():
+        # the loop's rate is the median epoch's; the total, which one
+        # stalled epoch can move, stands beside it with the spread
+        secs = np.array([r["seconds"] for r in runs])
+        steps, agents = runs[0]["steps"], runs[0]["agents"]
+        med = float(np.median(secs))
+        rates[name] = {"steps_per_sec": steps / med, "agents_per_sec": agents / med,
+                       "total_steps_per_sec": len(runs) * steps / float(secs.sum()),
+                       "median_epoch_s": med, "epoch_s": secs.tolist()}
+        print(f"train loop epoch through Prefetcher, {name:>4}: "
+              f"{rates[name]['steps_per_sec']:.3f} steps/s, "
+              f"{rates[name]['agents_per_sec']:.0f} agents/s by the median of {len(runs)} "
+              f"epochs of {steps} steps ({med:.4f} s; min {secs.min():.4f}, max "
+              f"{secs.max():.4f}); over all {len(runs)} "
+              f"{rates[name]['total_steps_per_sec']:.3f} steps/s; bare step p50 "
+              f"{train_p50_ms:.3f} ms = {1e3 / train_p50_ms:.3f} steps/s, the median "
+              f"epoch {1e3 * med / steps / train_p50_ms:.4f} x {steps} bare steps")
+    profile = device_profile(lambda rep: tr.train_epoch(banked, 10 + rep), 1,
+                             f"train loop with the bank, {TRAIN_SCENES} x {PEDS}", "epoch")
+    return {"host_assembly_copy_ms": host_ms, "bank_gather_ms": gather_ms,
+            "augment_train_ms": aug_ms, "bank_mib": mb, "traj_max_abs_diff": traj_err,
+            "tie_pixels": ties, "rates": rates, "bare_step_p50_ms": train_p50_ms,
+            "profile": {k: v for k, v in profile.items() if k != "by_name_ms"}}
+
+
+def phase_train_loop(train_p50_ms):
+    """Phase 14: the train loop (see the module note)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        run = loop_trainer_run(log_dir)
+        feed = loop_feed(log_dir, train_p50_ms)
+    return {**run, "feed": feed}
+
 
 def phase_bf16_kernels():
     """K1's and K2's bf16 variants against their bf16 plain versions on the
@@ -2910,6 +3178,7 @@ def main():
     bwd16 = phase_bf16_backward()
     abl_path = phase_ablation_path()
     redesigned = phase_redesigned()
+    loop = phase_train_loop(train["p50_ms"])
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -2919,17 +3188,13 @@ def main():
     paths = {"serving": serving_launches, "train": train["launches"],
              **{f"eval_{mode}": r["launches"] for mode, r in evaluation["runs"].items()},
              **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()},
-             "ablation": abl_path["launches"]}
+             "ablation": abl_path["launches"], "train_loop": loop["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was launched on no main path")
-    for name in ("decode_select_warp", "decode_all_fwd_warp", "decode_select_bf16_warp",
-                 "decode_all_bwd_warp", "decode_all_fwd_bf16_warp", "decode_select_act_f32_warp",
-                 "decode_select_act_bf16_warp", "decode_select_act_lin_warp",
-                 "decode_select_ilp_bf16_warp", "decode_sorted_bf16_warp",
-                 "decode_select_ilp_warp", "decode_sorted_warp"):
+    for name in WARP_KERNELS:
         # the kept yardsticks stay off every path
         check(not by_path(name), f"{name} was launched on a path: {by_path(name)}")
     print(json.dumps({
@@ -2947,6 +3212,7 @@ def main():
         "ablation": {"sorted_route_cases": abl_checks["sorted_route_cases"],
                      "path": {k: v for k, v in abl_path.items() if k != "launches"}},
         "redesigned": redesigned,
+        "train_loop": {k: v for k, v in loop.items() if k != "launches"},
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -3,13 +3,15 @@
 A copy, not an import: the port imports nothing of ``mggan_tpu``. Field
 names and defaults match the JAX ``Config`` so ``Config.from_dict`` accepts
 the JAX config's ``to_dict()`` output (keys the port does not read are
-dropped).
+dropped), and so a ``meta_tags.csv`` that either package's
+``ExperimentWriter`` wrote loads here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 # Architecture constants fixed by the reference factory (model_factory.py:18-19).
 PRED_LEN = 12
@@ -26,10 +28,14 @@ WEIGHTING_TARGETS = ["l2", "disc_scores", "endpoint", "mgan", "ml", "none"]
 GAN_TYPES = ["probgan", "mgan", "infogan", "gan"]
 GAN_OBJECTIVES = ["NS", "MM", "LS", "W"]
 L2_LOSS_TYPES = ["none", "min_z", "min_g_z", "min_g_min_z", "mse"]
+PATCH_INTERPS = ["nearest", "bilinear"]
 
 
 @dataclass
 class Config:
+    name: str = "test"
+    log_dir: str = "./logs/"
+    dataset: str = "stanford_synthetic"
     experiment: str = "multi_generator"
     inp_format: str = "rel"
     pool_type: str = "sways"
@@ -63,6 +69,28 @@ class Config:
     global_disc: int = 1
     wt_mgan_compat: int = 1
     batch_size: int = 2
+    # the train loop (mggan_tpu/config.py:41-135)
+    augment: int = 1
+    top_k_test: int = 20
+    val_every: int = 1
+    save_every: int = 5
+    l2_decay_rate: float = 1.0
+    checkpoint: Optional[str] = None
+    # Pad width of the ped axis; 0 = derive from the dataset's widest scene.
+    max_peds: int = 0
+    # Keep the split's uint8 patches on the device and gather them per batch
+    # there (data/patch_bank.py); 0 = host-side batch assembly.
+    patch_bank: int = 1
+    # Augmented-patch resampling: "nearest" (the reference's PIL resample
+    # mode) or "bilinear".
+    patch_interp: str = "nearest"
+    # Multi-device and profiling settings: the loop raises for any but these
+    # defaults (ROADMAP.md queue 1 items 13 and 15).
+    dp: int = 1
+    gp: int = 1
+    slices: int = 1
+    split_step: int = 0
+    profile_dir: str = ""
 
     def __post_init__(self):
         for name, allowed in (
@@ -70,6 +98,7 @@ class Config:
             ("pool_type", POOL_TYPES), ("weighting_target", WEIGHTING_TARGETS),
             ("gan_type", GAN_TYPES), ("gan_obj", GAN_OBJECTIVES),
             ("l2_loss_type", L2_LOSS_TYPES),
+            ("patch_interp", PATCH_INTERPS),
         ):
             if getattr(self, name) not in allowed:
                 raise ValueError(
@@ -80,6 +109,9 @@ class Config:
     def use_pinet(self) -> bool:
         # model_factory.py:16
         return self.weighting_target != "none" and not self.unconditional
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":

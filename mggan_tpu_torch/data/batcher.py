@@ -7,8 +7,8 @@ fixed ``max_peds``, so every batch has the same ``(S, P, ...)`` shape.
 Scenes stay atomic (a scene never straddles a batch), mirroring
 ``seq_start_end``. The last partial batch is padded with empty, masked
 scenes (the reference uses ``drop_last=False``). Batches are numpy arrays
-on the host; the device patch bank (``patch_bank``) is not ported yet
-(ROADMAP.md queue 1 item 9).
+on the host, but for ``big_patches`` when a device patch bank
+(``data/patch_bank.py``) gathers them on the device instead.
 """
 
 from __future__ import annotations
@@ -26,15 +26,24 @@ class PaddedBatcher:
         max_peds: int | None = None,
         shuffle: bool = False,
         seed: int = 0,
+        patch_bank=None,
+        augment: bool = False,
     ):
         self.ds = ds
         self.batch_size = batch_size
         self.shuffle = shuffle
         # Epoch order is a pure function of (seed, epoch), as in the JAX
-        # package; each iteration advances the epoch.
+        # package, so a resumed run replays the batch stream of an
+        # uninterrupted one: the Trainer pins the epoch with set_epoch();
+        # standalone iteration advances the counter itself.
         self.seed = seed
         self._epoch = 0
-        self.include_patches = ds.big_patches is not None
+        # Whether the Trainer augments this loader's batches (on the device).
+        self.augment = augment
+        # With a bank the host assembles no patch array; make_batch attaches
+        # the bank's gather instead (dispatched from the prefetch thread).
+        self.patch_bank = patch_bank
+        self.include_patches = patch_bank is None and ds.big_patches is not None
 
         sizes = [len(t) for t in ds.trajectories]
         data_max = max(sizes) if sizes else 1
@@ -44,6 +53,9 @@ class PaddedBatcher:
                 f"dataset has a scene with {data_max} peds > max_peds="
                 f"{self.max_peds}; raise --max_peds"
             )
+        if patch_bank is not None and patch_bank.max_peds != self.max_peds:
+            raise ValueError(f"patch bank of {patch_bank.max_peds} peds for a "
+                             f"batcher of {self.max_peds}")
 
         # Scene extent in meters for augmentation (width, height).
         self._wh_m = {}
@@ -53,6 +65,11 @@ class PaddedBatcher:
 
     def __len__(self):
         return (len(self.ds) + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        """Pin the shuffle order of the next ``__iter__`` to ``epoch`` (the
+        contract of torch's ``DistributedSampler.set_epoch``)."""
+        self._epoch = int(epoch)
 
     def __iter__(self):
         order = np.arange(len(self.ds))
@@ -95,4 +112,6 @@ class PaddedBatcher:
         }
         if self.include_patches:
             batch["big_patches"] = big
+        elif self.patch_bank is not None:
+            batch["big_patches"] = self.patch_bank.gather(window_idx)
         return batch

@@ -1,0 +1,272 @@
+"""The training loop: epochs, validation, checkpoint-best, schedules
+(counterpart of ``mggan_tpu/training/loop.py``; reference
+``MultiGeneratorGAN.train``, abstract_train.py:87-201).
+
+The per-batch work is ``build_train_step``'s step (the kernels K1, K2 and
+K3 on the card); this module is host orchestration, step for step the JAX
+loop's: per epoch ``state.epoch = epoch + 1`` (the cosine learning rate
+reads it), the loader pinned to the epoch, batches through a
+``Prefetcher``, train-time augmentation, the step; epoch means of the
+metrics (``gradnorm/*`` into a ``GradNormLogger``), validation every
+``val_every`` epochs with ``checkpoint_best`` on ``val/ADE k=<top_k_test>``,
+a checkpoint every ``save_every`` epochs and the l2 weight's decay.
+
+Random numbers come from one source with three methods (``SeededDraws``
+by default; a test injects another to replay the JAX Trainer's keys):
+``aug(epoch, i, s)`` the augmentation of batch ``i`` of ``epoch``, a pure
+function of (seed, epoch, i) as JAX's ``fold_in`` keys are, so a resumed
+run replays an uninterrupted one; ``step(state, s, p)`` the step's draws
+(``DRAW_KEYS``), from the checkpointed ``state.generator``; and ``val(i,
+s, p, num)`` the sampling draws of validation batch ``i``, seeded afresh
+in every ``check_accuracy`` as JAX uses ``PRNGKey(0)`` there.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mggan_tpu_torch.config import Config
+from mggan_tpu_torch.data.augment import augment_batch, sample_aug_params
+from mggan_tpu_torch.data.loaders import get_dataloader
+from mggan_tpu_torch.data.prefetch import Prefetcher
+from mggan_tpu_torch.device import host_to_device, resolve_device
+from mggan_tpu_torch.eval.evaluate import batch_seed
+from mggan_tpu_torch.eval.metrics import MetricAccumulator, batch_metric_sums
+from mggan_tpu_torch.eval.predict import Predictor
+from mggan_tpu_torch.models.factory import construct_gan
+from mggan_tpu_torch.ops import sampling
+from mggan_tpu_torch.training import checkpoints as ckpt
+from mggan_tpu_torch.training.state import init_train_state
+from mggan_tpu_torch.training.steps import batch_views, build_train_step, make_draws
+from mggan_tpu_torch.utils.logging import ExperimentWriter, load_meta_tags
+from mggan_tpu_torch.utils.trajectory_tools import GradNormLogger
+
+
+def stream_seed(*keys: int) -> int:
+    """A 64-bit generator seed that is a fixed function of ``keys``."""
+    return int(np.random.SeedSequence([int(k) for k in keys]).generate_state(1, np.uint64)[0])
+
+
+class SeededDraws:
+    """The Trainer's own random numbers (see the module note)."""
+
+    def __init__(self, config: Config, device):
+        self.config = config
+        self.device = device
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def aug(self, epoch: int, i: int, s: int):
+        return sample_aug_params(self._generator(
+            stream_seed(self.config.seed + 1, epoch, i)), s)
+
+    def step(self, state, s: int, p: int):
+        return make_draws(state.generator, self.config, s, p)
+
+    def val(self, i: int, s: int, p: int, num: int):
+        gen = self._generator(batch_seed(0, i))
+        u = torch.rand((num, s, p, self.config.num_gens), generator=gen, device=self.device)
+        return {"uniforms": sampling.GUMBEL_U_MIN + u * (1.0 - sampling.GUMBEL_U_MIN),
+                "z": torch.randn((num, s, 1, self.config.noise_dim), generator=gen,
+                                 device=self.device)}
+
+
+def check_loop_scope(config: Config):
+    """Raise for the loop settings the port does not cover yet."""
+    if config.dp * config.gp * config.slices > 1 or config.split_step:
+        raise NotImplementedError(
+            f"dp={config.dp}, gp={config.gp}, slices={config.slices}, "
+            f"split_step={config.split_step}: multi-device and split-step training "
+            "is not ported yet (ROADMAP.md queue 1 item 13)")
+    if config.profile_dir:
+        raise NotImplementedError(
+            "profile_dir: the train loop's profiler capture (utils/profiling.py) is "
+            "not ported yet (ROADMAP.md queue 1 item 15)")
+
+
+class Trainer:
+    """The multi-generator GAN trainer for the train step's scope (mgan /
+    NS / ml / min_g_z; ``training/steps.py::check_scope``), on ``device``.
+
+    ``draws`` replaces the random-number source (``SeededDraws``'s three
+    methods); the weights are random from ``config.seed``.
+    """
+
+    def __init__(self, config: Config, writer: ExperimentWriter, device="cuda",
+                 draws=None):
+        check_loop_scope(config)
+        self.config = config
+        self.writer = writer
+        self.device = resolve_device(device)
+        g_pack, d_pack = construct_gan(config, seed=config.seed, device=self.device)
+        self.g_spec, self.d_spec = g_pack[2], d_pack[2]
+        self.train_step = build_train_step(config, self.g_spec, self.d_spec)
+        self.state = init_train_state(config, g_pack, d_pack,
+                                      seed=stream_seed(config.seed, 1))
+        self.draws = SeededDraws(config, self.device) if draws is None else draws
+        self._predictor = None
+        self._grad_logger = GradNormLogger()
+
+    # ------------------------------------------------------------------ api
+    def predictor(self) -> Predictor:
+        if self._predictor is None:
+            self._predictor = Predictor(self.config, self.g_spec, self.state.g_params,
+                                        self.state.g_state, device=self.device)
+        self._predictor.g_params = self.state.g_params
+        self._predictor.g_state = self.state.g_state
+        return self._predictor
+
+    def _device_batch(self, batch, train: bool, aug=None):
+        full = augment_batch({k: v for k, v in batch.items()
+                              if k not in ("scale", "window_idx")}, train,
+                             device=self.device, interp=self.config.patch_interp, aug=aug)
+        return {k: full[k] for k in ("xy", "ped_mask", "patches") if k in full}
+
+    def _loaders(self):
+        cfg = self.config
+        common = dict(batch_size=cfg.batch_size, max_peds=cfg.max_peds or None,
+                      patch_bank=bool(cfg.patch_bank), device=self.device)
+        return (get_dataloader(cfg.dataset, "train", augment=bool(cfg.augment),
+                               shuffle=True, seed=cfg.seed, **common),
+                get_dataloader(cfg.dataset, "val", **common))
+
+    def train_epoch(self, loader, epoch: int):
+        """One epoch of train steps over ``loader`` (pinned to ``epoch``,
+        through a ``Prefetcher``, augmented when ``loader.augment``).
+
+        Returns ``(metrics, perf)``: each step metric's per-step values (a
+        float64 array per key), and ``steps``, ``agents`` (real,
+        mask-counted) and ``seconds`` (host clock, ending in a
+        synchronize).
+        """
+        self.state = self.state.replace(epoch=epoch + 1)
+        metrics = defaultdict(list)
+        t0 = time.perf_counter()
+        n_steps = n_agents = 0
+        loader.set_epoch(epoch)
+        with Prefetcher(loader) as batches:
+            for i, batch in enumerate(batches):
+                n_agents += int(np.asarray(batch["ped_mask"]).sum())
+                s, p = np.shape(batch["ped_mask"])
+                aug = self.draws.aug(epoch, i, s) if loader.augment else None
+                model_batch = self._device_batch(batch, train=loader.augment, aug=aug)
+                self.state, step_metrics = self.train_step(
+                    self.state, model_batch, self.draws.step(self.state, s, p))
+                for k, v in step_metrics.items():
+                    metrics[k].append(v)
+                n_steps += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        values = {k: torch.stack(vs).double().cpu().numpy() for k, vs in metrics.items()}
+        return values, {"steps": n_steps, "agents": n_agents, "seconds": seconds}
+
+    def train(self, until_epoch: int | None = None):
+        """Run the epoch loop to ``config.epochs``.
+
+        ``until_epoch``: stop (and checkpoint) after this epoch, a
+        preemption drill: ``train(until_epoch=k)`` + ``load_from_path`` +
+        ``train()`` replays the batch, augmentation and weight stream of
+        one uninterrupted ``train()``.
+        """
+        cfg = self.config
+        train_loader, val_loader = self._loaders()
+        track_metric = f"val/ADE k={cfg.top_k_test}"
+        for epoch in range(int(self.state.epoch), cfg.epochs):
+            values, perf = self.train_epoch(train_loader, epoch)
+            dt = max(perf["seconds"], 1e-9)
+            metrics = {k: list(v) for k, v in values.items()}
+            metrics["perf/steps_per_sec"] = [perf["steps"] / dt]
+            metrics["perf/agents_per_sec"] = [perf["agents"] / dt]
+            metrics["perf/padded_agents_per_sec"] = [
+                perf["steps"] * cfg.batch_size * train_loader.max_peds / dt]
+
+            if (epoch + 1) % cfg.val_every == 0:
+                for k, v in self.check_accuracy(val_loader, num_k=cfg.top_k_test).items():
+                    metrics[f"val/{k}"] = [v]
+                cur = float(np.mean(metrics[track_metric]))
+                if cur < self.state.best_val:
+                    print(f"Saving best model... {track_metric}: "
+                          f"{self.state.best_val} -> {cur}")
+                    self.state = self.state.replace(best_val=cur)
+                    self.save("checkpoint_best")
+
+            epoch_metrics = {}
+            for k, vs in metrics.items():
+                vals = np.asarray(vs, dtype=np.float64)
+                if k.startswith("gradnorm/"):
+                    # per-module gradient norms -> histograms per epoch
+                    # (reference GradNormLogger, utils.py:168-199)
+                    self._grad_logger.update_scalars(k[len("gradnorm/"):], vals)
+                    continue
+                if np.isnan(vals).all():
+                    continue  # e.g. a D step skipped all epoch
+                epoch_metrics[k] = float(np.nanmean(vals))
+            self._grad_logger.write(self.writer, epoch + 1)
+            self.writer.log(epoch_metrics, epoch + 1)
+            if (epoch + 1) % cfg.save_every == 0:
+                self.save()
+            # schedules (abstract_train.py:198-200): the cosine learning rate
+            # is computed in the step from state.epoch; the l2 weight decays
+            # here, in float32 as in JAX
+            self.state = self.state.replace(l2_weight=float(
+                np.float32(self.state.l2_weight) * np.float32(cfg.l2_decay_rate)))
+            if until_epoch is not None and epoch + 1 >= until_epoch:
+                self.save()
+                break
+        return self
+
+    def check_accuracy(self, loader, num_k=20, predict_strategy="sampling"):
+        """Validation metrics (train.py:245-257)."""
+        pred_func = self.predictor().get_predict_func(predict_strategy)
+        acc = MetricAccumulator()
+        for i, batch in enumerate(loader):
+            model_batch = self._device_batch(batch, train=False)
+            s, p = np.shape(batch["ped_mask"])
+            pred_abs = pred_func(model_batch, None, num=num_k,
+                                 draws=self.draws.val(i, s, p, num_k))[0]
+            bv = batch_views(model_batch)
+            scale = host_to_device(batch["scale"], self.device)
+            acc.update(batch_metric_sums(pred_abs, bv.gt_xy, bv.loss_mask, scale, [num_k]))
+        return acc.result()
+
+    def test(self, num_k=20, batch_size=8, **kwargs):
+        loader = get_dataloader(self.config.dataset, "test", batch_size=batch_size,
+                                patch_bank=bool(self.config.patch_bank), device=self.device)
+        return self.check_accuracy(loader, num_k=num_k, **kwargs)
+
+    # ---------------------------------------------------------- checkpoints
+    def save(self, name=None):
+        if name is None:
+            name = f"checkpoint_{int(self.state.epoch)}"
+        ckpt.save_checkpoint(self.writer.checkpoint_dir, self.state, name)
+
+    @classmethod
+    def load(cls, log_path, exp_name, version, checkpoint="best", device="cuda"):
+        """Reference-signature loader (abstract_train.py:250-285)."""
+        version_dir = Path(log_path) / exp_name / f"version_{version}"
+        return cls.load_from_path(version_dir, checkpoint, device=device)
+
+    @classmethod
+    def load_from_path(cls, version_path, checkpoint="best", device="cuda"):
+        """Rebuild a trainer from a version dir (abstract_train.py:250-296);
+        returns ``(trainer, config)``."""
+        version_path = Path(version_path)
+        if "version" not in version_path.stem:
+            raise ValueError(f"{version_path} is not a model version directory")
+        config = Config.from_dict(load_meta_tags(version_path / "meta_tags.csv"))
+        writer = ExperimentWriter(
+            version_path.parent.parent.parent, version_path.parent.parent.name,
+            version_path.parent.name, version=int(version_path.stem.split("_")[1]),
+            config=config,
+        )
+        trainer = cls(config, writer, device=device)
+        name = ckpt.resolve_checkpoint_name(writer.checkpoint_dir, checkpoint)
+        trainer.state = ckpt.restore_checkpoint(writer.checkpoint_dir, trainer.state, name)
+        return trainer, config

@@ -108,6 +108,10 @@ class TrainState:
     step: int = 0
     epoch: int = 0  # 1-based during training (abstract_train.py:110)
     l2_weight: float = 1.0
+    # Best val/ADE so far (+inf before the first validation). Checkpointed,
+    # so a resumed run cannot overwrite checkpoint_best with a worse model
+    # (the reference re-tracks from scratch, abstract_train.py:106).
+    best_val: float = math.inf
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -125,5 +129,5 @@ def init_train_state(config: Config, g_pack, d_pack, seed: int = 0) -> TrainStat
         g_params=g_params, g_state=g_state, d_params=d_params, d_state=d_state,
         g_opt=tx_g.init(g_params), d_opt=tx_d.init(d_params),
         generator=torch.Generator(device=device).manual_seed(seed),
-        l2_weight=config.l2_loss_weight,
+        l2_weight=config.l2_loss_weight, best_val=math.inf,
     )

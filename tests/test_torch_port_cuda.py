@@ -758,3 +758,48 @@ def test_tiled_b1_equals_warp_kernels(cuda, act, case):
         for a, b in zip(out, base):
             assert torch.equal(a[~bad], b[~bad])
             assert bool(torch.isnan(a[bad]).all())
+
+
+@pytest.mark.cuda
+def test_patch_bank_gather_equals_host_assembly(cuda):
+    """The bank's gather on the card equals host assembly bit for bit, pad
+    scenes and padded peds zero."""
+    from mggan_tpu_torch.data.batcher import PaddedBatcher
+    from mggan_tpu_torch.data.patch_bank import DevicePatchBank
+    from mggan_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ds = make_synthetic_dataset(num_windows=40, max_peds=7, seed=5)
+    bank = DevicePatchBank(ds, 7, device=cuda)
+    host = PaddedBatcher(ds, batch_size=16, max_peds=7)
+    idx = np.random.RandomState(0).permutation(40)[:13]
+    got = bank.gather(np.concatenate([idx, [-1, -1, -1]]))
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), torch.from_numpy(host.make_batch(idx)["big_patches"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_train_augmentation_matches_cpu(cuda, interp):
+    """augment_batch(train=True) on the card against the CPU path, same
+    draws: trajectories within 1e-4; bilinear patches within 1e-5, nearest
+    ones equal but at source coordinates within 1e-4 px of a half-integer
+    (an ulp of cos or sin may round them the other way)."""
+    from mggan_tpu_torch.data import augment
+    from mggan_tpu_torch.data.batcher import PaddedBatcher
+    from mggan_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ds = make_synthetic_dataset(num_windows=32, max_peds=6, seed=6)
+    batch = PaddedBatcher(ds, batch_size=32).make_batch(np.arange(32))
+    aug = augment.sample_aug_params(torch.Generator().manual_seed(1), 32)
+    got = augment.augment_batch(batch, True, device=cuda, interp=interp, aug=aug)
+    want = augment.augment_batch(batch, True, device="cpu", interp=interp, aug=aug)
+    np.testing.assert_allclose(got["xy"].cpu().numpy(), want["xy"].numpy(), atol=1e-4)
+    g, w = got["patches"].cpu().numpy(), want["patches"].numpy()
+    if interp == "bilinear":
+        np.testing.assert_allclose(g, w, atol=1e-5)
+        return
+    diff = (g != w).any(axis=(1, 4)).reshape(32, -1)
+    sx, sy = augment.source_coords(*aug)
+    off = lambda c: np.abs(c.numpy() - np.floor(c.numpy()) - 0.5)
+    assert not (diff & (off(sx) >= 1e-4) & (off(sy) >= 1e-4)).any()
+    assert diff.sum() <= 8

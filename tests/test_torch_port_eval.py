@@ -132,14 +132,25 @@ def test_loader_matches_jax_and_unported_parts_raise():
     for a, b in zip(ours, theirs):
         for k in b:
             np.testing.assert_array_equal(a[k], b[k])
+    # the patch bank's loader yields the host loader's batches; its patches
+    # are gathered on the device
+    banked = loaders.get_dataloader("synthetic_memory", "test", batch_size=8,
+                                    patch_bank=True, device="cpu")
+    assert banked.patch_bank is not None and not banked.augment
+    for a, b in zip(banked, loaders.get_dataloader("synthetic_memory", "test", batch_size=8)):
+        assert set(a) == set(b) and torch.is_tensor(a["big_patches"])
+        for k in b:
+            np.testing.assert_array_equal(np.asarray(a[k]), b[k])
+    # train-time augmentation runs: every scene flipped and rotated
+    batch = next(iter(ours))
+    aug = (np.array([0, 1, 2, 0, 1, 2, 0, 1]), np.full(8, 0.3, np.float32))
+    out = augment.augment_batch(batch, train=True, device="cpu", aug=aug)
+    assert out["patches"].shape == (8, ours.max_peds, 33, 33, 4)
+    assert not torch.equal(out["xy"], torch.from_numpy(batch["xy"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loaders.get_dataset("eth", "test")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loaders.get_dataloader("synthetic_memory", "test", patch_bank=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         loaders.get_dataloader("synthetic_memory", "test", shard_by_process=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        augment.augment_batch(next(iter(ours)), train=True, device="cpu")
 
 
 # --------------------------------------------------------------- metrics --

@@ -171,7 +171,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'mggan_tpu' or m.startswith('mggan_tpu.')]\n"
         "assert not bad, bad\n"
-        "for m in ('data.augment', 'data.loaders', 'eval.evaluate', 'eval.manifold', 'eval.metrics',\n"
+        "for m in ('data.augment', 'data.loaders', 'data.patch_bank', 'data.prefetch',\n"
+        "          'eval.evaluate', 'eval.manifold', 'eval.metrics',\n"
+        "          'training.checkpoints', 'training.loop', 'utils.logging',\n"
+        "          'utils.trajectory_tools',\n"
         "          'ops.kernels.decode_sorted', 'ops.kernels.decode_ablation',\n"
         "          'ablations.decode_ablation', 'ablations.sorted_select_ablation'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
