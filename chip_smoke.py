@@ -6,7 +6,8 @@
 Phases, in order; any failure exits nonzero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmuls and
      convolutions, so float32 means float32 on both sides of a comparison;
-  2. build every kernel from ``mggan_tpu_torch/csrc`` (nvcc, in parallel);
+  2. build every kernel from ``mggan_tpu_torch/csrc`` (nvcc, in parallel)
+     and the native host ops (g++);
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes its paths give it, with its time, the plain version's time
      and the bound the card allows: K1 (decode_select) at 3, 64 and 4096
@@ -112,7 +113,24 @@ Phases, in order; any failure exits nonzero before the result line:
      without the bank, alternated, their median epoch's rate beside the
      bare step's p50 (the spread and the total beside it), with the loop's
      idle share;
- 15. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 15. real data, CLI pair: (a) which of cv2, pandas and PIL import, the
+     native host ops' build time and ``image_io.decoder()``; ``read_rgb``
+     and nvJPEG against the committed cv2 decode of the fixture JPEG
+     (``mggan_tpu_torch/tools/fixtures``), ``resize_area`` against this
+     machine's cv2 where it imports; (b) fixtures in the reference release
+     layout in a temporary directory: ``zara1`` (BIWI, 850 / 90 / 90
+     frames, 8-15 peds at a time), ``stanford`` (SDD, H_SDD.txt, Biker and
+     lost rows, 30 fps) and ``gofp`` (is_active = 0 rows, 10 fps); (c)
+     every split parsed with pandas unimportable, with windows, peds and
+     parse time, the native host ops equal to their numpy versions on these
+     files; (d) ``cli.train`` with ``mggan4_zara1``'s flags (the flagship,
+     batch 32) for 2 epochs with augmentation and the patch bank, then
+     ``cli.evaluate`` (three strategies, k=1..19, Precision/Recall) on the
+     test split, every CSV metric finite, launch counts read around the
+     pair (path ``realdata_cli``); (e) the version dir loaded on the card
+     and on the CPU, ``sampling`` and ``expected`` on 64 test windows with
+     the same draws (atol 1e-4);
+ 16. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -297,6 +315,10 @@ def phase_card():
 
 
 def phase_build():
+    """Build the kernels (nvcc, in parallel) and the native host ops (g++);
+    returns the kernels' seconds and the host ops' (None when their library
+    was built already)."""
+    from mggan_tpu_torch import native
     from mggan_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
@@ -307,7 +329,13 @@ def phase_build():
         for line in build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
-    return secs
+    host_s = None
+    if not native.library_path(native.SRC_DIR / "host_ops.cpp").exists():
+        t0 = time.perf_counter()
+        native.load()
+        host_s = time.perf_counter() - t0
+        print(f"build: the native host ops (g++) in {host_s:.2f} s")
+    return secs, host_s
 
 
 def decode_select_case(n_scenes, gen, num=NUM):
@@ -1072,6 +1100,357 @@ def phase_train_loop(train_p50_ms):
         run = loop_trainer_run(log_dir)
         feed = loop_feed(log_dir, train_p50_ms)
     return {**run, "feed": feed}
+
+
+# --------------------------------------------------- phase 15: real data --
+FIXTURES = HERE / "mggan_tpu_torch" / "tools" / "fixtures"
+REAL_PHASES = ("train", "val", "test")
+# zara1 at about the real split's scale: frames per phase, peds arriving at
+# REAL_ARRIVAL a frame and staying 30-60 frames (8-15 present at a time)
+ZARA1_FRAMES = {"train": 850, "val": 90, "test": 90}
+REAL_ARRIVAL = 0.25
+SDD_FRAMES = {"train": 240, "val": 60, "test": 60}  # frames kept by the 30 fps subsampling
+GOFP_FRAMES = {"train": 120, "val": 50, "test": 50}  # frames kept by the 10 fps subsampling
+SDD_RATIO = 0.0367  # m/px of the SDD scene in H_SDD.txt
+GOFP_SCENE = "eth"  # registry.GOFP_RATIOS["eth"] / 0.05 = 1.33: the upscaling resize
+REAL_CPU_WINDOWS = 64  # zara1 test windows repeated on the CPU
+# read_rgb against the committed cv2 decode of the fixture JPEG: (largest
+# difference, pixels that differ by more than 1). OpenCV on the card machine
+# decodes with libjpeg-turbo, as the fixture's maker did: equal bytes.
+# nvJPEG (chroma upsampled by interpolation) converts YCbCr to RGB with its
+# own rounding: on an H100 80GB HBM3 at 700 W it read a largest difference
+# of 4, 407,063 of 414,720 pixels off by at least 1 and 13,733 by more
+# (PERF.md; without the interpolation flag the largest difference was 54),
+# so it is held to 4 and 16,000.
+CV2_DECODE_LIMITS = (0, 0)
+NVJPEG_LIMITS = (4, 16_000)
+
+
+def write_walkers(rng, frames, arrival, scene_wh_m):
+    """Straight walks with a little noise inside a ``scene_wh_m`` scene:
+    peds arrive at ``arrival`` a frame and stay 30-60 frames. Returns rows
+    (frame, id, x, y), positions in metres."""
+    import numpy as np
+
+    w, h = scene_wh_m
+    rows, pid = [], 0
+    for start in range(-40, frames):
+        for _ in range(rng.poisson(arrival)):
+            dur = rng.randint(30, 61)
+            pos = rng.uniform((0.1 * w, 0.1 * h), (0.9 * w, 0.9 * h))
+            vel = rng.normal(0, 1, 2)
+            vel *= rng.uniform(0.3, 0.6) / max(float(np.linalg.norm(vel)), 1e-6)
+            for f in range(max(start, 0), min(start + dur, frames)):
+                x, y = pos + vel * (f - start) + rng.normal(0, 0.02, 2)
+                rows.append((f, pid, x, y))
+            pid += 1
+    return rows
+
+
+def write_real_fixtures(root):
+    """Part (b): ``zara1`` (BIWI layout: frame, ID, y, x in metres),
+    ``stanford`` (SDD layout: 12 columns, quoted and bare labels, Biker and
+    lost rows, 30 fps, H_SDD.txt) and ``gofp`` (8 columns, is_active = 0
+    rows, 10 fps) under ``root``; every scene image is the committed fixture
+    JPEG (720 x 576)."""
+    import shutil
+
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    jpg = FIXTURES / "scene.jpg"
+    for phase in REAL_PHASES:
+        d = root / "zara1" / phase
+        d.mkdir(parents=True)
+        rows = write_walkers(rng, ZARA1_FRAMES[phase], REAL_ARRIVAL, (720 * 0.05, 576 * 0.05))
+        (d / f"{phase}_zara1.txt").write_text("\n".join(
+            f"{float(f)}\t{float(p)}\t{y:.4f}\t{x:.4f}" for f, p, x, y in rows))
+        shutil.copy(jpg, d / "zara1.jpg")
+    (root / "stanford").mkdir()
+    (root / "stanford" / "H_SDD.txt").write_text(
+        f"File\tVersion\tRatio\nsc0.jpg\tA\t{SDD_RATIO}\nsc0.jpg\tB\t0.5\n")
+    for phase in REAL_PHASES:
+        d = root / "stanford" / phase
+        d.mkdir()
+        lines = []
+        for f, p, x, y in write_walkers(rng, SDD_FRAMES[phase], 0.15,
+                                        (720 * SDD_RATIO, 576 * SDD_RATIO)):
+            px, py = x / SDD_RATIO, y / SDD_RATIO
+            box = f"{px - 10:.0f}\t{py - 20:.0f}\t{px + 10:.0f}\t{py + 20:.0f}"
+            label = '"Pedestrian"' if p % 3 == 0 else "Pedestrian"
+            xy = f"{px:.2f}\t{py:.2f}"
+            lines.append(f"{p}\t{box}\t{12 * f}\t0\t0\t0\t{label}\t{xy}")
+            lines.append(f"{p}\t{box}\t{12 * f + 6}\t0\t0\t1\t{label}\t{xy}")  # subsampled out
+            if p % 4 == 0:  # filtered out: a biker, a lost box
+                lines.append(f"{1000 + p}\t{box}\t{12 * f}\t0\t0\t0\tBiker\t{xy}")
+                lines.append(f"{2000 + p}\t{box}\t{12 * f}\t1\t0\t0\tPedestrian\t{xy}")
+        (d / f"{phase}_sc0.txt").write_text("\n".join(lines))
+        shutil.copy(jpg, d / "sc0.jpg")
+    ratio = 0.06668566952360758  # registry.GOFP_RATIOS[GOFP_SCENE]
+    for phase in REAL_PHASES:
+        d = root / "gofp" / phase
+        d.mkdir(parents=True)
+        lines = []
+        for f, p, x, y in write_walkers(rng, GOFP_FRAMES[phase], 0.15,
+                                        (720 * ratio, 576 * ratio)):
+            active = 0 if (p % 5 == 0 and f % 10 == 0) else 1
+            xy = f"{x / ratio:.2f}\t{y / ratio:.2f}"
+            lines.append(f"{4.0 * f}\t{float(p)}\t{xy}\t0\t0\t{p % 3}\t{active}")
+            lines.append(f"{4.0 * f + 2}\t{float(p)}\t{xy}\t0\t0\t{p % 3}\t1")  # subsampled out
+        (d / f"{phase}_{GOFP_SCENE}.txt").write_text("\n".join(lines))
+        shutil.copy(jpg, d / f"{GOFP_SCENE}.jpg")
+
+
+def real_environment(host_build_s):
+    """Part (a): which of cv2, pandas and PIL import, the host ops' build
+    time (``host_build_s``, phase 2's; None: built here if their library is
+    missing) and ``read_rgb``'s decoder; both decoders against the committed
+    cv2 decode, and ``resize_area`` against this machine's cv2 where it
+    imports."""
+    import importlib
+
+    import numpy as np
+
+    from mggan_tpu_torch import native
+    from mggan_tpu_torch.data import image_io
+
+    imports = {}
+    for mod in ("cv2", "pandas", "PIL"):
+        try:
+            importlib.import_module(mod)
+            imports[mod] = True
+        except ImportError:
+            imports[mod] = False
+    if host_build_s is None and not native.library_path(native.SRC_DIR / "host_ops.cpp").exists():
+        t0 = time.perf_counter()
+        native.load()
+        host_build_s = time.perf_counter() - t0
+    built = "not built in this run" if host_build_s is None else f"{host_build_s:.2f} s"
+    decoder = image_io.decoder()
+    print(f"real data environment: imports cv2 {imports['cv2']}, pandas {imports['pandas']}, "
+          f"PIL {imports['PIL']}; host ops' g++ build {built}; image_io.decoder() {decoder}")
+    want = np.load(FIXTURES / "scene_cv2.npz")["rgb"]
+    limits = {"read_rgb": CV2_DECODE_LIMITS if decoder == "cv2" else NVJPEG_LIMITS,
+              "nvjpeg": NVJPEG_LIMITS}
+    decode = {}
+    for name, fn in (("read_rgb", image_io.read_rgb), ("nvjpeg", image_io.decode_nvjpeg)):
+        fn(FIXTURES / "scene.jpg")  # nvJPEG's first call builds the shim and its handle
+        t0 = time.perf_counter()
+        got = fn(FIXTURES / "scene.jpg")
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got.shape == want.shape and got.dtype == np.uint8,
+              f"{name}: decoded {got.shape} {got.dtype}")
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16)).max(-1)
+        r = decode[name] = {"max_abs": int(d.max()), "pixels": int((d > 0).sum()),
+                            "beyond_1": int((d > 1).sum()), "of": int(d.size), "ms": ms,
+                            "limits": limits[name]}
+        print(f"  {name} ({decoder if name == 'read_rgb' else 'nvjpeg'}) against the committed "
+              f"cv2 decode of the fixture: max abs diff {r['max_abs']}, {r['pixels']} of "
+              f"{r['of']} pixels differ, {r['beyond_1']} by more than 1 (limits "
+              f"{r['limits']}), {ms:.1f} ms")
+        check(r["max_abs"] <= r["limits"][0] and r["beyond_1"] <= r["limits"][1],
+              f"{name} against the cv2 decode: {r}")
+    resize = None
+    if imports["cv2"]:
+        import cv2
+
+        resize = {}
+        for label, size in (("box 2x", (360, 288)), ("area 0.1", (72, 58)),
+                            ("area 0.73", (528, 423)), ("upscale 1.33", (960, 768))):
+            ref = cv2.resize(want, size, interpolation=cv2.INTER_AREA)
+            resize[label] = int((image_io.resize_area(want, size) != ref).sum())
+        print(f"  resize_area against this machine's cv2.resize(INTER_AREA), differing bytes: "
+              f"{json.dumps(resize)}")
+        check(not any(resize.values()), f"resize_area differs from cv2: {resize}")
+    return {"imports": imports, "host_build_s": host_build_s, "decoder": decoder,
+            "decode": decode, "resize_vs_cv2_bytes": resize}
+
+
+def real_parse(root):
+    """Part (c): every split of the three fixtures parsed with pandas made
+    unimportable, and the native host ops held to their numpy versions on
+    these files: parsed values, keep matrices and patches equal."""
+    import numpy as np
+
+    from mggan_tpu_torch import native
+    from mggan_tpu_torch.data import parsing, registry
+    from mggan_tpu_torch.data.dataset import BIG_MARGIN
+    from mggan_tpu_torch.data.loaders import get_dataset
+
+    saved = sys.modules.get("pandas")
+    sys.modules["pandas"] = None  # the port's data path must not need it
+    try:
+        out, datasets = {}, {}
+        for name in ("zara1", "stanford", "gofp"):
+            info = registry.get_info(name)
+            for phase in REAL_PHASES:
+                t0 = time.perf_counter()
+                ds = datasets[name, phase] = get_dataset(name, phase, data_root=root)
+                ms = (time.perf_counter() - t0) * 1e3
+                peds = [len(t) for t in ds.trajectories]
+                check(len(ds) > 0, f"{name}/{phase}: no windows")
+                for txt in sorted((root / name / phase).glob("*.txt")):
+                    a = native.parse_numeric_txt(txt)
+                    b = native.parse_numeric_txt_reference(txt)
+                    check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+                          f"parse_numeric_txt differs from numpy on {name}/{txt.name}")
+                    check((a is None) == (name == "stanford"),
+                          f"{name}/{txt.name}: parse_numeric_txt gave {type(a)}")
+                    data = parsing.load_txt(txt, info)
+                    _, fi = np.unique(data[:, 0], return_inverse=True)
+                    _, pi = np.unique(data[:, 1], return_inverse=True)
+                    present = np.zeros((pi.max() + 1, fi.max() + 1), np.uint8)
+                    present[pi, fi] = 1
+                    check(np.array_equal(native.window_presence(present, 20),
+                                         native.window_presence_reference(present, 20)),
+                          f"window_presence differs from numpy on {name}/{txt.name}")
+                for t, scene, big in zip(ds.trajectories, ds.scene_names, ds.big_patches):
+                    centers = (t[:, 7] * ds.px_per_meter).astype(np.int64)
+                    ref = native.extract_patches_reference(ds.images[scene]["small"], centers,
+                                                           BIG_MARGIN)
+                    check(np.array_equal(big, ref), f"{name}/{phase}: patches differ from numpy")
+                nan = sum(int(np.isnan(t).any(axis=(1, 2)).sum()) for t in ds.trajectories)
+                out[f"{name}/{phase}"] = {"windows": len(ds), "peds": int(sum(peds)),
+                                          "max_peds": int(max(peds)), "nan_futures": nan,
+                                          "parse_ms": ms}
+                print(f"  parsed {name}/{phase}: {len(ds)} windows, {sum(peds)} peds (up to "
+                      f"{max(peds)} a window, {nan} with NaN futures) in {ms:.1f} ms")
+    finally:
+        if saved is None:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = saved
+    check(out["gofp/train"]["nan_futures"] > 0, "gofp: no NaN futures")
+    print("  the native host ops equal their numpy versions on every file (parsed values, "
+          "keep matrices) and every window (patches)")
+    return out, datasets
+
+
+def real_cli_pair(root, log_dir, test_windows):
+    """Part (d): ``cli.train`` with the flags of ``mggan4_zara1`` for 2
+    epochs, then ``cli.evaluate`` (all strategies, Precision/Recall) on the
+    test split, both on the card, launch counts read around the pair."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.cli import evaluate as evaluate_cli
+    from mggan_tpu_torch.cli import train as train_cli
+    from mggan_tpu_torch.configs import BENCHMARK_CONFIGS
+    from mggan_tpu_torch.ops import kernels
+
+    flags = {**BENCHMARK_CONFIGS["mggan4_zara1"], "epochs": 2, "val_every": 1, "augment": 1,
+             "patch_bank": 1, "seed": SEED}
+    argv = [x for k, v in flags.items() for x in (f"--{k}", str(v))]
+    argv += ["--name", "mggan4_zara1", "--log_dir", str(log_dir), "--data_root", str(root),
+             "--device", "cuda"]
+    print("  python -m mggan_tpu_torch.cli.train " + " ".join(argv))
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    model = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    vdir = model.writer.dir
+    lines = epoch_lines(model.writer)
+    check(len(lines) == 2, f"cli.train: {len(lines)} epochs logged")
+    bad = [(m["epoch"], k) for m in lines for k, v in m.items() if not np.isfinite(v)]
+    check(not bad, f"cli.train: non-finite epoch metrics {bad[:5]}")
+    check((vdir / "checkpoints" / "checkpoint_best").exists(), "cli.train: no best checkpoint")
+    t0 = time.perf_counter()
+    csv_path = evaluate_cli.main(["--model_path", str(vdir.parent), "--output_folder",
+                                  str(log_dir / "results"), "--phase", "test",
+                                  "--pred_strat", "all", "--data_root", str(root),
+                                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    with open(csv_path, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    strats = [r["Prediction strategy"] for r in rows]
+    check(strats == ["smart_expected", "expected", "sampling"], f"CSV rows {strats}")
+    metrics = [c for c in rows[0] if c.startswith(("ADE k=", "FDE k=", "Mode k=", "Precision",
+                                                   "Recall k="))]
+    check(len(metrics) == 4 * EVAL_K + 1, f"CSV: {len(metrics)} metric columns")
+    bad = [(r["Prediction strategy"], c) for r in rows for c in metrics
+           if not np.isfinite(float(r[c]))]
+    check(not bad, f"CSV: non-finite metrics {bad[:5]}")
+    check(int(rows[0]["Generator params"]) == model.config.num_gen_parameters > 0,
+          f"CSV: Generator params {rows[0]['Generator params']}")
+    need = {"decode_select": 1, "decode_all_fwd": 1, "decode_all_bwd": 1}
+    for name, n in need.items():
+        check(launches.get(name, 0) >= n, f"realdata_cli: {name} launched "
+                                          f"{launches.get(name, 0)} times")
+    warp = [n for n in WARP_KERNELS if launches.get(n)]
+    check(not warp, f"realdata_cli launched kept yardsticks {warp}")
+    return {"version_dir": vdir, "launches": launches, "train_s": train_s, "eval_s": eval_s,
+            "steps_per_sec": [m["perf/steps_per_sec"] for m in lines],
+            "steps": int(model.state.step),
+            "val_ade20": [m["val/ADE k=20"] for m in lines],
+            "eval_ms_per_window": eval_s / test_windows * 1e3, "test_windows": test_windows,
+            "csv": {r["Prediction strategy"]: {k: float(r[k]) for k in (
+                "ADE k=1", "ADE k=19", "FDE k=19", "Mode k=19", "Precision", "Recall k=19")}
+                for r in rows}}
+
+
+def real_card_vs_cpu(vdir, ds):
+    """Part (e): the trained version dir loaded on the card and on the CPU,
+    ``sampling`` and ``expected`` on the first REAL_CPU_WINDOWS test windows
+    with the same injected draws."""
+    import torch
+
+    from mggan_tpu_torch.data.batcher import PaddedBatcher
+    from mggan_tpu_torch.eval.evaluate import batch_seed, get_predictions_multi
+    from mggan_tpu_torch.training.loop import Trainer
+
+    sub = first_windows(ds, REAL_CPU_WINDOWS)
+    loader = lambda: PaddedBatcher(sub, batch_size=EVAL_BATCH)
+    card, _ = Trainer.load_from_path(vdir, "best", device="cuda")
+    cpu, _ = Trainer.load_from_path(vdir, "best", device="cpu")
+    strats = ("sampling", "expected")
+    p = loader().max_peds
+    draws = [cpu.predictor().make_draws(torch.Generator().manual_seed(batch_seed(SEED, i)),
+                                        strats, EVAL_BATCH, p, EVAL_K)
+             for i in range(len(loader()))]
+    on_card = get_predictions_multi(card.predictor(), loader(), EVAL_K, strats, draws=draws)
+    on_cpu = get_predictions_multi(cpu.predictor(), loader(), EVAL_K, strats, draws=draws)
+    ks = list(range(1, EVAL_K + 1))
+    out = {s: compare_eval(sub, on_card[s], on_cpu[s], ks, False) for s in strats}
+    for s, r in out.items():
+        print(f"  card vs CPU, {s}, {len(sub)} zara1 test windows, same draws: ADE/FDE max abs "
+              f"diff {r['metric_max_abs_diff']:.3e}, predictions {r['pred_max_abs_diff']:.3e} "
+              f"(atol {EVAL_ATOL:g}), Mode flips {r['mode_flips']}: within {r['ok']}")
+        check(r["ok"], f"realdata card vs CPU {s}: {r}")
+    return out
+
+
+def phase_real_data(host_build_s=None):
+    """Phase 15: real data and the train -> evaluate CLI pair (see the
+    module note); ``host_build_s``: phase 2's build of the host ops."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = smi_query("name,power.limit")
+    env = real_environment(host_build_s)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        write_real_fixtures(root)
+        write_s = time.perf_counter() - t0
+        parsed, datasets = real_parse(root)
+        test_ds = datasets["zara1", "test"]
+        cli = real_cli_pair(root, Path(tmp) / "logs", len(test_ds))
+        vs_cpu = real_card_vs_cpu(cli.pop("version_dir"), test_ds)
+    parse_ms = sum(r["parse_ms"] for r in parsed.values())
+    print(f"real data CLI pair ({card}): cli.train mggan4_zara1, {cli['steps']} steps in 2 "
+          f"epochs at batch 32, {cli['train_s']:.2f} s, steps/s per epoch "
+          f"{', '.join(f'{r:.3f}' for r in cli['steps_per_sec'])}; cli.evaluate (3 strategies, "
+          f"k=1..19, Precision/Recall) {cli['eval_s']:.2f} s, "
+          f"{cli['eval_ms_per_window']:.2f} ms per test window ({cli['test_windows']}); host "
+          f"parse of all 9 splits {parse_ms:.1f} ms; launches {json.dumps(cli['launches'])}; "
+          f"fixtures written in {write_s:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"card": card, "environment": env, "parse": parsed, "parse_ms_total": parse_ms,
+            **cli, "card_vs_cpu": vs_cpu, "seconds": time.perf_counter() - t_phase}
 
 
 def phase_bf16_kernels():
@@ -3160,7 +3539,7 @@ def main():
     sys.path.insert(0, str(HERE))
     t_start = time.perf_counter()
     phase_card()
-    build_s = phase_build()
+    build_s, host_build_s = phase_build()
     if sys.argv[1:] == ["--sweep"]:
         phase_launch_sweep()
         return 0
@@ -3179,6 +3558,7 @@ def main():
     abl_path = phase_ablation_path()
     redesigned = phase_redesigned()
     loop = phase_train_loop(train["p50_ms"])
+    real = phase_real_data(host_build_s)
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -3188,7 +3568,8 @@ def main():
     paths = {"serving": serving_launches, "train": train["launches"],
              **{f"eval_{mode}": r["launches"] for mode, r in evaluation["runs"].items()},
              **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()},
-             "ablation": abl_path["launches"], "train_loop": loop["launches"]}
+             "ablation": abl_path["launches"], "train_loop": loop["launches"],
+             "realdata_cli": real["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
@@ -3199,6 +3580,7 @@ def main():
         check(not by_path(name), f"{name} was launched on a path: {by_path(name)}")
     print(json.dumps({
         "build_s": build_s,
+        "host_ops_build_s": host_build_s,
         "serving_p50_ms": {str(b): v["p50_ms"] for b, v in latency.items()},
         "card_vs_cpu_max_abs_err": e2e_err,
         "train_step_p50_ms": train["p50_ms"],
@@ -3213,6 +3595,7 @@ def main():
                      "path": {k: v for k, v in abl_path.items() if k != "launches"}},
         "redesigned": redesigned,
         "train_loop": {k: v for k, v in loop.items() if k != "launches"},
+        "realdata_cli": {k: v for k, v in real.items() if k != "launches"},
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

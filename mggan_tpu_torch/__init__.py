@@ -11,5 +11,7 @@ Ported so far: k=20 PM-categorical sampling (``eval/predict.py``'s
 the fused-selection decoder as the CUDA kernel ``csrc/decode_select_tiled.cu``;
 and the flagship train step (``training/steps.py``: D, G and PM updates for
 mgan / NS / ml), whose all-generator rollout and its reverse sweep are the
-CUDA kernels of ``csrc/decode_all.cu``.
+CUDA kernels of ``csrc/decode_all.cu``; evaluation, the train loop, real
+datasets (``data/parsing.py``) and the ``cli.train`` -> ``cli.evaluate``
+pair.
 """

@@ -1,3 +1,4 @@
-"""Datasets, padded batches and eval-mode augmentation (counterpart of
-``mggan_tpu/data``). Ported so far: the in-memory synthetic dataset and its
-sequential loader, the evaluation path's input side."""
+"""Datasets, padded batches and augmentation (counterpart of
+``mggan_tpu/data``): the in-memory synthetic dataset, real datasets in the
+reference release layout (``parsing``), the loaders, the device patch bank,
+the prefetch thread and train-time augmentation."""

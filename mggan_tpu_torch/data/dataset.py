@@ -17,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 
+from mggan_tpu_torch import native
 from mggan_tpu_torch.config import OBS_LEN, SEQ_LEN  # SEQ_LEN: the data modules read it here
 
 MARGIN = 16  # margin_in = margin_out = 16 (data_loaders.py:33-34)
@@ -73,21 +74,10 @@ def extract_big_patches(small_img: np.ndarray, centers_px: np.ndarray) -> np.nda
 
     ``ImageFeatures_small``'s integer-truncated centre and zero-padded
     out-of-bounds crop (BaseTrajectories.py:254-277), with the larger
-    support on-device rotation needs. The numpy crop loop of the JAX
-    package (whose native C++ crop gives the same bytes).
+    support on-device rotation needs, through the native crop
+    (``native.extract_patches``; its plain version is
+    ``native.extract_patches_reference``).
     """
-    h, w = small_img.shape[:2]
-    n = len(centers_px)
-    cx = centers_px[:, 0].astype(np.int64)
-    cy = centers_px[:, 1].astype(np.int64)
-    out = np.zeros((n, BIG_PATCH, BIG_PATCH, 3), np.uint8)
-    for i in range(n):
-        x0, y0 = cx[i] - BIG_MARGIN, cy[i] - BIG_MARGIN
-        x1, y1 = x0 + BIG_PATCH, y0 + BIG_PATCH
-        sx0, sy0 = max(x0, 0), max(y0, 0)
-        sx1, sy1 = min(x1, w), min(y1, h)
-        if sx1 > sx0 and sy1 > sy0:
-            out[i, sy0 - y0 : sy1 - y0, sx0 - x0 : sx1 - x0] = small_img[
-                sy0:sy1, sx0:sx1
-            ]
-    return out
+    centers = np.stack([centers_px[:, 0].astype(np.int64),
+                        centers_px[:, 1].astype(np.int64)], axis=1)
+    return native.extract_patches(small_img, centers, BIG_MARGIN)

@@ -12,6 +12,7 @@ import torch
 from mggan_tpu_torch.config import PRED_LEN, SCENE_DIM, Config
 from mggan_tpu_torch.device import resolve_device
 from mggan_tpu_torch.models import discriminator, generator
+from mggan_tpu_torch.utils.pytree import tree_leaves
 
 
 def build_specs(config: Config) -> generator.GeneratorSpec:
@@ -70,16 +71,24 @@ def construct_model(config: Config, seed: int | None = None, device="cuda"):
     return tree_to(params, dev), tree_to(state, dev), spec
 
 
+def count_parameters(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
 def construct_gan(config: Config, seed: int | None = None, device="cuda"):
     """Build ``((g_params, g_state, g_spec), (d_params, d_state, d_spec))``
-    with random weights, as the JAX ``construct_model`` does. One CPU
-    ``torch.Generator`` seeded with ``seed`` (``config.seed`` when None)
-    draws the generator's weights, then the discriminator's."""
+    with random weights, as the JAX ``construct_model`` does, and fill
+    ``config.num_gen_parameters``. One CPU ``torch.Generator`` seeded with
+    ``seed`` (``config.seed`` when None) draws the generator's weights, then
+    the discriminator's."""
     dev = resolve_device(device)
     g_spec, d_spec = build_specs(config), build_d_spec(config)
     gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
     g_params, g_state = generator.init(g_spec, gen)
     d_params, d_state = discriminator.init(d_spec, gen)
+    config.num_gen_parameters = count_parameters(g_params)
+    print("G #parameters: ", config.num_gen_parameters)
+    print("D #parameters: ", count_parameters(d_params))
     on = lambda t: tree_to(t, dev)
     return ((on(g_params), on(g_state), g_spec),
             (on(d_params), on(d_state), d_spec))

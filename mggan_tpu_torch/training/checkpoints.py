@@ -66,16 +66,18 @@ def restore_checkpoint(ckpt_dir, like_state: TrainState, name: str) -> TrainStat
     """The ``TrainState`` saved as ``<ckpt_dir>/<name>``, on the devices of
     ``like_state`` (whose trees must have the same paths). The generator's
     state only restores onto a generator of the device type it was saved
-    from (a CPU and a CUDA generator hold different states)."""
+    from (a CPU and a CUDA generator hold different states): restored on
+    the other type, the state's ``generator`` is None, so the state
+    evaluates but does not resume training (``Trainer.train_epoch``
+    raises)."""
     blob = torch.load(Path(ckpt_dir) / name, map_location="cpu", weights_only=True)
     if blob.get("format") != FORMAT:
         raise ValueError(f"{Path(ckpt_dir) / name} is not a {FORMAT} checkpoint")
     gen_dev = like_state.generator.device
-    if torch.device(blob["generator_device"]).type != gen_dev.type:
-        raise ValueError(f"checkpoint saved with a {blob['generator_device']} generator "
-                         f"cannot resume its random stream on {gen_dev}")
-    generator = torch.Generator(device=gen_dev)
-    generator.set_state(blob["generator"])
+    generator = None
+    if torch.device(blob["generator_device"]).type == gen_dev.type:
+        generator = torch.Generator(device=gen_dev)
+        generator.set_state(blob["generator"])
     opt = lambda k, like: AdamState(blob[k]["count"], _like(blob[k]["mu"], like.mu, k),
                                     _like(blob[k]["nu"], like.nu, k))
     return TrainState(

@@ -131,7 +131,8 @@ class Trainer:
     def _loaders(self):
         cfg = self.config
         common = dict(batch_size=cfg.batch_size, max_peds=cfg.max_peds or None,
-                      patch_bank=bool(cfg.patch_bank), device=self.device)
+                      data_root=cfg.data_root, patch_bank=bool(cfg.patch_bank),
+                      device=self.device)
         return (get_dataloader(cfg.dataset, "train", augment=bool(cfg.augment),
                                shuffle=True, seed=cfg.seed, **common),
                 get_dataloader(cfg.dataset, "val", **common))
@@ -145,6 +146,10 @@ class Trainer:
         mask-counted) and ``seconds`` (host clock, ending in a
         synchronize).
         """
+        if self.state.generator is None:
+            raise ValueError("this train state was restored on another device type than "
+                             "its checkpoint's, so its random stream cannot resume; it "
+                             "evaluates, but does not train")
         self.state = self.state.replace(epoch=epoch + 1)
         metrics = defaultdict(list)
         t0 = time.perf_counter()
@@ -238,6 +243,7 @@ class Trainer:
 
     def test(self, num_k=20, batch_size=8, **kwargs):
         loader = get_dataloader(self.config.dataset, "test", batch_size=batch_size,
+                                data_root=self.config.data_root,
                                 patch_bank=bool(self.config.patch_bank), device=self.device)
         return self.check_accuracy(loader, num_k=num_k, **kwargs)
 

@@ -803,3 +803,24 @@ def test_train_augmentation_matches_cpu(cuda, interp):
     off = lambda c: np.abs(c.numpy() - np.floor(c.numpy()) - 0.5)
     assert not (diff & (off(sx) >= 1e-4) & (off(sy) >= 1e-4)).any()
     assert diff.sum() <= 8
+
+
+@pytest.mark.cuda
+def test_read_rgb_nvjpeg_matches_cv2_decode(cuda, monkeypatch):
+    """read_rgb's nvJPEG route on the committed fixture JPEG against its
+    committed cv2 decode: nvJPEG rounds YCbCr to RGB its own way, so pixels
+    may differ by up to 4 levels, and at most 16,000 of 414,720 by more
+    than 1 (chip_smoke.py's NVJPEG_LIMITS; 4 and 13,733 on an H100)."""
+    from pathlib import Path
+
+    from mggan_tpu_torch.data import image_io
+
+    fixtures = Path(__file__).resolve().parents[1] / "mggan_tpu_torch" / "tools" / "fixtures"
+    want = np.load(fixtures / "scene_cv2.npz")["rgb"]
+    monkeypatch.setattr(image_io, "_cv2", lambda: None)  # as where cv2 is not installed
+    assert image_io.decoder() == "nvjpeg"
+    got = image_io.read_rgb(fixtures / "scene.jpg")
+    assert got.shape == want.shape and got.dtype == np.uint8
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16)).max(-1)
+    assert d.max() <= 4 and (d > 1).sum() <= 16_000
+    np.testing.assert_array_equal(image_io.decode_nvjpeg(fixtures / "scene.jpg"), got)

@@ -147,8 +147,10 @@ def test_loader_matches_jax_and_unported_parts_raise():
     out = augment.augment_batch(batch, train=True, device="cpu", aug=aug)
     assert out["patches"].shape == (8, ours.max_peds, 33, 33, 4)
     assert not torch.equal(out["xy"], torch.from_numpy(batch["xy"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loaders.get_dataset("eth", "test")
+    # real datasets parse from the release layout; a missing one says where
+    # the files go
+    with pytest.raises(FileNotFoundError, match="download the reference data release"):
+        loaders.get_dataset("eth", "test", data_root="/nonexistent/datasets")
     with pytest.raises(NotImplementedError, match="item 13"):
         loaders.get_dataloader("synthetic_memory", "test", shard_by_process=True)
 

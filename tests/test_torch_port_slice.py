@@ -176,7 +176,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          'training.checkpoints', 'training.loop', 'utils.logging',\n"
         "          'utils.trajectory_tools',\n"
         "          'ops.kernels.decode_sorted', 'ops.kernels.decode_ablation',\n"
-        "          'ablations.decode_ablation', 'ablations.sorted_select_ablation'):\n"
+        "          'ablations.decode_ablation', 'ablations.sorted_select_ablation',\n"
+        "          'data.registry', 'data.homography', 'data.parsing', 'data.image_io',\n"
+        "          'data.table', 'native', 'configs', 'cli.train', 'cli.evaluate'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )
