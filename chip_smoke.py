@@ -130,7 +130,26 @@ Phases, in order; any failure exits nonzero before the result line:
      pair (path ``realdata_cli``); (e) the version dir loaded on the card
      and on the CPU, ``sampling`` and ``expected`` on 64 test windows with
      the same draws (atol 1e-4);
- 16. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 16. train-step families (``training/steps.py``): (a) at the flagship
+     widths (h = decoder_h = 32, the scene CNN, 4 generators; gan at 1) on
+     the 256 x 16 train batch, K=20, one warm-up and five timed steps each
+     of the flagship (the yardstick of the others' times), the four golden
+     families (gan / l2, infogan / none, mgan / ml / W, probgan / ml) and
+     the CPU tests' cases A-E (MM / endpoint / min_z /
+     abs / no global D; LS / mgan compat 0 / mse / sgan; infogan / W /
+     min_g_min_z; 2 unrolled D updates gated every 2 steps; the discrete
+     generator with the prior; one unconditional generator, gan, no PM, no
+     L2), with K1, K2 and K3 launches per step checked and the launch
+     counts read around all of them (path ``families``); then each family's
+     step at 4 scenes with injected draws on the card and on the CPU
+     (metrics and parameters within 1e-4; an element whose gradient is
+     float noise, as the conv biases' before train-mode BN, within 2 * lr
+     per update, its gradient within 1e-4 of its module's rms:
+     ``tools/state_compare.py``); (b) ``cli.train`` with
+     ``single_gen_eth``'s flags for 2 epochs on a BIWI ``eth`` split written
+     as phase 15's splits are, then ``cli.evaluate`` with Precision/Recall, every CSV
+     metric finite (path ``single_gen_cli``);
+ 17. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -192,6 +211,8 @@ KINK = 1e-5
 # 2 * lr per update (G: two updates per step, D: one).
 TRAIN_ATOL = TRAIN_RTOL = 1e-4
 NOISE_LEAVES = {("scene", "conv1", "b"), ("scene", "conv2", "b")}
+# Phase 16 holds the float-noise elements of any leaf, and NOISE_LEAVES,
+# by their gradients (mggan_tpu_torch/tools/state_compare.py).
 # bf16 kernels against their bf16 plain versions on the card: a rounding of
 # h to bf16 can land on the other side between two summation orders, and
 # the max over rows grows with the row count (on an H100 80GB HBM3 at
@@ -1108,6 +1129,8 @@ REAL_PHASES = ("train", "val", "test")
 # zara1 at about the real split's scale: frames per phase, peds arriving at
 # REAL_ARRIVAL a frame and staying 30-60 frames (8-15 present at a time)
 ZARA1_FRAMES = {"train": 850, "val": 90, "test": 90}
+# eth (BIWI) at reduced frames, for phase 16's single_gen_eth CLI pair
+ETH_FRAMES = {"train": 300, "val": 60, "test": 60}
 REAL_ARRIVAL = 0.25
 SDD_FRAMES = {"train": 240, "val": 60, "test": 60}  # frames kept by the 30 fps subsampling
 GOFP_FRAMES = {"train": 120, "val": 50, "test": 50}  # frames kept by the 10 fps subsampling
@@ -1159,13 +1182,7 @@ def write_real_fixtures(root):
 
     rng = np.random.RandomState(SEED)
     jpg = FIXTURES / "scene.jpg"
-    for phase in REAL_PHASES:
-        d = root / "zara1" / phase
-        d.mkdir(parents=True)
-        rows = write_walkers(rng, ZARA1_FRAMES[phase], REAL_ARRIVAL, (720 * 0.05, 576 * 0.05))
-        (d / f"{phase}_zara1.txt").write_text("\n".join(
-            f"{float(f)}\t{float(p)}\t{y:.4f}\t{x:.4f}" for f, p, x, y in rows))
-        shutil.copy(jpg, d / "zara1.jpg")
+    write_biwi(root, "zara1", ZARA1_FRAMES, rng)
     (root / "stanford").mkdir()
     (root / "stanford" / "H_SDD.txt").write_text(
         f"File\tVersion\tRatio\nsc0.jpg\tA\t{SDD_RATIO}\nsc0.jpg\tB\t0.5\n")
@@ -1199,6 +1216,21 @@ def write_real_fixtures(root):
             lines.append(f"{4.0 * f + 2}\t{float(p)}\t{xy}\t0\t0\t{p % 3}\t1")  # subsampled out
         (d / f"{phase}_{GOFP_SCENE}.txt").write_text("\n".join(lines))
         shutil.copy(jpg, d / f"{GOFP_SCENE}.jpg")
+
+
+def write_biwi(root, scene, frames, rng):
+    """A BIWI split (frame, ID, y, x in metres; every phase of ``frames``)
+    of ``write_walkers``' peds under ``root/<scene>``, with the committed
+    fixture JPEG as its scene image."""
+    import shutil
+
+    for phase in REAL_PHASES:
+        d = root / scene / phase
+        d.mkdir(parents=True)
+        rows = write_walkers(rng, frames[phase], REAL_ARRIVAL, (720 * 0.05, 576 * 0.05))
+        (d / f"{phase}_{scene}.txt").write_text("\n".join(
+            f"{float(f)}\t{float(p)}\t{y:.4f}\t{x:.4f}" for f, p, x, y in rows))
+        shutil.copy(FIXTURES / "scene.jpg", d / f"{scene}.jpg")
 
 
 def real_environment(host_build_s):
@@ -1451,6 +1483,249 @@ def phase_real_data(host_build_s=None):
           f"fixtures written in {write_s:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
     return {"card": card, "environment": env, "parse": parsed, "parse_ms_total": parse_ms,
             **cli, "card_vs_cpu": vs_cpu, "seconds": time.perf_counter() - t_phase}
+
+
+# Phase 16: the train-step families at the flagship widths (h = decoder_h
+# = 32, the scene CNN, 4 generators; gan at 1) on TRAIN_SCENES x PEDS, K =
+# NUM: the flagship itself (phase 5's config, the in-phase yardstick of
+# the others' step times: the host-bound step runs slower late in a whole
+# run than in phase 5), the four golden families and the cases of
+# tests/test_torch_port_families_jax_*.py
+FAMILIES = {
+    "flagship_mgan_ml": {},
+    "gan_l2": dict(gan_type="gan", weighting_target="l2", num_gens=1),
+    "infogan_none": dict(gan_type="infogan", weighting_target="none"),
+    "mgan_ml_W": dict(gan_obj="W"),
+    "probgan_ml": dict(gan_type="probgan"),
+    "A_MM_endpoint_abs": dict(gan_obj="MM", weighting_target="endpoint", l2_loss_type="min_z",
+                              inp_format="abs", global_disc=0),
+    "B_LS_mgan0_sgan": dict(gan_obj="LS", weighting_target="mgan", wt_mgan_compat=0,
+                            l2_loss_type="mse", pool_type="sgan"),
+    "C_infogan_W": dict(gan_type="infogan", gan_obj="W", l2_loss_type="min_g_min_z"),
+    "D_unroll2_gated": dict(num_unrolling_steps=2, num_gen_steps=2, keep_gen_steps=1,
+                            weighting_target="mgan"),
+    "E_discrete": dict(experiment="discrete", unconditional=True),
+    "E_uncond_gan": dict(gan_type="gan", weighting_target="none", l2_loss_type="none",
+                         unconditional=True, num_gens=1),
+}
+FAMILY_STEPS = 5
+FAMILY_CPU_SCENES = 4
+
+
+def family_config(name):
+    """The flagship config with family ``name``'s settings."""
+    from mggan_tpu_torch.config import Config, flagship_config
+
+    base = flagship_config(num_samples=NUM, num_expectation_samples=1).to_dict()
+    return Config.from_dict({**base, **FAMILIES[name]})
+
+
+def family_timing(name, batch):
+    """One warm-up and FAMILY_STEPS timed steps of family ``name`` on the
+    card (host clock around a step that ends in a synchronize), the
+    launches of each kernel per timed step, and the last metrics."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.models.factory import construct_gan
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step
+
+    cfg = family_config(name)
+    g_pack, d_pack = construct_gan(cfg, seed=SEED, device="cuda")
+    state = init_train_state(cfg, g_pack, d_pack, seed=SEED)
+    step = build_train_step(cfg, g_pack[2], d_pack[2])
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    before, times = dict(kernels.launches), []
+    for _ in range(FAMILY_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_step = {k: (v - before.get(k, 0)) / FAMILY_STEPS for k, v in kernels.launches.items()
+                if v - before.get(k, 0)}
+    values = {k: float(v) for k, v in metrics.items()}
+    # a gated-out D step reports NaN D metrics (case D's odd steps)
+    bad = [k for k, v in values.items() if not np.isfinite(v)
+           and not (cfg.num_gen_steps > 1 and ("_D" in k or "/D/" in k or "disc" in k))]
+    check(not bad, f"family {name}: non-finite metrics {bad}")
+    d_runs = sum(1 for i in range(1, FAMILY_STEPS + 1)
+                 if cfg.num_gen_steps <= 1 or i % cfg.num_gen_steps == 0)
+    need = {"decode_select": d_runs * (cfg.num_unrolling_steps + 1) / FAMILY_STEPS,
+            "decode_all_fwd": 1 + (cfg.weighting_target in ("l2", "endpoint", "ml")),
+            "decode_all_bwd": 1}
+    for kname, n in need.items():
+        check(per_step.get(kname, 0) == n,
+              f"family {name}: {kname} {per_step.get(kname, 0)} launches a step, {n} due")
+    return {"p50_ms": float(np.median(times)), "times_ms": times, "first_ms": first_ms,
+            "launches_per_step": per_step,
+            "num_gens": cfg.num_gens,
+            "losses": {k: v for k, v in values.items() if k.startswith("train/")
+                       and "grad" not in k and "lr_" not in k and np.isfinite(v)}}
+
+
+def family_card_vs_cpu(name):
+    """One step of family ``name`` with the same weights and injected draws
+    on the card and on the CPU at FAMILY_CPU_SCENES scenes: metrics within
+    TRAIN_ATOL/RTOL, parameters within TRAIN_ATOL but the float-noise
+    elements, held by their gradients (``train_state_diffs``)."""
+    import math
+
+    import torch
+
+    from mggan_tpu_torch.models.factory import construct_gan, tree_to
+    from mggan_tpu_torch.tools.state_compare import train_state_diffs
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step, make_draws
+
+    cfg = family_config(name)
+    g_pack, d_pack = construct_gan(cfg, seed=SEED + 16, device="cpu")
+    draws = make_draws(torch.Generator().manual_seed(SEED), cfg, FAMILY_CPU_SCENES, PEDS,
+                       g_pack[0], d_pack[0])
+    batch = train_batch(FAMILY_CPU_SCENES, SEED + 16)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        on = lambda pack: (tree_to(pack[0], dev), tree_to(pack[1], dev), pack[2])
+        g, d = on(g_pack), on(d_pack)
+        state = init_train_state(cfg, g, d, seed=SEED)
+        results[dev] = build_train_step(cfg, g[2], d[2])(state, batch, draws)
+    (s_gpu, m_gpu), (s_cpu, m_cpu) = results["cuda"], results["cpu"]
+    check(set(m_gpu) == set(m_cpu), f"family {name}: metric keys differ")
+    metric_err, metric_bad = 0.0, []
+    for k, want in m_cpu.items():
+        got, want = float(m_gpu[k]), float(want)
+        if math.isnan(want) and math.isnan(got):
+            continue
+        metric_err = max(metric_err, abs(got - want))
+        if not abs(got - want) <= TRAIN_ATOL + TRAIN_RTOL * abs(want):
+            metric_bad.append(k)
+    diffs = train_state_diffs(s_gpu, s_cpu, cfg, TRAIN_ATOL, NOISE_LEAVES)
+    param_bad = diffs.pop("bad")
+    check(not metric_bad, f"family {name} card vs CPU: metrics beyond tolerance {metric_bad}")
+    check(not param_bad, f"family {name} card vs CPU: parameters beyond tolerance "
+                         f"{param_bad[:4]}")
+    return {"metric_max_abs_diff": metric_err, **diffs}
+
+
+def single_gen_cli(root, log_dir):
+    """Part (b): ``cli.train`` with ``single_gen_eth``'s flags (one
+    generator, gan, no PM target, batch 32) for 2 epochs with augmentation
+    and the patch bank on the eth split, then ``cli.evaluate`` (k=1..19,
+    Precision/Recall) on its test split, launch counts read around the
+    pair (path ``single_gen_cli``)."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.cli import evaluate as evaluate_cli
+    from mggan_tpu_torch.cli import train as train_cli
+    from mggan_tpu_torch.configs import BENCHMARK_CONFIGS
+    from mggan_tpu_torch.ops import kernels
+
+    flags = {**BENCHMARK_CONFIGS["single_gen_eth"], "epochs": 2, "val_every": 1,
+             "augment": 1, "patch_bank": 1, "seed": SEED}
+    argv = [x for k, v in flags.items() for x in (f"--{k}", str(v))]
+    argv += ["--name", "single_gen_eth", "--log_dir", str(log_dir), "--data_root", str(root),
+             "--device", "cuda"]
+    print("  python -m mggan_tpu_torch.cli.train " + " ".join(argv))
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    model = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    lines = epoch_lines(model.writer)
+    check(len(lines) == 2, f"single_gen_eth: {len(lines)} epochs logged")
+    bad = [(m["epoch"], k) for m in lines for k, v in m.items() if not np.isfinite(v)]
+    check(not bad, f"single_gen_eth: non-finite epoch metrics {bad[:5]}")
+    t0 = time.perf_counter()
+    csv_path = evaluate_cli.main(["--model_path", str(model.writer.dir.parent),
+                                  "--output_folder", str(log_dir / "results"), "--phase",
+                                  "test", "--pred_strat", "all", "--data_root", str(root),
+                                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    with open(csv_path, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    check([r["Prediction strategy"] for r in rows] == ["sampling"],
+          f"single_gen_eth CSV rows {[r['Prediction strategy'] for r in rows]}")
+    metrics = [c for c in rows[0] if c.startswith(("ADE k=", "FDE k=", "Mode k=", "Precision",
+                                                   "Recall k="))]
+    check(len(metrics) == 4 * EVAL_K + 1, f"single_gen_eth CSV: {len(metrics)} metrics")
+    bad = [c for c in metrics if not np.isfinite(float(rows[0][c]))]
+    check(not bad, f"single_gen_eth CSV: non-finite metrics {bad[:5]}")
+    for kname in ("decode_select", "decode_all_fwd", "decode_all_bwd"):
+        check(launches.get(kname, 0) >= 1, f"single_gen_cli: {kname} launched "
+                                           f"{launches.get(kname, 0)} times")
+    return {"launches": launches, "train_s": train_s, "eval_s": eval_s,
+            "steps": int(model.state.step),
+            "steps_per_sec": [m["perf/steps_per_sec"] for m in lines],
+            "val_ade20": [m["val/ADE k=20"] for m in lines],
+            "csv": {k: float(rows[0][k]) for k in ("ADE k=1", "ADE k=19", "FDE k=19",
+                                                   "Mode k=19", "Precision", "Recall k=19")}}
+
+
+def phase_families(flagship_p50_ms):
+    """Phase 16: every train-step family on the card (see the module note);
+    ``flagship_p50_ms``: phase 5's step p50, printed beside each family's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.tools.state_compare import GRAD_NOISE_REL
+
+    t_phase = time.perf_counter()
+    card = smi_query("name,power.limit")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in train_batch(TRAIN_SCENES, SEED).items()}
+    kernels.launches.clear()
+    timing = {name: family_timing(name, batch) for name in FAMILIES}
+    launches = dict(kernels.launches)
+    print("families launches:", json.dumps(launches))
+    warp = [n for n in WARP_KERNELS if launches.get(n)]
+    check(not warp, f"families launched kept yardsticks {warp}")
+    base = timing["flagship_mgan_ml"]["p50_ms"]
+    print(f"train-step families ({card}), {TRAIN_SCENES} scenes x {PEDS} peds, K={NUM}, "
+          f"h=32, p50 of {FAMILY_STEPS} steps (host clock, synchronized) beside this "
+          f"phase's flagship ({base:.3f} ms; phase 5's {flagship_p50_ms:.3f} ms):")
+    for name, r in timing.items():
+        r["vs_flagship"] = r["p50_ms"] / base
+        print(f"  {name} (G={r['num_gens']}): p50 {r['p50_ms']:.3f} ms "
+              f"({r['vs_flagship']:.2f}x), steps {json.dumps(r['times_ms'])} ms, "
+              f"first {r['first_ms']:.1f} ms, launches a step "
+              f"{json.dumps(r['launches_per_step'])}")
+    t_cpu = time.perf_counter()
+    vs_cpu = {}
+    for name in FAMILIES:
+        c = vs_cpu[name] = family_card_vs_cpu(name)
+        print(f"  {name} card vs CPU at {FAMILY_CPU_SCENES} scenes, injected draws: metrics "
+              f"{c['metric_max_abs_diff']:.3e}, parameters {c['param_max_abs_diff']:.3e} "
+              f"(atol {TRAIN_ATOL:g}); {c['noise_elements']} of {c['elements']} elements "
+              f"with float-noise gradients: parameters {c['noise_max_abs_diff']:.3e} (bound "
+              f"2*lr per update), first moments {c['noise_grad_max_rel_diff']:.3e} of the "
+              f"module's rms gradient (bound {GRAD_NOISE_REL:g}; every element "
+              f"{c['grad_max_rel_diff']:.3e})")
+    cpu_s = time.perf_counter() - t_cpu
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        write_biwi(root, "eth", ETH_FRAMES, np.random.RandomState(SEED + 16))
+        cli = single_gen_cli(root, Path(tmp) / "logs")
+    print(f"single_gen_eth CLI pair ({card}): cli.train {cli['steps']} steps in 2 epochs at "
+          f"batch 32, {cli['train_s']:.2f} s; cli.evaluate (sampling, k=1..19, "
+          f"Precision/Recall) {cli['eval_s']:.2f} s; CSV {json.dumps(cli['csv'])}; launches "
+          f"{json.dumps(cli['launches'])}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 16 (families): {secs:.1f} s, of which card vs CPU {cpu_s:.1f} s")
+    return {"card": card, "flagship_p50_ms": flagship_p50_ms, "timing": timing,
+            "card_vs_cpu": vs_cpu, "launches": launches, "single_gen_cli": cli,
+            "seconds": secs}
 
 
 def phase_bf16_kernels():
@@ -3559,6 +3834,7 @@ def main():
     redesigned = phase_redesigned()
     loop = phase_train_loop(train["p50_ms"])
     real = phase_real_data(host_build_s)
+    families = phase_families(train["p50_ms"])
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -3569,7 +3845,8 @@ def main():
              **{f"eval_{mode}": r["launches"] for mode, r in evaluation["runs"].items()},
              **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()},
              "ablation": abl_path["launches"], "train_loop": loop["launches"],
-             "realdata_cli": real["launches"]}
+             "realdata_cli": real["launches"], "families": families["launches"],
+             "single_gen_cli": families["single_gen_cli"]["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
@@ -3596,6 +3873,10 @@ def main():
         "redesigned": redesigned,
         "train_loop": {k: v for k, v in loop.items() if k != "launches"},
         "realdata_cli": {k: v for k, v in real.items() if k != "launches"},
+        "families": {**{k: v for k, v in families.items() if k not in ("launches",
+                                                                        "single_gen_cli")},
+                     "single_gen_cli": {k: v for k, v in families["single_gen_cli"].items()
+                                        if k != "launches"}},
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -89,6 +89,11 @@ class Config:
     num_unrolling_steps: int = 0
     global_disc: int = 1
     wt_mgan_compat: int = 1
+    # probgan's SGHMC noise terms (mggan_tpu/config.py:86-89): the noise's
+    # std and each loss's weight
+    sghmc_alpha: float = 0.01
+    g_noise_loss_lambda: float = 3e-2
+    d_noise_loss_lambda: float = 3e-2
     batch_size: int = 2
     # the train loop (mggan_tpu/config.py:41-135)
     augment: int = 1
@@ -157,9 +162,12 @@ def flagship_config(**kw) -> Config:
 
 
 # Flags of the JAX parser that the port accepts so JAX command lines carry
-# over, but cannot honour yet: away from these defaults they raise.
+# over, but does not honour: away from these defaults they raise.
 _POD = "joining a multi-process pod is not ported yet (ROADMAP.md queue 1 item 13)"
+_UNREAD = "the JAX package parses it and reads it nowhere, so it would change nothing"
 UNPORTED_FLAGS = {
+    "debug": (False, _UNREAD),
+    "d_hist_loss_lambda": (1.0, _UNREAD),
     "distributed": (0, _POD),
     "coordinator_address": (None, _POD),
     "num_processes": (None, _POD),
@@ -220,10 +228,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_gens", type=int, default=d.num_gens)
     p.add_argument("--l2_decay_rate", type=float, default=d.l2_decay_rate)
     p.add_argument("--checkpoint", type=str, default=None)
-    # probgan's SGHMC settings (ROADMAP.md queue 1 item 10)
-    p.add_argument("--sghmc_alpha", type=float, default=0.01)
-    p.add_argument("--g_noise_loss_lambda", type=float, default=3e-2)
-    p.add_argument("--d_noise_loss_lambda", type=float, default=3e-2)
+    p.add_argument("--sghmc_alpha", type=float, default=d.sghmc_alpha)
+    p.add_argument("--g_noise_loss_lambda", type=float, default=d.g_noise_loss_lambda)
+    p.add_argument("--d_noise_loss_lambda", type=float, default=d.d_noise_loss_lambda)
     p.add_argument("--d_hist_loss_lambda", type=float, default=1.0)
     p.add_argument("--gan_obj", type=str, choices=GAN_OBJECTIVES, default=d.gan_obj)
     p.add_argument("--max_peds", type=int, default=d.max_peds)

@@ -3,9 +3,8 @@ BASELINE.json "configs").
 
 Each entry maps to CLI flags for ``python -m mggan_tpu_torch.cli.train``;
 use ``get_benchmark_config(name)`` for a ready Config. Every name builds a
-``Config``; the ones outside the port's train-step scope raise when a
-``Trainer`` is built: ``single_gen_eth`` (gan_type gan, ROADMAP.md queue 1
-item 10) and ``mggan_dp_eth`` (dp=8, item 13).
+``Config`` and all but one train: ``mggan_dp_eth`` (dp=8) raises when a
+``Trainer`` is built (multi-device training, ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations

@@ -16,8 +16,10 @@ from mggan_tpu_torch.utils.pytree import tree_leaves
 
 
 def build_specs(config: Config) -> generator.GeneratorSpec:
-    if config.experiment == "discrete":
-        raise NotImplementedError("the discrete-latent generator is not ported yet")
+    """The generator's spec (factory.py:12-40): the PM-net unless
+    ``weighting_target`` is none or the model is ``unconditional``, and for
+    ``experiment="discrete"`` the one-decoder discrete-latent generator."""
+    discrete = config.experiment == "discrete"
     return generator.GeneratorSpec(
         z_size=config.noise_dim,
         encoder_h_dim=config.h_dim,
@@ -25,12 +27,14 @@ def build_specs(config: Config) -> generator.GeneratorSpec:
         social_feat_size=config.h_dim if config.n_social_modules > 0 else 0,
         num_gens=config.num_gens,
         pred_len=PRED_LEN,
-        # multi_generator uses decoder_h_dim // 2 (model_factory.py:28)
-        embedding_dim=int(config.decoder_h_dim // 2),
+        # multi_generator uses decoder_h_dim // 2, discrete 16
+        # (model_factory.py:28,57)
+        embedding_dim=16 if discrete else int(config.decoder_h_dim // 2),
         inp_format=config.inp_format,
         pool_type=config.pool_type,
         scene_dim=SCENE_DIM,
         use_pinet=config.use_pinet,
+        discrete=discrete,
     )
 
 

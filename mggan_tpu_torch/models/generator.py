@@ -1,9 +1,21 @@
 """Multi-generator G: encoder + scene/social context + PM-net + decoders.
 
-Counterpart of ``mggan_tpu/models/generator.py`` for the continuous
-multi-generator with sways social attention (the serving flagship).
-Parameters are nested dicts of tensors in the JAX layout; the G decoders
-are one tree with a leading generator axis.
+Counterpart of ``mggan_tpu/models/generator.py``: the continuous
+multi-generator (``MultiGenerator``, standard.py:17-302) with sways social
+attention or SGAN pooling, and the discrete-latent ablation
+(``DiscreteLatentGenerator``, standard_discrete.py:18-257). Parameters are
+nested dicts of tensors in the JAX layout; the continuous G's decoders are
+one tree with a leading generator axis.
+
+The discrete G runs one shared decoder once per generator identity: only
+its initial state ``h0 = enc_to_dec([enc, embed(one_hot(g)), z])``
+depends on the identity. So its rollouts are the same kernels on the one
+decoder's weight image (a generator axis of 1): ``decode_all`` stacks the
+G identities' rows (``G*K*S*P`` rows, identity-major) through K2 (and K3
+in the backward); ``decode_select`` computes each row's ``h0`` from its
+sampled identity and rolls out those rows alone through K1. Without a
+PM-net (``weighting_target="none"`` or ``unconditional``) the logits are
+the learnable prior ``net_prior``.
 """
 
 from __future__ import annotations
@@ -11,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from mggan_tpu_torch.models import common
 from mggan_tpu_torch.models.common import GeneratorOutput
@@ -20,6 +33,7 @@ from mggan_tpu_torch.ops.cnn import scene_cnn_apply, scene_cnn_apply_train, scen
 from mggan_tpu_torch.ops.kernels import decode_all as decode_all_kernel
 from mggan_tpu_torch.ops.kernels import decoder as decoder_kernel
 from mggan_tpu_torch.ops.linear import linear_init, mlp_apply, mlp_init
+from mggan_tpu_torch.utils.pytree import tree_map
 
 
 @dataclass(frozen=True)
@@ -37,6 +51,7 @@ class GeneratorSpec:
     pool_type: str
     scene_dim: int  # 0 disables the scene CNN
     use_pinet: bool
+    discrete: bool = False  # DiscreteLatentGenerator ablation
 
     @property
     def social_out_dim(self) -> int:
@@ -50,8 +65,6 @@ class GeneratorSpec:
 def init(spec: GeneratorSpec, generator: torch.Generator):
     """Build ``(params, state)`` from ``generator``'s draws, on its device.
     ``state`` holds the scene CNN's BatchNorm running statistics."""
-    if spec.social_feat_size > 0 and spec.pool_type != "sways":
-        raise NotImplementedError("only sways social pooling is ported")
     gen = generator
     params = {
         "encoder": common.trajectory_encoder_init(
@@ -62,17 +75,32 @@ def init(spec: GeneratorSpec, generator: torch.Generator):
     state = {}
     if spec.scene_dim > 0:
         params["scene"], state["scene"] = scene_cnn_init(gen, channels_cnn=16)
-    if spec.social_feat_size > 0:
+    h = spec.encoder_h_dim
+    if spec.social_feat_size > 0 and spec.pool_type == "sways":
         params["social"] = {
             "embed": mlp_init(gen, [3, 32, 64, spec.social_feat_size]),
-            "w": linear_init(gen, spec.encoder_h_dim, spec.social_feat_size),
+            "w": linear_init(gen, h, spec.social_feat_size),
         }
-    params["decoders"] = common.stacked_decoders_init(
-        gen, spec.num_gens, spec.embedding_dim, spec.decoder_h_dim,
-        spec.inp_format, spec.social_out_dim,
-    )
-    params["enc_to_dec"] = mlp_init(gen, [spec.enc_total + spec.z_size, spec.decoder_h_dim])
-    h = spec.encoder_h_dim
+    elif spec.social_feat_size > 0:
+        params["social"] = {
+            "spatial": linear_init(gen, 2, spec.embedding_dim),
+            "pre_pool": mlp_init(gen, [spec.embedding_dim + h, h, h]),
+        }
+    enc_to_dec_in = spec.enc_total + spec.z_size
+    if spec.discrete:
+        params["decoder"] = common.relative_decoder_init(
+            gen, spec.embedding_dim, spec.decoder_h_dim, spec.inp_format,
+            spec.social_out_dim)
+        # one-hot -> z embedding (standard_discrete.py:103)
+        params["one_hot_sample_encoder"] = mlp_init(
+            gen, [spec.num_gens, spec.z_size, spec.z_size])
+        enc_to_dec_in += spec.z_size
+    else:
+        params["decoders"] = common.stacked_decoders_init(
+            gen, spec.num_gens, spec.embedding_dim, spec.decoder_h_dim,
+            spec.inp_format, spec.social_out_dim,
+        )
+    params["enc_to_dec"] = mlp_init(gen, [enc_to_dec_in, spec.decoder_h_dim])
     params["net_chooser"] = mlp_init(gen, [spec.enc_total, h // 2, h // 2, spec.num_gens])
     params["net_prior"] = torch.zeros((1, spec.num_gens), device=gen.device)
     return params, state
@@ -106,11 +134,15 @@ def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
             scene_enc = scene_cnn_apply(params["scene"], state["scene"], flat,
                                         compute_dtype)
         feats.append(scene_enc.reshape(s, p, -1))
-    if spec.social_feat_size > 0:
+    if spec.social_feat_size > 0 and spec.pool_type == "sways":
         social_feats = social_ops.social_attention_apply(
             params["social"], in_xy[..., -1, :], in_dxdy[..., -1, :], enc_h,
             ped_mask,
         )
+        feats.append(social_feats)
+    elif spec.social_feat_size > 0:
+        social_feats = social_ops.pool_hidden_net_apply(
+            params["social"], in_xy[..., -1, :], enc_h, ped_mask)
         feats.append(social_feats)
     else:
         social_feats = enc_h.new_zeros(enc_h.shape[:-1] + (0,))
@@ -125,13 +157,24 @@ def pm_logits(params, spec: GeneratorSpec, enc_h):
     return prior.expand(enc_h.shape[:-1] + (spec.num_gens,))
 
 
-def _decoder_h0(params, enc_h, noise):
+def _decoder_h0(params, enc_h, noise, onehot=None):
     """``enc_to_dec([enc_h, z])`` for every sample: ``(K*S*P, H)`` rows in
-    ``(k, s, p)``-major order."""
+    ``(k, s, p)``-major order. For the discrete G, ``onehot`` (broadcastable
+    to ``(K, S, P, G)``) is the generator identity, embedded between the two
+    (``enc_to_dec([enc_h, embed(onehot), z])``, standard_discrete.py:168-223)."""
     k = noise.shape[0]
     enc_b = enc_h[None].expand((k,) + tuple(enc_h.shape))
-    h0 = mlp_apply(params["enc_to_dec"], torch.cat([enc_b, noise], dim=-1))
+    parts = [enc_b, noise]
+    if onehot is not None:
+        emb = mlp_apply(params["one_hot_sample_encoder"], onehot)
+        parts.insert(1, emb.expand(tuple(noise.shape[:-1]) + (emb.shape[-1],)))
+    h0 = mlp_apply(params["enc_to_dec"], torch.cat(parts, dim=-1))
     return h0.reshape(-1, h0.shape[-1])
+
+
+def _one_decoder(params):
+    """The discrete G's shared decoder as a stack of one generator."""
+    return tree_map(lambda x: x[None], params["decoder"])
 
 
 def _reshape_samples(x, spec, noise):
@@ -154,13 +197,23 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     """
     k, s, p, _ = noise.shape
     flat = lambda x: x.reshape(-1, x.shape[-1])
-    # rows are (k, s, p)-major, the order _decoder_h0 produces
-    abs_g, rel_g = decode_all_kernel.decode_all(
-        params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
-        _decoder_h0(params, enc_h, noise), spec.pred_len, spec.inp_format,
-        compute_dtype,
-    )
-    shape = (spec.num_gens, k, s, p, spec.pred_len, 2)
+    g = spec.num_gens
+    if spec.discrete:
+        # the G identities' h0 stacked identity-major: (G*K*S*P, H), one
+        # decoder; the per-agent inputs' rows repeat every S*P rows
+        eye = torch.eye(g, dtype=enc_h.dtype, device=enc_h.device)
+        h0 = torch.cat([_decoder_h0(params, enc_h, noise, eye[i]) for i in range(g)])
+        abs_g, rel_g = decode_all_kernel.decode_all(
+            _one_decoder(params), flat(last_xy), flat(last_dxdy), flat(social_feats), h0,
+            spec.pred_len, spec.inp_format, compute_dtype)
+    else:
+        # rows are (k, s, p)-major, the order _decoder_h0 produces
+        abs_g, rel_g = decode_all_kernel.decode_all(
+            params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
+            _decoder_h0(params, enc_h, noise), spec.pred_len, spec.inp_format,
+            compute_dtype,
+        )
+    shape = (g, k, s, p, spec.pred_len, 2)
     reshape = lambda x: x.reshape(shape).transpose(0, 1)
     return GeneratorOutput(rel=reshape(rel_g), abs=reshape(abs_g))
 
@@ -190,11 +243,18 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
         return GeneratorOutput(rel=sampling.gather_samples(out.rel, gen_idxs),
                                abs=sampling.gather_samples(out.abs, gen_idxs))
     flat = lambda x: x.reshape(-1, x.shape[-1]).contiguous()
-    h0 = _decoder_h0(params, enc_h, noise).contiguous()
     # rows are (k, s, p)-major, the order _decoder_h0 produces
     idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
+    if spec.discrete:
+        # each row's h0 from its sampled identity, then the one decoder
+        onehot = F.one_hot(gen_idxs.permute(2, 0, 1).long(), spec.num_gens).to(enc_h.dtype)
+        h0 = _decoder_h0(params, enc_h, noise, onehot).contiguous()
+        stacked, idx = _one_decoder(params), torch.zeros_like(idx)
+    else:
+        h0 = _decoder_h0(params, enc_h, noise).contiguous()
+        stacked = params["decoders"]
     abs_sel, rel_sel = decoder_kernel.decode_select(
-        params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
+        stacked, flat(last_xy), flat(last_dxdy), flat(social_feats),
         h0, idx, spec.pred_len, spec.inp_format, compute_dtype,
     )
     return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),

@@ -29,7 +29,8 @@ def _check_keys(tree, expected, where):
 
 def generator_from_jax(np_params, np_state, spec, device="cuda"):
     """JAX generator trees (numpy leaves) -> the port's ``(params, state)``."""
-    expected = {"encoder", "decoders", "enc_to_dec", "net_chooser", "net_prior"}
+    expected = {"encoder", "enc_to_dec", "net_chooser", "net_prior"}
+    expected |= ({"decoder", "one_hot_sample_encoder"} if spec.discrete else {"decoders"})
     if spec.scene_dim > 0:
         expected.add("scene")
     if spec.social_feat_size > 0:
@@ -46,11 +47,14 @@ def discriminator_from_jax(np_params, np_state, spec, device="cuda"):
         expected.add("social")
     if spec.scene_dim > 0:
         expected.add("scene")
-    if spec.gan_type == "mgan":
+    if spec.gan_type in ("mgan", "infogan"):
         expected.add("branch")
     _check_keys(np_params, expected, "discriminator params")
-    _check_keys(np_state, {"scene"} if spec.scene_dim > 0 else set(),
-                "discriminator state")
+    state_keys = {"scene"} if spec.scene_dim > 0 else set()
+    if spec.gan_type == "probgan":
+        state_keys.add("hist")
+        _check_keys(np_state["hist"], {"discs", "len"}, "discriminator hist")
+    _check_keys(np_state, state_keys, "discriminator state")
     dev = resolve_device(device)
     return _to_tensors(np_params, dev), _to_tensors(np_state, dev)
 
@@ -103,9 +107,17 @@ class _Reader:
         params["bn2"], bn2 = self.bn(f"{cnn}.ConvBlock_2.Block.BN_1")
         return params, {"bn1": bn1, "bn2": bn2}
 
-    def social(self, prefix):
-        return {"embed": self.mlp(f"{prefix}.feature_embedder.fc", [0, 2, 4]),
-                "w": self.lin(f"{prefix}.attention.W")}
+    def social(self, prefix, pool_type):
+        if pool_type == "sways":
+            return {"embed": self.mlp(f"{prefix}.feature_embedder.fc", [0, 2, 4]),
+                    "w": self.lin(f"{prefix}.attention.W")}
+        return {"spatial": self.lin(f"{prefix}.spatial_embedding"),
+                "pre_pool": self.mlp(f"{prefix}.mlp_pre_pool", [0, 2])}
+
+    def decoder(self, prefix):
+        return {"spatial_embedding": self.lin(f"{prefix}.spatial_embedding"),
+                "lstm": self.lstm(f"{prefix}.decoder"),
+                "hidden2pos": self.mlp(f"{prefix}.hidden2pos", [0, 2])}
 
     def encoder(self, prefix):
         params = {"lstm": self.lstm(f"{prefix}.encoder")}
@@ -131,14 +143,12 @@ def generator_from_state_dict(sd, spec, device="cuda"):
     if spec.scene_dim > 0:
         params["scene"], state["scene"] = r.scene("scene_encoder")
     if spec.social_feat_size > 0:
-        params["social"] = r.social("social")
-    gens = [
-        {"spatial_embedding": r.lin(f"gs.{i}.spatial_embedding"),
-         "lstm": r.lstm(f"gs.{i}.decoder"),
-         "hidden2pos": r.mlp(f"gs.{i}.hidden2pos", [0, 2])}
-        for i in range(spec.num_gens)
-    ]
-    params["decoders"] = _stack(gens)
+        params["social"] = r.social("social", spec.pool_type)
+    if spec.discrete:
+        params["decoder"] = r.decoder("decoder")
+        params["one_hot_sample_encoder"] = r.mlp("one_hot_sample_encoder", [0, 2])
+    else:
+        params["decoders"] = _stack([r.decoder(f"gs.{i}") for i in range(spec.num_gens)])
     params["enc_to_dec"] = r.mlp("enc_h_to_dec_h", [0])
     params["net_chooser"] = r.mlp("net_chooser", [0, 2, 4])
     params["net_prior"] = r.take("net_prior")
@@ -148,11 +158,11 @@ def generator_from_state_dict(sd, spec, device="cuda"):
 def discriminator_from_state_dict(sd, spec, device="cuda"):
     """Reference-format discriminator state dict -> ``(params, state)``.
 
-    Strict: every key the spec implies must be present and no other.
+    Strict: every key the spec implies must be present and no other. A
+    probgan D's history heads are ``discs_hist.{i}``; the state dict holds
+    no history length, so it restarts at 1, as the JAX import does
+    (``torch_import.py:148-154``).
     """
-    if spec.gan_type not in ("mgan", "gan"):
-        raise NotImplementedError(
-            f"gan_type={spec.gan_type!r} is not ported yet (ROADMAP.md queue 1 item 10)")
     r = _Reader(sd)
     params = {
         "in_encoder": r.encoder("in_encoder"),
@@ -161,13 +171,19 @@ def discriminator_from_state_dict(sd, spec, device="cuda"):
     }
     state = {}
     if spec.global_disc:
-        params["social"] = r.social("social")
+        params["social"] = r.social("social", spec.pool_type)
     if spec.scene_dim > 0:
         params["scene"], state["scene"] = r.scene("scene_encoder")
     params["discs"] = _stack([r.mlp(f"discs.{i}", [0, 2])
                               for i in range(spec.num_discs)])
     if spec.gan_type == "mgan":
         params["branch"] = r.mlp("gen_id_reconstructor", [0, 2])
+    elif spec.gan_type == "infogan":
+        params["branch"] = r.mlp("code_reconstructor", [0, 2])
+    if spec.gan_type == "probgan":
+        state["hist"] = {"discs": _stack([r.mlp(f"discs_hist.{i}", [0, 2])
+                                          for i in range(spec.num_discs)]),
+                         "len": np.asarray(1.0, np.float32)}
     return r.finish("discriminator", params, state, device)
 
 

@@ -35,16 +35,33 @@ def gan_labels(generator=None, values=None, smoothness=0.1, device=None):
 def phi_losses(gan_obj: str):
     """The ``(phi_1, phi_2, phi_3)`` objective triple (abstract_train.py:61-85):
     D loss on real, D loss on fake, G adversarial loss, each mapping
-    ``(scores, label_real, label_fake)`` to an elementwise loss. The port
-    has the NS objective so far."""
+    ``(scores, label_real, label_fake)`` to an elementwise loss. NS and MM
+    take probabilities, LS and W the unbounded scores of ``unbound_output``."""
     if gan_obj == "NS":
         return (
             lambda d, lr, lf: bce(d, lr),
             lambda d, lr, lf: bce(d, lf),
             lambda d, lr, lf: bce(d, lr),
         )
-    raise NotImplementedError(
-        f"gan_obj={gan_obj!r} is not ported yet (ROADMAP.md queue 1 item 10)")
+    if gan_obj == "MM":
+        return (
+            lambda d, lr, lf: bce(d, lr),
+            lambda d, lr, lf: bce(d, lf),
+            lambda d, lr, lf: -bce(d, lf),
+        )
+    if gan_obj == "LS":
+        return (
+            lambda d, lr, lf: (d - lr) ** 2,
+            lambda d, lr, lf: (d - lf) ** 2,
+            lambda d, lr, lf: (d - lr) ** 2,
+        )
+    if gan_obj == "W":
+        return (
+            lambda d, lr, lf: -d,
+            lambda d, lr, lf: d,
+            lambda d, lr, lf: -d,
+        )
+    raise ValueError(f"Objective not supported: {gan_obj}")
 
 
 def masked_mean(x, mask):

@@ -1,7 +1,10 @@
-"""Masked sways social attention over padded scene tensors.
+"""Masked social modules over padded scene tensors: sways attention and
+SGAN pooling.
 
 Counterpart of ``mggan_tpu/ops/social.py`` (``social_features``,
-``attention_pool``, ``social_attention_apply``). Scenes are rows of a dense
+``attention_pool``, ``social_attention_apply``, ``pool_hidden_net_apply``;
+``social_pooling_apply`` belongs to the legacy Social-GAN of ROADMAP.md
+queue 1 item 15). Scenes are rows of a dense
 ``(S, P, P)`` pairwise tensor; ``mask (S, P)`` marks real peds. Pairwise
 tensors are indexed ``[s, i, j]`` with ``i`` the attending ped.
 """
@@ -65,3 +68,25 @@ def social_attention_apply(params, last_xy, last_dxdy, enc_h, mask):
     """
     femb = mlp_apply(params["embed"], social_features(last_xy, last_dxdy, mask))
     return attention_pool(params["w"], femb, enc_h, mask)
+
+
+def pool_hidden_net_apply(params, last_xy, enc_h, mask, activation="relu"):
+    """Masked SGAN pooling (``PoolHiddenNet.forward``, social_gan.py:201-229).
+
+    ``rel[s,i,j] = pos_j - pos_i`` is embedded, concatenated with ``h_j``,
+    passed through the pre-pool MLP and max-pooled over the real peers j
+    (self included, as in the reference); rows of padded peds are zero.
+    params = {"spatial": linear (2->emb), "pre_pool": mlp [emb+H, H, H]};
+    ``enc_h (..., S, P, H)``: leading sample axes share the geometry (JAX's
+    vmap). Returns ``(..., S, P, H)``.
+    """
+    rel = last_xy[:, None, :, :] - last_xy[:, :, None, :]  # (S, P_i, P_j, 2)
+    rel_emb = linear_apply(params["spatial"], rel)
+    lead = tuple(enc_h.shape[:-3])
+    hj = enc_h[..., None, :, :].expand(lead + tuple(rel_emb.shape[:3]) + (enc_h.shape[-1],))
+    inp = torch.cat([rel_emb.expand(lead + tuple(rel_emb.shape)), hj], dim=-1)
+    pooled = mlp_apply(params["pre_pool"], inp, activation=activation)
+    valid_j = (mask[:, None, :] & mask[:, :, None])[..., None]
+    pooled = torch.where(valid_j, pooled, torch.full_like(pooled, NEG_INF))
+    out = pooled.max(dim=-2).values
+    return torch.where(mask[..., None], out, torch.zeros_like(out))

@@ -16,7 +16,8 @@ by default; a test injects another to replay the JAX Trainer's keys):
 ``aug(epoch, i, s)`` the augmentation of batch ``i`` of ``epoch``, a pure
 function of (seed, epoch, i) as JAX's ``fold_in`` keys are, so a resumed
 run replays an uninterrupted one; ``step(state, s, p)`` the step's draws
-(``DRAW_KEYS``), from the checkpointed ``state.generator``; and ``val(i,
+(``needed_draw_keys``, in ``make_draws``'s fixed order), from the
+checkpointed ``state.generator``; and ``val(i,
 s, p, num)`` the sampling draws of validation batch ``i``, seeded afresh
 in every ``check_accuracy`` as JAX uses ``PRNGKey(0)`` there.
 """
@@ -67,7 +68,8 @@ class SeededDraws:
             stream_seed(self.config.seed + 1, epoch, i)), s)
 
     def step(self, state, s: int, p: int):
-        return make_draws(state.generator, self.config, s, p)
+        return make_draws(state.generator, self.config, s, p, state.g_params,
+                          state.d_params)
 
     def val(self, i: int, s: int, p: int, num: int):
         gen = self._generator(batch_seed(0, i))
@@ -91,8 +93,11 @@ def check_loop_scope(config: Config):
 
 
 class Trainer:
-    """The multi-generator GAN trainer for the train step's scope (mgan /
-    NS / ml / min_g_z; ``training/steps.py::check_scope``), on ``device``.
+    """The GAN trainer for every family of the train step (gan, mgan,
+    infogan and probgan; the four objectives; every PM target but
+    disc_scores; D gating and unrolling; the discrete generator:
+    ``training/steps.py``), on ``device``. probgan's history heads ride in
+    ``state.d_state`` and so in every checkpoint.
 
     ``draws`` replaces the random-number source (``SeededDraws``'s three
     methods); the weights are random from ``config.seed``.

@@ -42,6 +42,10 @@ from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 T = 12
 ATOL = 1e-4

@@ -36,6 +36,10 @@ from mggan_tpu_torch.ops.kernels import decode_all as kda
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 T = 12
 BF16_ATOL = 2e-3
 FORMATS = ["rel", "abs", "abs_rel"]

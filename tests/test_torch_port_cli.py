@@ -37,6 +37,10 @@ from mggan_tpu_torch.data import parsing
 from mggan_tpu_torch.training.loop import Trainer
 from mggan_tpu_torch.utils.logging import ExperimentWriter
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 PHASES = ("train", "val", "test")
 TRAIN_FLAGS = [
     "--epochs", "1", "--batch_size", "4", "--num_gens", "2",
@@ -203,6 +207,18 @@ def test_parsers_match_jax(monkeypatch, tmp_path):
     assert a.pop("device") == "cuda" and b.pop("device") == "tpu"
     assert a == b
 
+    # probgan's SGHMC flags reach the Config, at the JAX Config's defaults
+    # and away from them
+    sghmc = ("sghmc_alpha", "g_noise_loss_lambda", "d_noise_loss_lambda")
+    jax_defaults = jax_config.Config()
+    assert all(getattr(config.Config(), k) == getattr(jax_defaults, k) for k in sghmc)
+    argv = [x for i, k in enumerate(sghmc) for x in (f"--{k}", str(0.5 + i))]
+    cfg = config.config_from_args(ours.parse_args(["--dataset", "synthetic_memory", *argv]))
+    assert [getattr(cfg, k) for k in sghmc] == [0.5, 1.5, 2.5]
+    jcfg = jax_config.config_from_args(theirs.parse_args(["--dataset", "synthetic_memory",
+                                                          *argv]))
+    assert [getattr(jcfg, k) for k in sghmc] == [0.5, 1.5, 2.5]
+
     # the JAX-only flags: accepted at their defaults, raise away from them
     base = ["--dataset", "synthetic_memory"]
     cfg = config.config_from_args(ours.parse_args(base + ["--compilation_cache_dir", "x"]))
@@ -211,7 +227,9 @@ def test_parsers_match_jax(monkeypatch, tmp_path):
                          (["--coordinator_address", "h:1"], "item 13"),
                          (["--num_processes", "2"], "item 13"),
                          (["--process_id", "0"], "item 13"),
-                         (["--pallas_decoder", "0"], "CUDA")):
+                         (["--pallas_decoder", "0"], "CUDA"),
+                         (["--d_hist_loss_lambda", "2"], "reads it nowhere"),
+                         (["--debug"], "reads it nowhere")):
         with pytest.raises(NotImplementedError, match=match):
             config.config_from_args(ours.parse_args(base + extra))
     # the entry points run on the card unless the CPU is asked for
@@ -228,11 +246,14 @@ def test_benchmark_config_matches_jax(tmp_path, name):
     assert {k: theirs[k] for k in got} == got
     assert ours.use_pinet == theirs["use_pinet"]
     assert configs.BENCHMARK_CONFIGS == jax_configs.BENCHMARK_CONFIGS
-    item = {"single_gen_eth": "item 10", "mggan_dp_eth": "item 13"}.get(name)
-    if item:  # outside the train step's scope: raises when training starts
-        cfg = configs.get_benchmark_config(name, h_dim=8, decoder_h_dim=8,
-                                           log_dir=str(tmp_path))
-        writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, config=cfg,
-                                  tensorboard=False)
-        with pytest.raises(NotImplementedError, match=item):
+    # every config trains but the multi-device one (item 13), which raises
+    # when training starts
+    cfg = configs.get_benchmark_config(name, h_dim=8, decoder_h_dim=8,
+                                       log_dir=str(tmp_path))
+    writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, config=cfg,
+                              tensorboard=False)
+    if name == "mggan_dp_eth":
+        with pytest.raises(NotImplementedError, match="item 13"):
             Trainer(cfg, writer, device="cpu")
+    else:
+        assert Trainer(cfg, writer, device="cpu").state.step == 0

@@ -824,3 +824,61 @@ def test_read_rgb_nvjpeg_matches_cv2_decode(cuda, monkeypatch):
     d = np.abs(got.astype(np.int16) - want.astype(np.int16)).max(-1)
     assert d.max() <= 4 and (d > 1).sum() <= 16_000
     np.testing.assert_array_equal(image_io.decode_nvjpeg(fixtures / "scene.jpg"), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gan_type,wt,gan_obj", [
+    ("gan", "l2", "NS"), ("infogan", "none", "NS"), ("mgan", "ml", "W"),
+    ("probgan", "ml", "NS"),
+])
+def test_golden_family_step_matches_cpu(cuda, gan_type, wt, gan_obj):
+    """One train step of each golden family (tests/test_golden.py's config
+    and batch) on the card (K1, K2, K3) and on the CPU (plain versions)
+    from the same weights and draws, float32 throughout (TF32 off for the
+    convolutions too): metrics and parameters within 1e-4, but where a
+    gradient is float noise, so that Adam's step may flip sign
+    (``tools/state_compare.py``): there the parameter within 2 * lr per
+    Adam update and the gradient within 1e-4 of its module's rms. The conv
+    biases before train-mode BN are such leaves, and under W the D heads'
+    output bias: W's D loss is a difference of two means over the same
+    agents, whose derivative by that bias is 0."""
+    from mggan_tpu_torch.config import Config
+    from mggan_tpu_torch.models.factory import construct_gan
+    from mggan_tpu_torch.tools.state_compare import train_state_diffs
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step, make_draws
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(dataset="synthetic_memory", batch_size=4, num_gens=2, epochs=2,
+                 num_samples=3, num_expectation_samples=2, h_dim=16, decoder_h_dim=16,
+                 noise_dim=8, gan_type=gan_type, weighting_target=wt, gan_obj=gan_obj)
+    g_pack, d_pack = construct_gan(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(11)
+    xy = rng.randn(4, 3, 20, 2).astype(np.float32).cumsum(axis=2)
+    mask = np.ones((4, 3), bool)
+    mask[0, -1] = False
+    xy[~mask] = 0.0
+    batch = {"xy": xy, "ped_mask": mask,
+             "patches": rng.uniform(-1, 1, (4, 3, 33, 33, 4)).astype(np.float32)}
+    draws = make_draws(torch.Generator().manual_seed(1), cfg, 4, 3, g_pack[0], d_pack[0])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = (_on(g_pack[0], dev), _on(g_pack[1], dev), g_pack[2])
+        d = (_on(d_pack[0], dev), _on(d_pack[1], dev), d_pack[2])
+        before = dict(kernels.launches)
+        out[dev.type] = build_train_step(cfg, g[2], d[2])(init_train_state(cfg, g, d), batch,
+                                                         draws)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in (kdec.KERNEL, kda.KERNEL_FWD, kda.KERNEL_BWD):
+                assert kernels.launches[name] > before.get(name, 0), name
+    (s_gpu, m_gpu), (s_cpu, m_cpu) = out["cuda"], out["cpu"]
+    assert set(m_gpu) == set(m_cpu)
+    for k, want in m_cpu.items():
+        np.testing.assert_allclose(float(m_gpu[k]), float(want), atol=1e-4, rtol=1e-4,
+                                   err_msg=k)
+    noise = {("scene", "conv1", "b"), ("scene", "conv2", "b")}
+    if gan_obj == "W":
+        noise.add(("discs", "lin1", "b"))
+    diffs = train_state_diffs(s_gpu, s_cpu, cfg, 1e-4, noise)
+    assert not diffs["bad"], diffs["bad"][:4]

@@ -24,6 +24,10 @@ from mggan_tpu_torch.ops.kernels import decoder as kdec
 from mggan_tpu_torch.ops.sampling import gather_samples
 from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 T = 12
 ATOL = 1e-4
 FORMATS = ["rel", "abs", "abs_rel"]

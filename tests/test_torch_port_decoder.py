@@ -24,6 +24,10 @@ from mggan_tpu.ops.pallas import decoder as jax_dec
 from mggan_tpu_torch.ops import kernels
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 T = 12
 ATOL = 1e-4  # 12-step rollout (PARITY.md loss-value section)

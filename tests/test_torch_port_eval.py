@@ -45,6 +45,10 @@ from mggan_tpu_torch.models.weights import generator_from_jax
 from mggan_tpu_torch.ops import sampling
 from mggan_tpu_torch.utils.pytree import relative_to_abs
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden" / "eval_metrics_v1.json"
 ATOL = 1e-4  # 12-step rollout (PARITY.md)
 K = 19  # the evaluate CLI decodes max(range(1, 20)) samples

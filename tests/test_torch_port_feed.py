@@ -41,6 +41,10 @@ from mggan_tpu_torch.utils.logging import ExperimentWriter, get_versions, load_m
 from mggan_tpu_torch.utils.pytree import tree_items
 from mggan_tpu_torch.utils.trajectory_tools import GradNormLogger
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 TRAJ_ATOL = 2e-5
 BILINEAR_ATOL = 1e-5
 TIE_PX = 1e-4

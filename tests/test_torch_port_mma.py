@@ -27,6 +27,10 @@ from mggan_tpu_torch.ops.kernels import decode_all as kda
 from mggan_tpu_torch.ops.kernels import decode_sorted as ks
 from mggan_tpu_torch.ops.kernels import decoder as kdec
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 T = 12
 SMS = 132  # an H100 SXM
 ROW, QUAD = torch.arange(32) // 4, torch.arange(32) % 4

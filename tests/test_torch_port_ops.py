@@ -23,6 +23,10 @@ from mggan_tpu_torch.models import common
 from mggan_tpu_torch.ops import cnn, linear, lstm, sampling, social
 from mggan_tpu_torch.training import steps
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 ATOL = 2e-5
 
 

@@ -35,6 +35,10 @@ from mggan_tpu_torch.models.weights import (
 )
 from mggan_tpu_torch.serving.runtime import MissingSceneInputError, ServingModel
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-4
 S, P, K = 3, 5, 20
@@ -178,7 +182,11 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          'ops.kernels.decode_sorted', 'ops.kernels.decode_ablation',\n"
         "          'ablations.decode_ablation', 'ablations.sorted_select_ablation',\n"
         "          'data.registry', 'data.homography', 'data.parsing', 'data.image_io',\n"
-        "          'data.table', 'native', 'configs', 'cli.train', 'cli.evaluate'):\n"
+        "          'data.table', 'native', 'configs', 'cli.train', 'cli.evaluate',\n"
+        "          'config', 'ops.losses', 'ops.social', 'models.discriminator',\n"
+        "          'models.generator', 'models.factory', 'models.weights',\n"
+        "          'training.steps', 'training.state', 'eval.predict',\n"
+        "          'tools.state_compare'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )

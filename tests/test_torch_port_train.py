@@ -43,6 +43,10 @@ from mggan_tpu_torch.training.state import init_train_state, make_optimizer
 from mggan_tpu_torch.training.steps import batch_views, build_train_step
 from mggan_tpu_torch.utils.pytree import tree_items, tree_leaves
 
+# small CPU tensors: one intra-op thread runs them faster, and the test
+# run's worker processes share the cores
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden" / "train_step_mgan_ml_v1.json"
 ATOL = RTOL = 1e-4
 
@@ -72,9 +76,13 @@ def _batch(s, p, seed=11):
     return {"xy": xy, "ped_mask": mask, "patches": patches}
 
 
-def _jax_draws(rng, cfg: JaxConfig, s, p):
+def _jax_draws(rng, cfg: JaxConfig, s, p, d_params=None, g_params=None):
     """The random numbers the JAX step draws from ``state.rng``
-    (steps.py:404, 162, 240; sampling.py:15-43; losses.gan_labels)."""
+    (steps.py:125, 162, 240, 404, 423; sampling.py:15-43;
+    losses.gan_labels; trajectory_tools.noise_loss), in ``make_draws``'s
+    layout: each D update ``u`` from ``fold_in(kd, u)`` when unrolling, else
+    from ``kd``; probgan's normals from ``fold_in(key, 1729)``, one key per
+    leaf of ``d_params`` / ``g_params`` (the JAX trees)."""
     _, kd, kg, kpm = jax.random.split(rng, 4)
 
     def labels(key):
@@ -87,14 +95,34 @@ def _jax_draws(rng, cfg: JaxConfig, s, p):
         u = jax.random.uniform(k_cat, (k, s, p, cfg.num_gens), minval=1e-20, maxval=1.0)
         return np.array(u), np.array(jax.random.normal(k_noise, (k, s, 1, cfg.noise_dim)))
 
-    d_lab, d_gen, _ = jax.random.split(kd, 3)
+    def normals(key, tree):
+        leaves, treedef = jax.tree.flatten(tree)
+        keys = jax.random.split(jax.random.fold_in(key, 1729), len(leaves))
+        return jax.tree.unflatten(treedef, [np.array(jax.random.normal(k, x.shape))
+                                            for k, x in zip(keys, leaves)])
+
+    unroll = cfg.num_unrolling_steps
+    d_keys = [jax.random.fold_in(kd, u) for u in range(unroll + 1)] if unroll else [kd]
+    d_units = []
+    for key in d_keys:
+        d_lab, d_gen, d_gp = jax.random.split(key, 3)
+        du, dz = sampled(d_gen, 1)
+        d_units.append((labels(d_lab), du, dz, np.array(jax.random.uniform(d_gp, (s, p, 1, 1))),
+                        normals(key, d_params) if cfg.gan_type == "probgan" else None))
     g_lab, g_gen = jax.random.split(kg)
-    du, dz = sampled(d_gen, 1)
     gu, gz = sampled(g_gen, cfg.num_samples)
     pm_z = jax.random.normal(kpm, (cfg.num_expectation_samples, s, 1, cfg.noise_dim))
-    return {"d_labels": labels(d_lab), "d_uniforms": du, "d_z": dz,
-            "g_labels": labels(g_lab), "g_uniforms": gu, "g_z": gz,
-            "pm_z": np.array(pm_z)}
+    draws = {"d_labels": np.array([u[0] for u in d_units]),
+             "d_uniforms": np.stack([u[1] for u in d_units]),
+             "d_z": np.stack([u[2] for u in d_units]),
+             "g_labels": labels(g_lab), "g_uniforms": gu, "g_z": gz,
+             "pm_z": np.array(pm_z)}
+    if cfg.gan_obj == "W":
+        draws["d_alpha"] = np.stack([u[3] for u in d_units])
+    if cfg.gan_type == "probgan":
+        draws["d_noise"] = jax.tree.map(lambda *xs: np.stack(xs), *[u[4] for u in d_units])
+        draws["g_noise"] = normals(kg, g_params)
+    return draws
 
 
 def _port_step(cfg, packs, batch, draws):
@@ -267,9 +295,14 @@ def test_train_step_matches_jax_at_flagship_width():
 
 
 def test_build_train_step_raises_outside_its_scope():
+    """Only what the JAX step refuses raises: the disc_scores PM target.
+    The settings that once raised here build a step."""
     for kw in ({"gan_type": "gan"}, {"gan_obj": "W"}, {"weighting_target": "l2"},
                {"num_unrolling_steps": 1}, {"num_gen_steps": 2},
                {"l2_loss_type": "mse"}):
         cfg = Config(num_gens=2, h_dim=8, decoder_h_dim=8, **kw)
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            build_train_step(cfg, factory.build_specs(cfg), factory.build_d_spec(cfg))
+        assert callable(build_train_step(cfg, factory.build_specs(cfg),
+                                         factory.build_d_spec(cfg)))
+    cfg = Config(num_gens=2, h_dim=8, decoder_h_dim=8, weighting_target="disc_scores")
+    with pytest.raises(NotImplementedError, match="disc_scores"):
+        build_train_step(cfg, factory.build_specs(cfg), factory.build_d_spec(cfg))
