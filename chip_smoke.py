@@ -149,7 +149,29 @@ Phases, in order; any failure exits nonzero before the result line:
      ``single_gen_eth``'s flags for 2 epochs on a BIWI ``eth`` split written
      as phase 15's splits are, then ``cli.evaluate`` with Precision/Recall, every CSV
      metric finite (path ``single_gen_cli``);
- 17. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 17. deployment, on phase 15's ``mggan4_zara1`` version dir, launch counts
+     read around (a)-(d) (path ``deployment``: K1 and K2, no kept
+     yardstick): (a) ``cli.convert --reverse`` to a reference-format dir and
+     ``cli.convert --pth`` back into a port version dir, its parameters and
+     BN statistics equal to the original's bit for bit; (b) ``cli.export``
+     of ``sampling`` and ``expected`` at ``--scenes 1,8,64 --peds 16 --num
+     20``, ``from_artifact`` equal to ``from_version_dir`` bit for bit at
+     each bucket, one 8-scene request with injected draws on the artifact
+     loaded on the card and on the CPU (atol 1e-4); (c)
+     ``serving.server.start_background`` over the ``sampling`` artifact:
+     zara1's small image registered through ``POST /v1/scenes``, one request
+     with ``scene_ids`` equal to ``predict_batch`` on ``crop_patches`` and
+     the folded seed bit for bit, the HTTP overhead of 20 one-scene
+     requests over ``predict_batch`` at bucket 1, 400 without scene input,
+     404 for an unknown path, then 64 client threads of 4 single-scene
+     requests (p50, p99, requests/s, batches, mean batch, early
+     dispatches; every answer's shape and finiteness); (d) ``cli.serve
+     --input`` on the zara1 test txt with the small image as
+     ``--scene_img``, over a ``sampling`` artifact exported at as many peds
+     as the file's 8-frame windows hold: the npz's windows those of
+     ``load_obs_windows``, each equal to ``predict_batch`` on its crops bit
+     for bit;
+ 18. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -167,6 +189,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1456,23 +1479,23 @@ def real_card_vs_cpu(vdir, ds):
     return out
 
 
-def phase_real_data(host_build_s=None):
+def phase_real_data(tmp, host_build_s=None):
     """Phase 15: real data and the train -> evaluate CLI pair (see the
-    module note); ``host_build_s``: phase 2's build of the host ops."""
-    import tempfile
-
+    module note) in the directory ``tmp``; ``host_build_s``: phase 2's build
+    of the host ops. Returns the summary and, for phase 17, the data root,
+    the zara1 test split and the trained version dir."""
     t_phase = time.perf_counter()
     card = smi_query("name,power.limit")
     env = real_environment(host_build_s)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        t0 = time.perf_counter()
-        write_real_fixtures(root)
-        write_s = time.perf_counter() - t0
-        parsed, datasets = real_parse(root)
-        test_ds = datasets["zara1", "test"]
-        cli = real_cli_pair(root, Path(tmp) / "logs", len(test_ds))
-        vs_cpu = real_card_vs_cpu(cli.pop("version_dir"), test_ds)
+    root = Path(tmp) / "data"
+    t0 = time.perf_counter()
+    write_real_fixtures(root)
+    write_s = time.perf_counter() - t0
+    parsed, datasets = real_parse(root)
+    test_ds = datasets["zara1", "test"]
+    cli = real_cli_pair(root, Path(tmp) / "logs", len(test_ds))
+    vdir = cli.pop("version_dir")
+    vs_cpu = real_card_vs_cpu(vdir, test_ds)
     parse_ms = sum(r["parse_ms"] for r in parsed.values())
     print(f"real data CLI pair ({card}): cli.train mggan4_zara1, {cli['steps']} steps in 2 "
           f"epochs at batch 32, {cli['train_s']:.2f} s, steps/s per epoch "
@@ -1481,8 +1504,9 @@ def phase_real_data(host_build_s=None):
           f"{cli['eval_ms_per_window']:.2f} ms per test window ({cli['test_windows']}); host "
           f"parse of all 9 splits {parse_ms:.1f} ms; launches {json.dumps(cli['launches'])}; "
           f"fixtures written in {write_s:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
-    return {"card": card, "environment": env, "parse": parsed, "parse_ms_total": parse_ms,
-            **cli, "card_vs_cpu": vs_cpu, "seconds": time.perf_counter() - t_phase}
+    return ({"card": card, "environment": env, "parse": parsed, "parse_ms_total": parse_ms,
+             **cli, "card_vs_cpu": vs_cpu, "seconds": time.perf_counter() - t_phase},
+            {"root": root, "test_ds": test_ds, "version_dir": vdir})
 
 
 # Phase 16: the train-step families at the flagship widths (h = decoder_h
@@ -1837,6 +1861,332 @@ def phase_bf16_kernels():
         del case, args, prepared, prepared32, got, got32, want
         torch.cuda.empty_cache()
     return sel, every
+
+
+# ------------------------------------------------ phase 17: deployment --
+DEPLOY_CLIENTS = 64  # client threads against the HTTP server
+DEPLOY_REQUESTS = 4  # single-scene requests a client
+DEPLOY_SEQUENTIAL = 20  # one-scene requests, direct and over HTTP, for the overhead
+DEPLOY_STATE = ("g_params", "g_state", "d_params", "d_state")
+
+
+def tree_mismatches(a, b):
+    """Paths where two trees differ (a path set of its own, or a leaf not
+    equal bit for bit)."""
+    import torch
+
+    from mggan_tpu_torch.utils.pytree import tree_items
+
+    ia, ib = list(tree_items(a)), list(tree_items(b))
+    if [k for k, _ in ia] != [k for k, _ in ib]:
+        return ["the trees' paths differ"]
+    return [k for (k, x), (_, y) in zip(ia, ib) if not torch.equal(x.cpu(), y.cpu())]
+
+
+def deploy_convert(vdir, out):
+    """Part (a): ``cli.convert --reverse`` to a reference-format dir and
+    ``cli.convert --pth`` back into a port version dir, whose trees must
+    equal the original's bit for bit."""
+    import torch
+
+    from mggan_tpu_torch.cli import convert as convert_cli
+    from mggan_tpu_torch.utils.pytree import tree_leaves
+
+    t0 = time.perf_counter()
+    ref = convert_cli.main(["--reverse", "--version_dir", str(vdir), "--out_dir",
+                            str(out / "reference"), "--device", "cuda"])
+    pth = ref / "checkpoints" / "checkpoint_best.pth"
+    conv = convert_cli.main(["--pth", str(pth), "--out_dir", str(out / "converted"),
+                             "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    load = lambda d: torch.load(d / "checkpoints" / "checkpoint_best", map_location="cpu",
+                                weights_only=True)
+    a, b = load(vdir), load(conv)
+    bad = {k: tree_mismatches(a[k], b[k]) for k in DEPLOY_STATE}
+    leaves = sum(len(tree_leaves(a[k])) for k in DEPLOY_STATE)
+    print(f"  cli.convert --reverse -> {pth.stat().st_size / 1e6:.2f} MB .pth, then "
+          f"cli.convert --pth -> a port version dir, {secs:.2f} s: {leaves} leaves of the "
+          f"parameters and BN statistics equal bit for bit: {not any(bad.values())}")
+    check(not any(bad.values()), f"convert round trip differs: {bad}")
+    return conv, {"seconds": secs, "leaves": leaves, "pth_mb": pth.stat().st_size / 1e6}
+
+
+def deploy_artifacts(conv, out, rng):
+    """Part (b): ``cli.export`` of ``sampling`` and ``expected`` at buckets
+    1, 8 and 64; ``from_artifact`` equal to ``from_version_dir`` bit for
+    bit; one 8-scene request with injected draws on the card and the CPU."""
+    import numpy as np
+
+    from mggan_tpu_torch.cli import export as export_cli
+    from mggan_tpu_torch.serving.runtime import ServingModel
+
+    models, res = {}, {}
+    for strat in ("sampling", "expected"):
+        path = out / f"{strat}.mgtorch"
+        t0 = time.perf_counter()
+        export_cli.main(["--model_dir", str(conv), "--out", str(path), "--strategy", strat,
+                         "--scenes", ",".join(map(str, BUCKETS)), "--peds", str(PEDS),
+                         "--num", str(NUM), "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        header = export_cli.read_artifact(path)[0]
+        art = models[strat] = ServingModel.from_artifact(path, device="cuda")
+        live = ServingModel.from_version_dir(conv, strat, scenes=BUCKETS[-1], peds=PEDS,
+                                             num=NUM, scene_buckets=BUCKETS, device="cuda")
+        check(art.buckets == BUCKETS and (art.peds, art.num) == (PEDS, NUM),
+              f"{strat} artifact: buckets {art.buckets}, peds {art.peds}, num {art.num}")
+        for b in BUCKETS:
+            obs, pat = make_request(rng, b)
+            for seed in (0, 1):
+                got = art.predict_batch(obs, pat, seed=seed)
+                want = live.predict_batch(obs, pat, seed=seed)
+                check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+                      f"{strat} artifact differs from the live model at {b} scenes")
+                check(all(np.isfinite(x).all() and x.shape == (NUM, len(o), 12, 2)
+                          for x, o in zip(got, obs)), f"{strat} artifact: bad predictions")
+        cfg = header["config"]
+        obs, pat = make_request(rng, 8)
+        s = art.pad_request(obs, pat)[0].shape[0]
+        draws = {"z": rng.randn(NUM, s, 1, cfg["noise_dim"]).astype(np.float32)}
+        if strat == "sampling":
+            draws["uniforms"] = np.clip(rng.uniform(0, 1, (NUM, s, PEDS, cfg["num_gens"])),
+                                        1e-20, 1 - 2**-24).astype(np.float32)
+        cpu = ServingModel.from_artifact(path, device="cpu")
+        on_card = art.predict_batch(obs, pat, draws=draws)
+        on_cpu = cpu.predict_batch(obs, pat, draws=draws)
+        err = max(float(np.abs(x - y).max()) for x, y in zip(on_card, on_cpu))
+        res[strat] = {"export_s": export_s, "mb": path.stat().st_size / 1e6,
+                      "card_vs_cpu_max_abs_err": err}
+        print(f"  {strat}: cli.export {export_s:.2f} s, {res[strat]['mb']:.3f} MB, buckets "
+              f"{header['scene_buckets']}; from_artifact equal to from_version_dir bit for "
+              f"bit at 1, 8 and 64 scenes (2 seeds each); 8 scenes with injected draws, "
+              f"card vs CPU {err:.3e} (atol {E2E_ATOL:g})")
+        check(err <= E2E_ATOL, f"{strat} artifact card vs CPU {err:.3e} > {E2E_ATOL}")
+    return models, res
+
+
+def http_json(port, path, payload=None):
+    """``(status, JSON body)`` of a GET (``payload`` None) or a POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def deploy_http(model, ds):
+    """Part (c): the server over the ``sampling`` artifact with zara1's
+    scene registered; one request against the direct call, the overhead of
+    one-scene requests, 400 and 404, then DEPLOY_CLIENTS client threads of
+    DEPLOY_REQUESTS single-scene requests each."""
+    import threading
+
+    import numpy as np
+
+    from mggan_tpu_torch.serving.runtime import fold_seeds
+    from mggan_tpu_torch.serving.server import start_background
+
+    scene = ds.scene_names[0]
+    small, ppm = ds.images[scene]["small"], ds.px_per_meter
+    windows = [t[:, :8].copy() for t in ds.trajectories if len(t) <= PEDS]
+    check(len(windows) >= 16, f"zara1 test: {len(windows)} windows of up to {PEDS} peds")
+    server, batcher, port = start_background(model)
+    try:
+        code, body = http_json(port, "/v1/scenes", {"name": scene, "image": small.tolist(),
+                                                    "px_per_meter": ppm})
+        check(code == 200 and body["scenes"] == [scene], f"/v1/scenes: {code} {body}")
+        obs = windows[0]
+        code, body = http_json(port, "/v1/predict", {"scenes": [obs.tolist()],
+                                                     "scene_ids": [scene], "seed": 5})
+        got = np.asarray(body["predictions"][0], np.float32)
+        want = model.predict_batch([obs], [model.crop_patches(scene, obs)],
+                                   seed=fold_seeds([5]))[0]
+        check(code == 200 and np.array_equal(got, want),
+              "the HTTP answer differs from predict_batch on crop_patches and the folded seed")
+        pat = [model.crop_patches(scene, obs)]
+        direct, over_http = [], []
+        for i in range(DEPLOY_SEQUENTIAL):
+            t0 = time.perf_counter()
+            model.predict_batch([obs], pat, seed=i)
+            direct.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            code, _ = http_json(port, "/v1/predict", {"scenes": [obs.tolist()],
+                                                      "scene_ids": [scene], "seed": i})
+            over_http.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200, f"sequential request {i}: {code}")
+        # the host's JSON work on one answer: the server's tolist + dumps,
+        # the client's loads + asarray
+        answer = model.predict_batch([obs], pat, seed=0)
+        t0 = time.perf_counter()
+        for _ in range(DEPLOY_SEQUENTIAL):
+            text = json.dumps({"predictions": [a.tolist() for a in answer]})
+        dumps_ms = (time.perf_counter() - t0) * 1e3 / DEPLOY_SEQUENTIAL
+        t0 = time.perf_counter()
+        for _ in range(DEPLOY_SEQUENTIAL):
+            np.asarray(json.loads(text)["predictions"][0], np.float32)
+        loads_ms = (time.perf_counter() - t0) * 1e3 / DEPLOY_SEQUENTIAL
+        codes = {"missing scene": http_json(port, "/v1/predict", {"scenes": [obs.tolist()]}),
+                 "unknown path": http_json(port, "/v1/nope", {}),
+                 "unknown GET": http_json(port, "/v1/nope")}
+        check(codes["missing scene"][0] == 400
+              and "MissingSceneInputError" in codes["missing scene"][1]["error"],
+              f"missing scene: {codes['missing scene']}")
+        check(codes["unknown path"][0] == 404 and codes["unknown GET"][0] == 404,
+              f"unknown path: {codes['unknown path'][0]}, {codes['unknown GET'][0]}")
+
+        b0, r0, e0 = batcher.batches_run, batcher.requests_served, batcher.early_dispatches
+        latency, errors = [], []
+
+        def client(c):
+            for j in range(DEPLOY_REQUESTS):
+                i = c * DEPLOY_REQUESTS + j
+                w = windows[i % len(windows)]
+                t0 = time.perf_counter()
+                code, body = http_json(port, "/v1/predict", {
+                    "scenes": [w.tolist()], "scene_ids": [scene], "seed": i})
+                latency.append((time.perf_counter() - t0) * 1e3)
+                p = np.asarray(body.get("predictions", [[]])[0], np.float32)
+                if code != 200 or p.shape != (NUM, len(w), 12, 2) or not np.isfinite(p).all():
+                    errors.append((i, code, p.shape))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(DEPLOY_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "HTTP clients still running after 300 s")
+        n = DEPLOY_CLIENTS * DEPLOY_REQUESTS
+        check(not errors and len(latency) == n, f"HTTP clients: {len(latency)} answers, "
+                                                f"errors {errors[:4]}")
+        batches = batcher.batches_run - b0
+        served = batcher.requests_served - r0
+        check(served == n, f"the batcher served {served} of {n} requests")
+        meta = http_json(port, "/v1/metadata")[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    q = lambda xs, p: float(np.percentile(xs, p))
+    res = {"direct_bucket1_p50_ms": q(direct, 50), "http_one_scene_p50_ms": q(over_http, 50),
+           "http_overhead_ms": q(over_http, 50) - q(direct, 50),
+           "answer_json_bytes": len(text), "answer_dumps_ms": dumps_ms,
+           "answer_loads_ms": loads_ms,
+           "clients": DEPLOY_CLIENTS, "requests": n, "p50_ms": q(latency, 50),
+           "p99_ms": q(latency, 99), "requests_per_s": n / wall, "wall_s": wall,
+           "batches_run": batches, "mean_batch": served / batches,
+           "early_dispatches": batcher.early_dispatches - e0,
+           "metadata_keys": sorted(meta)}
+    print(f"  HTTP: one zara1 window ({len(obs)} peds) with scene_ids equal to predict_batch on "
+          f"crop_patches and the folded seed bit for bit; {DEPLOY_SEQUENTIAL} sequential "
+          f"one-scene requests p50 {res['http_one_scene_p50_ms']:.3f} ms against "
+          f"predict_batch's {res['direct_bucket1_p50_ms']:.3f} ms at bucket 1 (overhead "
+          f"{res['http_overhead_ms']:.3f} ms; of it the answer's JSON, {len(text)} bytes: "
+          f"tolist + dumps {dumps_ms:.3f} ms, loads + asarray {loads_ms:.3f} ms on the host); "
+          f"400 without scene input, 404 for an unknown path")
+    print(f"  HTTP under {DEPLOY_CLIENTS} clients x {DEPLOY_REQUESTS} single-scene requests: "
+          f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
+          f"{res['requests_per_s']:.1f} requests/s, batches_run {batches}, mean batch "
+          f"{res['mean_batch']:.2f} scenes, early_dispatches {res['early_dispatches']}; "
+          f"every answer finite and of its shape")
+    return res
+
+
+def deploy_offline(root, conv, ds, out):
+    """Part (d): ``cli.serve --input`` on the zara1 test txt with zara1's
+    small image as ``--scene_img``, over a ``sampling`` artifact of
+    ``conv`` wide enough for the file's windows (an 8-frame window holds
+    more peds than a 20-frame one): the npz holds load_obs_windows'
+    windows, each equal to the direct call on its crop and its chunk's
+    seed."""
+    import cv2
+    import numpy as np
+
+    from mggan_tpu_torch.cli import export as export_cli
+    from mggan_tpu_torch.cli import serve as serve_cli
+    from mggan_tpu_torch.data.image_io import read_rgb
+    from mggan_tpu_torch.serving.runtime import ServingModel
+
+    scene = ds.scene_names[0]
+    small, ppm = ds.images[scene]["small"], ds.px_per_meter
+    png = out / "zara1_small.png"
+    cv2.imwrite(str(png), cv2.cvtColor(small, cv2.COLOR_RGB2BGR))
+    check(np.array_equal(read_rgb(png), small), "read_rgb of the small scene PNG differs")
+    txt = root / "zara1" / "test" / "test_zara1.txt"
+    scenes, ids = serve_cli.load_obs_windows(txt, "zara1")
+    peds = max(max(len(s) for s in scenes), PEDS)
+    path = out / "sampling_offline.mgtorch"
+    export_cli.main(["--model_dir", str(conv), "--out", str(path), "--scenes",
+                     str(BUCKETS[-1]), "--peds", str(peds), "--num", str(NUM),
+                     "--device", "cuda"])
+    t0 = time.perf_counter()
+    npz = serve_cli.main(["--artifact", str(path), "--input", str(txt), "--txt_dataset",
+                          "zara1", "--output", str(out / "zara1_test.npz"), "--scene_img",
+                          str(png), "--px_per_meter", str(ppm), "--seed", str(SEED),
+                          "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    z = np.load(npz)
+    n = len(scenes)
+    check(sorted(z.files) == sorted([f"window_{i:05d}" for i in range(n)]
+                                    + [f"ped_ids_{i:05d}" for i in range(n)]),
+          f"npz keys: {sorted(z.files)[:4]} ... for {n} windows")
+    model = ServingModel.from_artifact(path, device="cuda")
+    model.register_scene(scene, small, ppm)
+    for i in range(0, n, model.scenes):
+        chunk = scenes[i:i + model.scenes]
+        want = model.predict_batch(chunk, [model.crop_patches(scene, o) for o in chunk],
+                                   seed=SEED + i)
+        for j, w in enumerate(want):
+            got = z[f"window_{i + j:05d}"]
+            check(np.isfinite(got).all() and np.array_equal(got, w),
+                  f"npz window {i + j} differs from the direct call or is not finite")
+            check(np.array_equal(z[f"ped_ids_{i + j:05d}"], ids[i + j]),
+                  f"npz ped ids of window {i + j}")
+    agents = sum(len(s) for s in scenes)
+    widest = max(len(s) for s in scenes)
+    print(f"  cli.serve --input test_zara1.txt --scene_img (the small image, {ppm:g} px/m) "
+          f"over an artifact at --peds {peds} (the file's 8-frame windows hold up to "
+          f"{widest} peds): {n} windows, {agents} agents in {secs:.2f} s, equal to "
+          f"load_obs_windows and to predict_batch on their crops bit for bit, every "
+          f"prediction finite")
+    return {"windows": n, "agents": agents, "max_peds": widest, "seconds": secs}
+
+
+def phase_deployment(tmp, root, test_ds, version_dir):
+    """Phase 17: the deployment surface on phase 15's mggan4_zara1 version
+    dir (see the module note); launch counts read around (a)-(d) as path
+    ``deployment``."""
+    import numpy as np
+
+    from mggan_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    card = smi_query("name,power.limit")
+    out = tmp / "deployment"
+    out.mkdir()
+    rng = np.random.RandomState(SEED + 17)
+    kernels.launches.clear()
+    conv, convert = deploy_convert(version_dir, out)
+    models, artifacts = deploy_artifacts(conv, out, rng)
+    http = deploy_http(models["sampling"], test_ds)
+    offline = deploy_offline(root, conv, test_ds, out)
+    launches = dict(kernels.launches)
+    print("deployment launches:", json.dumps(launches))
+    for name in ("decode_select", "decode_all_fwd"):
+        check(launches.get(name, 0) > 0, f"deployment: {name} launched {launches.get(name, 0)} "
+                                         "times")
+    warp = [n for n in WARP_KERNELS if launches.get(n)]
+    check(not warp, f"deployment launched kept yardsticks {warp}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 17 (deployment, {card}): {secs:.1f} s")
+    return {"card": card, "convert": convert, "artifacts": artifacts, "http": http,
+            "offline": offline, "launches": launches, "seconds": secs}
 
 
 def first_windows(ds, n):
@@ -3833,8 +4183,10 @@ def main():
     abl_path = phase_ablation_path()
     redesigned = phase_redesigned()
     loop = phase_train_loop(train["p50_ms"])
-    real = phase_real_data(host_build_s)
-    families = phase_families(train["p50_ms"])
+    with tempfile.TemporaryDirectory() as tmp:
+        real, real_handles = phase_real_data(tmp, host_build_s)
+        families = phase_families(train["p50_ms"])
+        deployment = phase_deployment(Path(tmp), **real_handles)
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -3846,7 +4198,8 @@ def main():
              **{f"bench_sampling_{mode}": r["launches"] for mode, r in bench.items()},
              "ablation": abl_path["launches"], "train_loop": loop["launches"],
              "realdata_cli": real["launches"], "families": families["launches"],
-             "single_gen_cli": families["single_gen_cli"]["launches"]}
+             "single_gen_cli": families["single_gen_cli"]["launches"],
+             "deployment": deployment["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
@@ -3877,6 +4230,7 @@ def main():
                                                                         "single_gen_cli")},
                      "single_gen_cli": {k: v for k, v in families["single_gen_cli"].items()
                                         if k != "launches"}},
+        "deployment": {k: v for k, v in deployment.items() if k != "launches"},
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -13,5 +13,8 @@ and the flagship train step (``training/steps.py``: D, G and PM updates for
 mgan / NS / ml), whose all-generator rollout and its reverse sweep are the
 CUDA kernels of ``csrc/decode_all.cu``; evaluation, the train loop, real
 datasets (``data/parsing.py``) and the ``cli.train`` -> ``cli.evaluate``
-pair.
+pair; and deployment: reference-format checkpoints in and out
+(``cli.convert``, ``models/torch_export.py``), the serving artifact
+(``cli.export``), ``MicroBatcher``, the HTTP server (``serving/server.py``)
+and ``cli.serve``.
 """

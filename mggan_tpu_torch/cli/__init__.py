@@ -1,2 +1,2 @@
-"""Command-line entry points (counterpart of ``mggan_tpu/cli``): ``train``
-and ``evaluate``."""
+"""Command-line entry points (counterpart of ``mggan_tpu/cli``): ``train``,
+``evaluate``, ``convert``, ``export`` and ``serve``."""

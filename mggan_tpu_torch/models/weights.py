@@ -19,7 +19,9 @@ from mggan_tpu_torch.device import resolve_device
 def _to_tensors(tree, device):
     if isinstance(tree, dict):
         return {k: _to_tensors(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+    # contiguous: a transposed reference weight would keep its strides, and
+    # a strided weight takes another matmul path than the live tree's
+    return torch.tensor(np.ascontiguousarray(tree, dtype=np.float32), device=device)
 
 
 def _check_keys(tree, expected, where):

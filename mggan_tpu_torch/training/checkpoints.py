@@ -10,7 +10,8 @@ generator. So resuming is exact (the reference restarts the epoch at 0).
 Tensors are saved where they live and restore onto the ``TrainState``
 given as the model, so a checkpoint saved on the card restores onto the
 card and one saved on the CPU onto the CPU. The JAX package's orbax format
-waits for ROADMAP.md queue 1 item 12.
+waits for ROADMAP.md queue 1 item 12 (b); reference-format ``.pth``
+checkpoints go in and out through ``cli/convert.py``.
 """
 
 from __future__ import annotations

@@ -882,3 +882,37 @@ def test_golden_family_step_matches_cpu(cuda, gan_type, wt, gan_obj):
         noise.add(("discs", "lin1", "b"))
     diffs = train_state_diffs(s_gpu, s_cpu, cfg, 1e-4, noise)
     assert not diffs["bad"], diffs["bad"][:4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["sampling", "expected"])
+def test_artifact_on_the_card_equals_live_serving(cuda, tmp_path, strategy):
+    """An artifact of ``cli.export`` served on the card equals live serving
+    of the same weights on the card bit for bit (same kernels, same draws),
+    at each bucket; K1 (sampling) or K2 (expected) launches."""
+    from mggan_tpu_torch.cli.export import save_artifact
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.eval.predict import Predictor
+    from mggan_tpu_torch.models.factory import construct_model
+    from mggan_tpu_torch.serving.runtime import ServingModel
+
+    cfg = flagship_config()
+    params, state, spec = construct_model(cfg, seed=0, device=cuda)
+    pred = Predictor(cfg, spec, params, state, device=cuda)
+    live = ServingModel.from_predictor(pred, strategy, 8, 16, 20, scene_buckets=(1, 8),
+                                       device=cuda)
+    save_artifact(pred, tmp_path / "m.mgtorch", strategy, (1, 8), 16, 20)
+    art = ServingModel.from_artifact(tmp_path / "m.mgtorch", device=cuda)
+    assert art.buckets == (1, 8) and art.device == cuda
+    name = kdec.KERNEL if strategy == "sampling" else kda.KERNEL_FWD
+    rng = np.random.RandomState(1)
+    for n in (1, 5):
+        obs = [(rng.randn(p, 8, 2).cumsum(1) * 0.4).astype(np.float32)
+               for p in rng.randint(1, 17, n)]
+        pat = [rng.uniform(-1, 1, (len(o), 33, 33, 4)).astype(np.float32) for o in obs]
+        before = kernels.launches[name]
+        got = art.predict_batch(obs, pat, seed=3)
+        assert kernels.launches[name] > before
+        for a, b in zip(got, live.predict_batch(obs, pat, seed=3)):
+            assert np.isfinite(a).all()
+            np.testing.assert_array_equal(a, b)

@@ -186,7 +186,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          'config', 'ops.losses', 'ops.social', 'models.discriminator',\n"
         "          'models.generator', 'models.factory', 'models.weights',\n"
         "          'training.steps', 'training.state', 'eval.predict',\n"
-        "          'tools.state_compare'):\n"
+        "          'tools.state_compare', 'serving.server', 'cli.serve', 'cli.export',\n"
+        "          'cli.convert', 'models.torch_export'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )
@@ -196,8 +197,44 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert int(out.stdout.strip()) >= 25  # the data and eval modules included
 
 
-def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagship):
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagship, tmp_path):
+    # a version dir and an artifact written on the CPU for the deployment
+    # entry points below
+    from mggan_tpu_torch.cli import convert as convert_cli
+    from mggan_tpu_torch.cli import export as export_cli
+    from mggan_tpu_torch.cli import serve as serve_cli
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    small = Config(dataset="synthetic_memory", num_gens=2, h_dim=8, decoder_h_dim=8,
+                   name="small")
+    writer = ExperimentWriter(tmp_path, small.experiment, small.name, version=0,
+                              config=small, tensorboard=False)
+    Trainer(small, writer, device="cpu").save("checkpoint_best")
+    vdir, art = writer.dir, tmp_path / "m.mgtorch"
+    export_cli.main(["--model_dir", str(vdir), "--out", str(art), "--scenes", "2",
+                     "--peds", "3", "--num", "4", "--device", "cpu"])
+    ref = convert_cli.main(["--reverse", "--version_dir", str(vdir), "--out_dir",
+                            str(tmp_path / "ref"), "--device", "cpu"])
+    pth = ref / "checkpoints" / "checkpoint_best.pth"
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+            lambda: ServingModel.from_version_dir(vdir),
+            lambda: ServingModel.from_artifact(art),
+            lambda: export_cli.main(["--model_dir", str(vdir), "--out", str(art)]),
+            lambda: convert_cli.main(["--pth", str(pth), "--out_dir", str(tmp_path / "c")]),
+            lambda: convert_cli.main(["--reverse", "--version_dir", str(vdir), "--out_dir",
+                                      str(tmp_path / "r")]),
+            lambda: serve_cli.main(["--artifact", str(art), "--allow_missing_scene"]),
+            lambda: serve_cli.main(["--model_dir", str(vdir), "--allow_missing_scene"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "c").exists() and not (tmp_path / "r").exists()
+    assert ServingModel.from_artifact(art, device="cpu").device.type == "cpu"
+    assert ServingModel.from_version_dir(vdir, scenes=2, peds=3, num=4,
+                                         device="cpu").device.type == "cpu"
+
     cfg = Config(num_gens=2, h_dim=8, decoder_h_dim=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         factory.construct_model(cfg, seed=0)
