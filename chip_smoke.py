@@ -171,7 +171,27 @@ Phases, in order; any failure exits nonzero before the result line:
      as the file's 8-frame windows hold: the npz's windows those of
      ``load_obs_windows``, each equal to ``predict_batch`` on its crops bit
      for bit;
- 18. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 18. the rest of the single-device surface, with launch counts read around
+     each of the paths ``split_step``, ``profiled_loop``, ``sweep`` and
+     ``orbax_resume`` (each must launch K1, K2 and K3): (a) the split train
+     step (the fused step behind JAX's split-step checks) at the flagship
+     batch (256 x 16, K=20), one warm-up and 5 timed steps: finite metrics,
+     the p50 beside phase 5's flagship step, and K1, K2 and K3 launched
+     1, 2 and 1 times a step, as phase 5's step launches them;     (b) a ``Trainer`` with ``profile_dir`` on
+     phase 15's zara1 files (``mggan4_zara1``'s flags, 1 epoch): one trace
+     file, holding K1's, K2's and K3's kernel records (``TRACE_NEEDLES``),
+     the traced second step's wall time beside the epoch's median untraced
+     step; (c) ``cli.sweep --grid '{"num_gens": [2, 4]}'`` on the same files,
+     1 epoch a point: both version dirs with a finite metrics.jsonl, the
+     seconds of each point; (d) the committed converted JAX orbax checkpoint
+     (``mggan_tpu_torch/tools/fixtures/orbax_tiny``) resumed for its second
+     epoch on the card and on the CPU with the same draws, the two states
+     under phase 16's rule; (e) the legacy Social-GAN at its JAX defaults
+     on 64 x 16 (generator: pool_net and spool, pooling every step off and
+     on, the latter with noise_dim=0; discriminator: local and global),
+     card vs CPU within 1e-4 on the same weights and noise, the p50 of 5
+     calls each; it launches none of the repo's kernels;
+ 19. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -2189,6 +2209,355 @@ def phase_deployment(tmp, root, test_ds, version_dir):
             "offline": offline, "launches": launches, "seconds": secs}
 
 
+# Phase 18: the rest of the single-device surface. The kernels' names in
+# a profiler trace, the needles phase 13's kernel_device_ms finds them by
+TRACE_NEEDLES = {"decode_select": "decode_select_tiled_kernel",
+                 "decode_all_fwd": "decode_all_fwd_tiled_kernel",
+                 "decode_all_bwd": "decode_all_bwd_kernel"}
+PATH_KERNELS = ("decode_select", "decode_all_fwd", "decode_all_bwd")
+SPLIT_STEPS = 5
+ORBAX_FIXTURE = FIXTURES / "orbax_tiny" / "multi_generator" / "tiny" / "version_0"
+SGAN_SCENES = 64
+SGAN_CALLS = 5
+SGAN_ATOL = 1e-4
+
+
+def check_path_kernels(path, launches):
+    """Every kernel of the train path (K1, K2, K3) launched on ``path``, and
+    no kept yardstick."""
+    for name in PATH_KERNELS:
+        check(launches.get(name, 0) > 0, f"{path}: {name} launched "
+                                         f"{launches.get(name, 0)} times")
+    warp = [n for n in WARP_KERNELS if launches.get(n)]
+    check(not warp, f"{path} launched kept yardsticks {warp}")
+
+
+def surface_split_step():
+    """(a) The split step (``build_split_train_step``: the fused step behind
+    JAX's split-step checks) at the flagship batch, one warm-up and
+    SPLIT_STEPS timed steps (host clock, each ending in a synchronize):
+    finite metrics, the p50 and the K1/K2/K3 launches a step, those of
+    phase 5's step (path ``split_step``)."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.models.factory import construct_gan
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_split_train_step, make_draws
+
+    cfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
+    g_pack, d_pack = construct_gan(cfg, seed=SEED, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in train_batch(TRAIN_SCENES, SEED).items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = init_train_state(cfg, g_pack, d_pack, seed=SEED)
+    step = build_split_train_step(cfg, g_pack[2], d_pack[2])
+    kernels.launches.clear()
+    state, _ = step(state, batch, make_draws(gen, cfg, TRAIN_SCENES, PEDS))
+    torch.cuda.synchronize()
+    before, times = dict(kernels.launches), []
+    for _ in range(SPLIT_STEPS):
+        dr = make_draws(gen, cfg, TRAIN_SCENES, PEDS)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, dr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
+    check_path_kernels("split_step", launches)
+    per_step = {k: (v - before.get(k, 0)) / SPLIT_STEPS
+                for k, v in launches.items() if v - before.get(k, 0)}
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+    check(not bad, f"split step: non-finite metrics {bad}")
+    due = {"decode_select": 1, "decode_all_fwd": 2, "decode_all_bwd": 1}  # phase 5's
+    check({k: per_step.get(k, 0) for k in due} == due,
+          f"split step launches a step {per_step}, {due} due")
+    p50 = float(np.median(times))
+    print(f"  split step, {TRAIN_SCENES} x {PEDS}, K={NUM}: p50 {p50:.3f} ms of {SPLIT_STEPS} "
+          f"steps; launches a step {json.dumps(per_step)}")
+    return {"p50_ms": p50, "times_ms": times, "launches_per_step": per_step,
+            "launches": launches}
+
+
+def zara1_config(log_dir, root, **kw):
+    """``mggan4_zara1``'s flags through the train CLI's parser, 1 epoch."""
+    from mggan_tpu_torch.config import config_from_args, get_parser
+    from mggan_tpu_torch.configs import BENCHMARK_CONFIGS
+
+    flags = {**BENCHMARK_CONFIGS["mggan4_zara1"], "epochs": 1, "val_every": 1, "augment": 1,
+             "patch_bank": 1, "seed": SEED, "log_dir": log_dir, "data_root": root, **kw}
+    return config_from_args(get_parser().parse_args(
+        [x for k, v in flags.items() for x in (f"--{k}", str(v))]))
+
+
+def trace_kernel_records(trace_path):
+    """The kernel records of a Chrome trace whose names hold each of
+    TRACE_NEEDLES' needles: name -> count."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    kernels_ = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {name: sum(needle in k for k in kernels_) for name, needle in TRACE_NEEDLES.items()}
+
+
+def surface_profiled_loop(tmp, root):
+    """(b) A Trainer with ``profile_dir`` on phase 15's zara1 files, 1
+    epoch (path ``profiled_loop``): the trace written, K1, K2 and K3's
+    records in it, and the traced step's wall time (host clock, ending in a
+    synchronize) against the median untraced step of the epoch."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    prof_dir = tmp / "profile"
+    cfg = zara1_config(tmp / "logs_profiled", root, name="profiled", profile_dir=prof_dir)
+    writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, version=0, config=cfg,
+                              tensorboard=False)
+    trainer = Trainer(cfg, writer, device="cuda")
+    step, times = trainer.train_step, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3,
+                      torch.autograd.profiler._is_profiler_enabled))
+        return out
+
+    trainer.train_step = timed
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_path_kernels("profiled_loop", launches)
+    traces = sorted(prof_dir.glob("trace_*.json"))
+    check(len(traces) == 1, f"profiled_loop: {len(traces)} trace files in {prof_dir}")
+    traced = [i for i, (_, on) in enumerate(times) if on]
+    check(traced == [1], f"profiled_loop: traced steps {traced}, the second one due")
+    records = trace_kernel_records(traces[0])
+    check(all(records.values()), f"profiled_loop: kernel records in the trace {records}")
+    untraced = float(np.median([ms for ms, on in times if not on]))
+    traced_ms = times[1][0]
+    mb = traces[0].stat().st_size / 2**20
+    print(f"  profiled Trainer, mggan4_zara1, 1 epoch of {len(times)} steps in {seconds:.2f} s: "
+          f"trace {traces[0].name} ({mb:.1f} MiB), kernel records {json.dumps(records)}; "
+          f"traced step {traced_ms:.3f} ms against the median untraced {untraced:.3f} ms")
+    return {"steps": len(times), "seconds": seconds, "trace_mib": mb,
+            "kernel_records": records, "traced_step_ms": traced_ms,
+            "untraced_median_ms": untraced, "launches": launches}
+
+
+def surface_sweep(tmp, root):
+    """(c) ``cli.sweep --grid '{"num_gens": [2, 4]}'`` with mggan4_zara1's
+    flags, 1 epoch a point (path ``sweep``): both version dirs hold a finite
+    metrics.jsonl; seconds per point (host clock around each point's
+    ``train``)."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.cli import sweep
+    from mggan_tpu_torch.configs import BENCHMARK_CONFIGS
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.training.loop import Trainer
+
+    flags = {**BENCHMARK_CONFIGS["mggan4_zara1"], "epochs": 1, "val_every": 1, "augment": 1,
+             "patch_bank": 1, "seed": SEED, "log_dir": tmp / "logs_sweep", "data_root": root,
+             "name": "sweep", "device": "cuda"}
+    argv = ["--grid", json.dumps({"num_gens": [2, 4]})]
+    argv += [x for k, v in flags.items() if k != "num_gens" for x in (f"--{k}", str(v))]
+    print("  python -m mggan_tpu_torch.cli.sweep " + " ".join(argv))
+    train, seconds = Trainer.train, []
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = train(self, *a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    kernels.launches.clear()
+    Trainer.train = timed
+    try:
+        trainers = sweep.main(argv)
+    finally:
+        Trainer.train = train
+    launches = dict(kernels.launches)
+    check_path_kernels("sweep", launches)
+    names = sorted(p.name for p in (tmp / "logs_sweep" / "multi_generator").iterdir())
+    check(names == ["sweep_num_gens=2", "sweep_num_gens=4"], f"sweep dirs {names}")
+    points = {}
+    for t, s in zip(trainers, seconds):
+        lines = epoch_lines(t.writer)
+        bad = [k for m in lines for k, v in m.items() if not np.isfinite(v)]
+        check(len(lines) == 1 and not bad, f"sweep {t.config.name}: {len(lines)} epochs, "
+                                           f"non-finite {bad[:4]}")
+        points[t.config.name] = {"seconds": s, "steps": int(t.state.step),
+                                 "val_ade20": lines[0]["val/ADE k=20"]}
+    print(f"  sweep over num_gens 2, 4: {json.dumps(points)}")
+    return {"points": points, "launches": launches}
+
+
+class FixedDraws:
+    """The Trainer's draws from CPU generators (``SeededDraws``' rule for
+    the augmentation and validation, one CPU generator for the steps), so
+    a card and a CPU Trainer get the same numbers."""
+
+    def __init__(self, config, seed):
+        import torch
+
+        from mggan_tpu_torch.training.loop import SeededDraws
+
+        self.seeded = SeededDraws(config, "cpu")
+        self.config = config
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def aug(self, epoch, i, s):
+        return self.seeded.aug(epoch, i, s)
+
+    def step(self, state, s, p):
+        from mggan_tpu_torch.training.steps import make_draws
+
+        return make_draws(self.gen, self.config, s, p, state.g_params, state.d_params)
+
+    def val(self, i, s, p, num):
+        return self.seeded.val(i, s, p, num)
+
+
+def surface_orbax_resume(tmp):
+    """(d) The committed converted JAX checkpoint
+    (``mggan_tpu_torch/tools/fixtures/orbax_tiny``) resumed for its second
+    epoch on the card (path ``orbax_resume``) and on the CPU with the same
+    draws; the two states under phase 16's rule (``train_state_diffs``)."""
+    import shutil
+
+    import torch
+
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.tools.state_compare import train_state_diffs
+    from mggan_tpu_torch.training.loop import Trainer
+
+    out, launches = {}, {}
+    for i, dev in enumerate(("cuda", "cpu")):
+        vdir = tmp / f"orbax_{i}_{dev}" / "multi_generator" / "tiny" / "version_0"
+        shutil.copytree(ORBAX_FIXTURE, vdir)
+        trainer, cfg = Trainer.load_from_path(vdir, "latest", device=dev)
+        check((trainer.state.step, trainer.state.epoch) == (3, 1),
+              f"orbax fixture at step {trainer.state.step}, epoch {trainer.state.epoch}")
+        trainer.draws = FixedDraws(cfg, SEED)
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        trainer.train()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        out[dev] = (trainer, time.perf_counter() - t0)
+    check_path_kernels("orbax_resume", launches)
+    (card, card_s), (cpu, cpu_s) = out["cuda"], out["cpu"]
+    check(card.state.epoch == cpu.state.epoch == 2, "orbax_resume: epoch 2 not trained")
+    diffs = train_state_diffs(card.state, cpu.state, card.config, TRAIN_ATOL, NOISE_LEAVES)
+    bad = diffs.pop("bad")
+    m_card, m_cpu = epoch_lines(card.writer)[-1], epoch_lines(cpu.writer)[-1]
+    metric_diff = max(abs(m_card[k] - v) for k, v in m_cpu.items() if not k.startswith("perf/"))
+    print(f"  orbax_resume: the converted checkpoint's epoch 2 ({card.state.step - 3} steps, "
+          f"validation) on the card {card_s:.2f} s, on the CPU {cpu_s:.2f} s; card vs CPU "
+          f"parameters {diffs['param_max_abs_diff']:.3e} (atol {TRAIN_ATOL:g}), float-noise "
+          f"elements {diffs['noise_max_abs_diff']:.3e} (2*lr per update), their first moments "
+          f"{diffs['noise_grad_max_rel_diff']:.3e} of the module's rms; epoch metrics max abs "
+          f"diff {metric_diff:.3e} (reported); launches {json.dumps(launches)}")
+    check(not bad, f"orbax_resume card vs CPU beyond tolerance {bad[:4]}")
+    return {"card_s": card_s, "cpu_s": cpu_s, "steps": card.state.step - 3,
+            "metric_max_abs_diff": metric_diff, **diffs, "launches": launches}
+
+
+def surface_sgan():
+    """(e) The legacy Social-GAN at its JAX defaults on SGAN_SCENES x PEDS:
+    ``generator_apply`` for pool_net and spool with ``pool_every_timestep``
+    off and on (on needs noise_dim=0, the one setting where the JAX model
+    runs it), ``discriminator_apply`` local and global; card vs CPU on the
+    same weights and noise within SGAN_ATOL, the generator's p50 of
+    SGAN_CALLS calls; no kernel of the repo launches."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.models import social_gan_legacy as sgan
+    from mggan_tpu_torch.models.factory import tree_to
+    from mggan_tpu_torch.ops import kernels
+
+    data = train_batch(SGAN_SCENES, SEED + 18)
+    xy, mask = data["xy"], data["ped_mask"]
+    before = dict(kernels.launches)
+    out = {}
+    gen_cases = [(f"generator {pool}, pool_every_timestep {pet}",
+                  sgan.SGANSpec(pooling_type=pool, pool_every_timestep=pet,
+                                noise_dim=0 if pet else 8))
+                 for pool in ("pool_net", "spool") for pet in (False, True)]
+    for label, spec in gen_cases + [(f"discriminator {d}", sgan.SGANSpec(d_type=d))
+                                    for d in ("local", "global")]:
+        is_gen = label.startswith("generator")
+        params = (sgan.generator_init if is_gen else sgan.discriminator_init)(
+            torch.Generator().manual_seed(SEED), spec)
+        if is_gen:
+            z = torch.randn((SGAN_SCENES, 1, spec.noise_dim),
+                            generator=torch.Generator().manual_seed(SEED))
+            args = (xy[:, :, :8], np.diff(xy[:, :, :8], axis=2), mask)
+            fn = lambda p, a, dev: sgan.generator_apply(p, spec, *a, z=z.to(dev))
+        else:
+            args = (xy, np.diff(xy, axis=2), mask)
+            fn = lambda p, a, dev: (sgan.discriminator_apply(p, spec, *a),)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            a = tuple(torch.as_tensor(np.ascontiguousarray(x), device=dev) for x in args)
+            res[dev] = [t.cpu() for t in fn(tree_to(params, dev), a, dev)]
+            if dev == "cuda":
+                on_card = tree_to(params, "cuda")
+                ms = []
+                for _ in range(SGAN_CALLS):
+                    t0 = time.perf_counter()
+                    fn(on_card, a, "cuda")
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+        err = max(float((g - c).abs().max()) for g, c in zip(res["cuda"], res["cpu"]))
+        finite = all(bool(torch.isfinite(t).all()) for t in res["cuda"])
+        out[label] = {"max_abs_err": err, "p50_ms": float(np.median(ms)), "times_ms": ms}
+        print(f"  legacy Social-GAN {label}, {SGAN_SCENES} x {PEDS}: card vs CPU {err:.3e} "
+              f"(atol {SGAN_ATOL:g}), p50 {out[label]['p50_ms']:.3f} ms of {SGAN_CALLS} calls")
+        check(finite and err <= SGAN_ATOL, f"legacy Social-GAN {label}: card vs CPU {err:.3e}")
+    check(dict(kernels.launches) == before,
+          "the legacy Social-GAN launched a kernel of the repo")
+    print("  the legacy Social-GAN launches none of the repo's kernels (plain PyTorch, as it "
+          "was plain XLA in JAX)")
+    return out
+
+
+def phase_surface(tmp, root, flagship_p50_ms):
+    """Phase 18: the rest of the single-device surface (see the module
+    note), with phase 15's zara1 files under ``root``; the launch counts
+    of paths split_step, profiled_loop, sweep and orbax_resume."""
+    t_phase = time.perf_counter()
+    card = smi_query("name,power.limit")
+    tmp = tmp / "surface"
+    tmp.mkdir()
+    parts = {}
+    for name, fn in (("split_step", surface_split_step),
+                     ("profiled_loop", lambda: surface_profiled_loop(tmp, root)),
+                     ("sweep", lambda: surface_sweep(tmp, root)),
+                     ("orbax_resume", lambda: surface_orbax_resume(tmp)),
+                     ("legacy_sgan", surface_sgan)):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        print(f"phase 18 {name}: {time.perf_counter() - t0:.1f} s")
+    launches = {k: parts[k].pop("launches") for k in ("split_step", "profiled_loop", "sweep",
+                                                      "orbax_resume")}
+    secs = time.perf_counter() - t_phase
+    print(f"phase 18 (surface, {card}): {secs:.1f} s; phase 5's flagship step p50 "
+          f"{flagship_p50_ms:.3f} ms; launches {json.dumps(launches)}")
+    return {"card": card, **parts, "launches": launches, "seconds": secs}
+
+
 def first_windows(ds, n):
     """The dataset's first ``n`` windows, as a dataset."""
     import dataclasses
@@ -4187,6 +4556,7 @@ def main():
         real, real_handles = phase_real_data(tmp, host_build_s)
         families = phase_families(train["p50_ms"])
         deployment = phase_deployment(Path(tmp), **real_handles)
+        surface = phase_surface(Path(tmp), real_handles["root"], train["p50_ms"])
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -4199,7 +4569,7 @@ def main():
              "ablation": abl_path["launches"], "train_loop": loop["launches"],
              "realdata_cli": real["launches"], "families": families["launches"],
              "single_gen_cli": families["single_gen_cli"]["launches"],
-             "deployment": deployment["launches"]}
+             "deployment": deployment["launches"], **surface["launches"]}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
@@ -4231,6 +4601,7 @@ def main():
                      "single_gen_cli": {k: v for k, v in families["single_gen_cli"].items()
                                         if k != "launches"}},
         "deployment": {k: v for k, v in deployment.items() if k != "launches"},
+        "surface": {k: v for k, v in surface.items() if k != "launches"},
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -110,8 +110,8 @@ class Config:
     # Augmented-patch resampling: "nearest" (the reference's PIL resample
     # mode) or "bilinear".
     patch_interp: str = "nearest"
-    # Multi-device and profiling settings: the loop raises for any but these
-    # defaults (ROADMAP.md queue 1 items 13 and 15).
+    # Multi-device settings (the loop raises for any but these defaults:
+    # ROADMAP.md queue 1 item 13), the split step and the profiler capture.
     dp: int = 1
     gp: int = 1
     slices: int = 1

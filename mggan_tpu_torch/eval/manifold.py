@@ -7,7 +7,9 @@ ramping linearly from radius/T to radius over the prediction horizon. A
 test trajectory is inside iff at every timestep it lies within the radius
 of ANY construction trajectory. The membership tests are vectorised numpy
 on the host. The plotting methods (``get_polygons``, ``plot_manifold``)
-need matplotlib and shapely and are not ported (ROADMAP.md queue 1).
+import matplotlib when called; ``get_polygons`` unions the circles with
+shapely where it is installed and otherwise returns them without a union,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -35,6 +37,59 @@ class Manifold:
     def compute_metric(self, test_data: np.ndarray) -> float:
         inside = self.compute_inside(test_data)
         return float(inside.sum()) / len(test_data)
+
+    def get_polygons(self, time):
+        """Circle polygons of the manifold at timestep(s) ``time``
+        (manifold.py:79-95). With shapely installed this returns their
+        unary union (reference-exact); without it, the polygons without a
+        union (the same fill, edges also drawn on interior seams)."""
+        import matplotlib.patches as patches
+
+        if not isinstance(time, list):
+            time = [time]
+        polys = []
+        for t in time:
+            for idx in range(self.data.shape[0]):
+                endpoint = self.data[idx, t]
+                circle = patches.CirclePolygon((endpoint[0], endpoint[1]), self.radius[t])
+                verts = circle.get_path().vertices
+                polys.append(circle.get_patch_transform().transform(verts))
+        try:
+            from shapely.geometry import Polygon
+            from shapely.ops import unary_union
+        except ImportError:
+            return polys
+        union = unary_union([Polygon(p) for p in polys])
+        geoms = getattr(union, "geoms", [union])
+        return [np.array(g.exterior.coords) for g in geoms]
+
+    def plot_manifold(self, time, color="r", axes=None, border_only=False):
+        """Matplotlib rendering (manifold.py:20-58). ``border_only``: the
+        manifold's cross-sections at ``time`` (a step or a list) as filled
+        polygons with Reds-colormap borders; otherwise final-radius circles
+        around each endpoint (``time`` unread)."""
+        import matplotlib.patches as patches
+        import matplotlib.pyplot as plt
+
+        if axes is None:
+            _, axes = plt.subplots()
+        if border_only:
+            times = time if isinstance(time, list) else [time]
+            cmap = plt.get_cmap("Reds", len(times) + 2)
+            for i, t in enumerate(times):
+                for poly in self.get_polygons(t):
+                    axes.add_patch(patches.Polygon(np.asarray(poly), facecolor="none",
+                                                   edgecolor=cmap(i), lw=3))
+                    axes.add_patch(patches.Polygon(np.asarray(poly), facecolor=cmap(i),
+                                                   edgecolor="none", lw=3, alpha=0.5,
+                                                   zorder=1))
+        else:
+            for idx in range(self.data.shape[0]):
+                endpoint = self.data[idx, -1]
+                axes.add_artist(plt.Circle(tuple(endpoint), self.radius[-1], color=color,
+                                           fill=False))
+                axes.scatter(endpoint[0], endpoint[1])
+        return axes
 
 
 def get_same_obs_indices(ds):

@@ -20,6 +20,8 @@ the learnable prior ``net_prior``.
 
 from __future__ import annotations
 
+import math
+
 from dataclasses import dataclass
 
 import torch
@@ -182,6 +184,12 @@ def _reshape_samples(x, spec, noise):
     return x.reshape(k, s, p, spec.pred_len, 2)
 
 
+def _rows(x):
+    """``x (..., F)`` as ``(rows, F)``; also for ``F = 0`` (no social
+    module), where ``reshape(-1, 0)`` cannot infer the rows."""
+    return x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
+
+
 def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
                social_feats, noise, compute_dtype=None):
     """Every generator on every noise sample (standard.py:227-265).
@@ -196,7 +204,7 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2).
     """
     k, s, p, _ = noise.shape
-    flat = lambda x: x.reshape(-1, x.shape[-1])
+    flat = _rows
     g = spec.num_gens
     if spec.discrete:
         # the G identities' h0 stacked identity-major: (G*K*S*P, H), one
@@ -242,7 +250,7 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
                          noise, compute_dtype)
         return GeneratorOutput(rel=sampling.gather_samples(out.rel, gen_idxs),
                                abs=sampling.gather_samples(out.abs, gen_idxs))
-    flat = lambda x: x.reshape(-1, x.shape[-1]).contiguous()
+    flat = lambda x: _rows(x).contiguous()
     # rows are (k, s, p)-major, the order _decoder_h0 produces
     idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
     if spec.discrete:

@@ -14,16 +14,22 @@ GUMBEL_U_MIN = 1e-20
 
 
 def global_noise(num_samples: int, s: int, p: int, dim: int, *,
-                 generator=None, z=None):
-    """Per-scene Gaussian noise shared by all peds of a scene
-    (utils.py:160-165).
+                 generator=None, z=None, noise_type="gaussian"):
+    """Per-scene noise shared by all peds of a scene (utils.py:160-165):
+    standard normal for ``noise_type="gaussian"``, uniform in ``[-1, 1)``
+    for ``"uniform"``; any other type raises ``ValueError``.
 
     Drawn at ``(num_samples, S, 1, dim)`` (or taken from ``z``) and broadcast
     to ``(num_samples, S, P, dim)``.
     """
+    if noise_type not in ("gaussian", "uniform"):
+        raise ValueError(f'Unrecognized noise type "{noise_type}"')
     shape = (num_samples, s, 1, dim)
     if z is None:
-        z = torch.randn(shape, generator=generator, device=generator.device)
+        if noise_type == "gaussian":
+            z = torch.randn(shape, generator=generator, device=generator.device)
+        else:
+            z = torch.rand(shape, generator=generator, device=generator.device) * 2.0 - 1.0
     elif tuple(z.shape) != shape:
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {shape}")
     return z.expand(num_samples, s, p, dim)

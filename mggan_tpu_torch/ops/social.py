@@ -1,10 +1,9 @@
-"""Masked social modules over padded scene tensors: sways attention and
-SGAN pooling.
+"""Masked social modules over padded scene tensors: sways attention, SGAN
+pooling and the legacy Social-GAN's grid pooling.
 
 Counterpart of ``mggan_tpu/ops/social.py`` (``social_features``,
-``attention_pool``, ``social_attention_apply``, ``pool_hidden_net_apply``;
-``social_pooling_apply`` belongs to the legacy Social-GAN of ROADMAP.md
-queue 1 item 15). Scenes are rows of a dense
+``attention_pool``, ``social_attention_apply``, ``pool_hidden_net_apply``,
+``social_pooling_apply``). Scenes are rows of a dense
 ``(S, P, P)`` pairwise tensor; ``mask (S, P)`` marks real peds. Pairwise
 tensors are indexed ``[s, i, j]`` with ``i`` the attending ped.
 """
@@ -89,4 +88,40 @@ def pool_hidden_net_apply(params, last_xy, enc_h, mask, activation="relu"):
     valid_j = (mask[:, None, :] & mask[:, :, None])[..., None]
     pooled = torch.where(valid_j, pooled, torch.full_like(pooled, NEG_INF))
     out = pooled.max(dim=-2).values
+    return torch.where(mask[..., None], out, torch.zeros_like(out))
+
+
+def social_pooling_apply(params, last_xy, enc_h, mask, neighborhood_size=2.0, grid_size=8):
+    """Masked grid-based Social-LSTM pooling (``SocialPooling``,
+    social_gan.py:232-358).
+
+    Each ped i owns a ``grid_size x grid_size`` grid spanning
+    ``neighborhood_size`` centred on it; every real peer j (not i) inside it
+    adds its hidden state into cell(i, j), with y measured downward from the
+    grid's top bound as in the reference (social_gan.py:273-276). The sum
+    is a scatter-add (``index_add``) over the flattened (i, cell) row of
+    each pair, where JAX contracts a one-hot pair tensor. At 64 scenes x 16
+    peds, H=32, the scatter-add's pair contributions ``(S, P, P, H)`` hold
+    524,288 floats (2 MiB) and the one-hot's ``(S, P, P, grid^2)`` would
+    hold 1,048,576 (4 MiB); both write the ``(S, P, grid^2 * H)`` grid,
+    2,097,152 floats (8 MiB).
+    params = {"pool": mlp [grid^2 * H, ...]}. Returns the MLP's
+    output for real peds, zeros for padded ones.
+    """
+    s, p, h = enc_h.shape
+    g2 = grid_size * grid_size
+    rel = last_xy[:, None, :, :] - last_xy[:, :, None, :]  # pos_j - pos_i
+    half = neighborhood_size / 2.0
+    cell_x = torch.floor((rel[..., 0] + half) / neighborhood_size * grid_size)
+    cell_y = torch.floor((half - rel[..., 1]) / neighborhood_size * grid_size)
+    in_bounds = (cell_x >= 0) & (cell_x < grid_size) & (cell_y >= 0) & (cell_y < grid_size)
+    eye = torch.eye(p, dtype=torch.bool, device=mask.device)[None]
+    valid = in_bounds & mask[:, None, :] & mask[:, :, None] & ~eye  # (S, P_i, P_j)
+    cell = (cell_x + cell_y * grid_size).to(torch.int64).clamp(0, g2 - 1)
+    # row (s, i, cell) of the flattened grid each pair (s, i, j) adds into
+    row = (torch.arange(s * p, device=mask.device).reshape(s, p, 1) * g2 + cell)
+    contrib = enc_h[:, None, :, :] * valid[..., None].to(enc_h.dtype)  # (S, P_i, P_j, H)
+    grid = enc_h.new_zeros((s * p * g2, h)).index_add(
+        0, row.reshape(-1), contrib.reshape(-1, h))
+    out = mlp_apply(params["pool"], grid.reshape(s, p, g2 * h), activation="relu")
     return torch.where(mask[..., None], out, torch.zeros_like(out))

@@ -10,6 +10,11 @@ reads it), the loader pinned to the epoch, batches through a
 metrics (``gradnorm/*`` into a ``GradNormLogger``), validation every
 ``val_every`` epochs with ``checkpoint_best`` on ``val/ADE k=<top_k_test>``,
 a checkpoint every ``save_every`` epochs and the l2 weight's decay.
+``split_step`` trains with ``build_split_train_step`` (the fused step
+behind JAX's split-step checks: the port compiles nothing to split), and
+``profile_dir`` writes a ``torch.profiler`` trace of
+one step into that directory: the second step of the run's first epoch,
+the step the JAX loop traces.
 
 Random numbers come from one source with three methods (``SeededDraws``
 by default; a test injects another to replay the JAX Trainer's keys):
@@ -43,7 +48,10 @@ from mggan_tpu_torch.models.factory import construct_gan
 from mggan_tpu_torch.ops import sampling
 from mggan_tpu_torch.training import checkpoints as ckpt
 from mggan_tpu_torch.training.state import init_train_state
-from mggan_tpu_torch.training.steps import batch_views, build_train_step, make_draws
+from mggan_tpu_torch.training.steps import (
+    batch_views, build_split_train_step, build_train_step, make_draws,
+)
+from mggan_tpu_torch.utils import profiling
 from mggan_tpu_torch.utils.logging import ExperimentWriter, load_meta_tags
 from mggan_tpu_torch.utils.trajectory_tools import GradNormLogger
 
@@ -81,15 +89,12 @@ class SeededDraws:
 
 def check_loop_scope(config: Config):
     """Raise for the loop settings the port does not cover yet."""
-    if config.dp * config.gp * config.slices > 1 or config.split_step:
+    if config.dp * config.gp * config.slices > 1:
+        pair = (" (with split_step, which the JAX Trainer refuses beside dp/gp too)"
+                if config.split_step else "")
         raise NotImplementedError(
-            f"dp={config.dp}, gp={config.gp}, slices={config.slices}, "
-            f"split_step={config.split_step}: multi-device and split-step training "
-            "is not ported yet (ROADMAP.md queue 1 item 13)")
-    if config.profile_dir:
-        raise NotImplementedError(
-            "profile_dir: the train loop's profiler capture (utils/profiling.py) is "
-            "not ported yet (ROADMAP.md queue 1 item 15)")
+            f"dp={config.dp}, gp={config.gp}, slices={config.slices}: multi-device "
+            f"training is not ported yet{pair} (ROADMAP.md queue 1 item 13)")
 
 
 class Trainer:
@@ -111,7 +116,8 @@ class Trainer:
         self.device = resolve_device(device)
         g_pack, d_pack = construct_gan(config, seed=config.seed, device=self.device)
         self.g_spec, self.d_spec = g_pack[2], d_pack[2]
-        self.train_step = build_train_step(config, self.g_spec, self.d_spec)
+        build = build_split_train_step if config.split_step else build_train_step
+        self.train_step = build(config, self.g_spec, self.d_spec)
         self.state = init_train_state(config, g_pack, d_pack,
                                       seed=stream_seed(config.seed, 1))
         self.draws = SeededDraws(config, self.device) if draws is None else draws
@@ -142,9 +148,12 @@ class Trainer:
                                shuffle=True, seed=cfg.seed, **common),
                 get_dataloader(cfg.dataset, "val", **common))
 
-    def train_epoch(self, loader, epoch: int):
+    def train_epoch(self, loader, epoch: int, profile: bool = False):
         """One epoch of train steps over ``loader`` (pinned to ``epoch``,
-        through a ``Prefetcher``, augmented when ``loader.augment``).
+        through a ``Prefetcher``, augmented when ``loader.augment``);
+        ``profile`` traces the epoch's second step into
+        ``config.profile_dir`` (``utils/profiling.py::trace``, stopped after
+        a synchronize).
 
         Returns ``(metrics, perf)``: each step metric's per-step values (a
         float64 array per key), and ``steps``, ``agents`` (real,
@@ -166,8 +175,15 @@ class Trainer:
                 s, p = np.shape(batch["ped_mask"])
                 aug = self.draws.aug(epoch, i, s) if loader.augment else None
                 model_batch = self._device_batch(batch, train=loader.augment, aug=aug)
-                self.state, step_metrics = self.train_step(
-                    self.state, model_batch, self.draws.step(self.state, s, p))
+                draws = self.draws.step(self.state, s, p)
+                if profile and n_steps == 1:
+                    with profiling.trace(self.config.profile_dir):
+                        self.state, step_metrics = self.train_step(
+                            self.state, model_batch, draws)
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                else:
+                    self.state, step_metrics = self.train_step(self.state, model_batch, draws)
                 for k, v in step_metrics.items():
                     metrics[k].append(v)
                 n_steps += 1
@@ -188,8 +204,10 @@ class Trainer:
         cfg = self.config
         train_loader, val_loader = self._loaders()
         track_metric = f"val/ADE k={cfg.top_k_test}"
-        for epoch in range(int(self.state.epoch), cfg.epochs):
-            values, perf = self.train_epoch(train_loader, epoch)
+        start_epoch = int(self.state.epoch)
+        for epoch in range(start_epoch, cfg.epochs):
+            values, perf = self.train_epoch(
+                train_loader, epoch, profile=bool(cfg.profile_dir) and epoch == start_epoch)
             dt = max(perf["seconds"], 1e-9)
             metrics = {k: list(v) for k, v in values.items()}
             metrics["perf/steps_per_sec"] = [perf["steps"] / dt]

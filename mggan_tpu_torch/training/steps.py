@@ -10,6 +10,7 @@ and mgan (``wt_mgan_compat`` 1 and 0) or none; every ``l2_loss_type``; the
 continuous and the discrete generator, sways or sgan pooling, every
 ``inp_format`` the models take; D gating and unrolling. Only
 ``weighting_target="disc_scores"`` raises, as in JAX (train.py:602-603).
+``build_split_train_step`` is this step behind JAX's split-step checks.
 The updates mirror the JAX step:
 
 * D step: real scores, fakes from the generator with one sample decoded by
@@ -501,3 +502,22 @@ def build_train_step(config: Config, g_spec, d_spec):
         return state.replace(step=state.step + 1), metrics
 
     return train_step
+
+
+def build_split_train_step(config: Config, g_spec, d_spec):
+    """The split train step (``mggan_tpu/training/steps.py::
+    build_split_train_step``): ``build_train_step``'s step, after JAX's
+    refusals of unrolling and ``num_gen_steps > 1``.
+
+    JAX splits its step into D, G and PM programs only to compile the three
+    in parallel; the port compiles no programs, so there is nothing to
+    split, and the fused step runs the same updates in the same order. One
+    difference stays: JAX's split step without a PM phase
+    (``weighting_target="none"``) skips probgan's history average, which
+    both fused steps run.
+    """
+    if config.num_unrolling_steps > 0 or config.num_gen_steps > 1:
+        raise ValueError("split step supports the common ungated configuration; use the "
+                         "fused build_train_step otherwise (num_unrolling_steps="
+                         f"{config.num_unrolling_steps}, num_gen_steps={config.num_gen_steps})")
+    return build_train_step(config, g_spec, d_spec)

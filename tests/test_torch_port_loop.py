@@ -182,7 +182,7 @@ def test_resumed_run_keeps_the_better_best_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("kw, item", [
     ({"dp": 2}, "item 13"), ({"gp": 2}, "item 13"), ({"slices": 2}, "item 13"),
-    ({"split_step": 1}, "item 13"), ({"profile_dir": "prof"}, "item 15"),
+    ({"split_step": 1, "dp": 2}, "item 13"), ({"profile_dir": "prof", "gp": 2}, "item 13"),
     ({"weighting_target": "disc_scores"}, "train.py:602"),
 ])
 def test_unported_settings_raise_naming_their_item(tmp_path, kw, item):

@@ -187,7 +187,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          'models.generator', 'models.factory', 'models.weights',\n"
         "          'training.steps', 'training.state', 'eval.predict',\n"
         "          'tools.state_compare', 'serving.server', 'cli.serve', 'cli.export',\n"
-        "          'cli.convert', 'models.torch_export'):\n"
+        "          'cli.convert', 'models.torch_export', 'cli.sweep', 'viz',\n"
+        "          'models.social_gan_legacy', 'utils.profiling'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )
@@ -218,8 +219,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagsh
                             str(tmp_path / "ref"), "--device", "cpu"])
     pth = ref / "checkpoints" / "checkpoint_best.pth"
 
+    from mggan_tpu_torch.cli import sweep as sweep_cli
+    from mggan_tpu_torch.models import social_gan_legacy
+    from mggan_tpu_torch.training.checkpoints import train_state_from_jax
+
+    sgan_params = {k: v.numpy() for k, v in social_gan_legacy.generator_init(
+        torch.Generator(), social_gan_legacy.SGANSpec())["enc_embed"].items()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (
+            lambda: sweep_cli.main(["--grid", '{"num_gens": [2]}', "--dataset",
+                                    "synthetic_memory", "--log_dir", str(tmp_path / "sw")]),
+            lambda: social_gan_legacy.params_from_jax(sgan_params),
+            lambda: train_state_from_jax({}, small, factory.build_specs(small),
+                                         factory.build_d_spec(small)),
             lambda: ServingModel.from_version_dir(vdir),
             lambda: ServingModel.from_artifact(art),
             lambda: export_cli.main(["--model_dir", str(vdir), "--out", str(art)]),

@@ -84,6 +84,12 @@ def _jax_draws(rng, cfg: JaxConfig, s, p, d_params=None, g_params=None):
     from ``kd``; probgan's normals from ``fold_in(key, 1729)``, one key per
     leaf of ``d_params`` / ``g_params`` (the JAX trees)."""
     _, kd, kg, kpm = jax.random.split(rng, 4)
+    return _jax_draws_from_keys(kd, kg, kpm, cfg, s, p, d_params, g_params)
+
+
+def _jax_draws_from_keys(kd, kg, kpm, cfg: JaxConfig, s, p, d_params=None, g_params=None):
+    """``_jax_draws`` from the D, G and PM steps' keys themselves (the split
+    step folds them from ``state.rng`` and the step)."""
 
     def labels(key):
         kr, kf = jax.random.split(key)
