@@ -191,7 +191,37 @@ Phases, in order; any failure exits nonzero before the result line:
      on, the latter with noise_dim=0; discriminator: local and global),
      card vs CPU within 1e-4 on the same weights and noise, the p50 of 5
      calls each; it launches none of the repo's kernels;
- 19. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 19. data parallelism (``mggan_tpu_torch/parallel``): the ranks are child
+     processes of this script on the one card, under gloo (the backend rule
+     of ``parallel/pod.py``: NCCL only where every local rank has a card of
+     its own, so the NCCL route is not run here); a rank that fails or
+     outlives RANK_TIMEOUT_S fails the phase. (a) ``dp_step``: the flagship
+     step at 256 x 16, K=20 on 2 ranks (128 scene rows each, joined through
+     a file:// store), a warm-up and 5 timed steps with injected draws,
+     against the single-device step on the same batch and draws run here:
+     the first step's metrics (rtol 1e-5), Adam moments (rtol 1e-4 / atol
+     1e-6) and parameters (2e-3, float-noise elements under
+     ``tools/state_compare.py``'s rule), the single-device step rerun beside
+     as its own float noise, the ranks' states equal bit for bit after the
+     6 steps, K1 1, K2 2 and K3 1 launches a step on each rank, the DP p50
+     beside the single-device p50 (a record: the ranks share one card); (b)
+     ``dp_cli``: ``mggan_dp_eth`` as configured (dp=8, batch 256) on 8 ranks
+     under ``python -m torch.distributed.run --standalone`` through
+     ``cli.train`` for 1 epoch on a BIWI eth split written as phase 16's
+     is: one version dir, finite epoch metrics, ``checkpoint_best``, the
+     ranks' states alike, then ``cli.evaluate`` of that dir in this process
+     on one device (finite ADE/FDE); (c) ``pod``: 2 simulated nodes x 2
+     ranks (two launchers, a static rendezvous on 127.0.0.1) on phase 15's
+     zara1 files with ``shard_by_process`` and the bank: equal lockstep
+     counts and ``max_peds`` on every rank, the bank's gathers equal host
+     assembly bit for bit, ``allreduce_sums`` identical on every rank, then
+     a ``Trainer`` epoch whose state is bit for bit alike on all 4 ranks; (d)
+     the row-slice kernel checks: K1 (4,096 rows) and K2 (81,920 x 4) on
+     each of 2 row slices equal the full launch's rows bit for bit, and so
+     do K3's per-row input grads; K3's weight grads summed over the slices
+     within SLICE_WGRAD_REL of the full launch's (launch counts of the
+     paths ``dp_step``, ``dp_cli`` and ``pod`` summed over their ranks);
+ 20. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -4417,6 +4447,680 @@ def baseline_entry(name, source, replaces, shapes, main, by_path):
     }
 
 
+# Phase 19: data parallelism (mggan_tpu_torch/parallel). The ranks are child
+# processes of this script on the one card under gloo (pod.backend_for: more
+# ranks than cards), joined through a file:// store (a) or the launcher that
+# ships with torch (b, c); every child has a timeout, and a rank that fails
+# or times out fails the phase.
+DP_RANKS = 2  # (a): the flagship step on 2 ranks
+DP_STEPS = 5
+DP_CLI_RANKS = 8  # (b): mggan_dp_eth as configured, dp=8
+POD_NODES, POD_LOCAL = 2, 2  # (c): 2 simulated nodes x 2 ranks
+RANK_TIMEOUT_S = 240
+# (d): K3's weight grads summed over row slices against the full launch's,
+# each leaf's max abs difference over its max |grad| (summation order only)
+SLICE_WGRAD_REL = 1e-5
+# (a): tests/test_parallel.py::assert_steps_match, on the first step
+DP_METRIC_RTOL, DP_METRIC_ATOL = 1e-5, 1e-7
+DP_MOMENT_RTOL, DP_MOMENT_ATOL = 1e-4, 1e-6
+DP_PARAM_ATOL = 2e-3
+DP_DEVICE = "cuda"
+
+
+def _state_trees(state):
+    """A ``TrainState``'s tensors on the host, and its Adam counts."""
+    from mggan_tpu_torch.models.factory import tree_to
+
+    keys = ("g_params", "g_state", "d_params", "d_state")
+    out = {k: tree_to(getattr(state, k), "cpu") for k in keys}
+    for name in ("g_opt", "d_opt"):
+        opt = getattr(state, name)
+        out[name] = {"count": opt.count, "mu": tree_to(opt.mu, "cpu"),
+                     "nu": tree_to(opt.nu, "cpu")}
+    return out
+
+
+def _as_state(trees):
+    from mggan_tpu_torch.training.state import AdamState, TrainState
+
+    opt = lambda o: AdamState(o["count"], o["mu"], o["nu"])
+    return TrainState(g_params=trees["g_params"], g_state=trees["g_state"],
+                      d_params=trees["d_params"], d_state=trees["d_state"],
+                      g_opt=opt(trees["g_opt"]), d_opt=opt(trees["d_opt"]), generator=None)
+
+
+def _params_digest(state):
+    """sha256 of every parameter, BN statistic and Adam moment, bit for bit."""
+    import hashlib
+
+    from mggan_tpu_torch.utils.pytree import tree_leaves
+
+    h = hashlib.sha256()
+    for tree in (state.g_params, state.g_state, state.d_params, state.d_state, state.g_opt.mu,
+                 state.g_opt.nu, state.d_opt.mu, state.d_opt.nu):
+        for x in tree_leaves(tree):
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _moment_diffs(a, b):
+    """Max abs difference of two states' Adam moments (``_state_trees``) and
+    the leaves beyond (a)'s tolerance: (opt, moment, path, elements beyond,
+    worst diff, value)."""
+    from mggan_tpu_torch.utils.pytree import tree_items
+
+    bad, err = [], 0.0
+    for name in ("g_opt", "d_opt"):
+        for which in ("mu", "nu"):
+            flat = dict(tree_items(a[name][which]))
+            for path, w in tree_items(b[name][which]):
+                d = (flat[path] - w).abs()
+                err = max(err, float(d.max()))
+                beyond = d > DP_MOMENT_ATOL + DP_MOMENT_RTOL * w.abs()
+                if bool(beyond.any()):
+                    i = int((d - DP_MOMENT_RTOL * w.abs()).argmax())
+                    bad.append((name, which, ".".join(path), int(beyond.sum()),
+                                float(d.reshape(-1)[i]), float(w.reshape(-1)[i])))
+    return err, bad
+
+
+def compare_steps(got, want, cfg):
+    """A data-parallel first step against the single-device one
+    (``{"state": _state_trees, "metrics": floats}`` each), to (a)'s
+    tolerances: ``metric_err`` and ``bad_metrics``, ``moment_err`` and
+    ``moment_bad``, and ``diffs`` (``tools/state_compare.py``)."""
+    from mggan_tpu_torch.tools.state_compare import train_state_diffs
+
+    metric_err = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+                     for k, v in want["metrics"].items())
+    bad_metrics = [k for k, v in want["metrics"].items()
+                   if abs(got["metrics"][k] - v) > DP_METRIC_ATOL + DP_METRIC_RTOL * abs(v)]
+    moment_err, moment_bad = _moment_diffs(got["state"], want["state"])
+    diffs = train_state_diffs(_as_state(got["state"]), _as_state(want["state"]), cfg,
+                              DP_PARAM_ATOL, NOISE_LEAVES)
+    return {"metric_err": metric_err, "bad_metrics": bad_metrics, "moment_err": moment_err,
+            "moment_bad": moment_bad, "diffs": diffs}
+
+
+def run_ranks(cmds, log_dir, env_of=None, timeout=RANK_TIMEOUT_S):
+    """Start every command of ``cmds`` at once (stdout and stderr into
+    ``log_dir``), wait for all; any nonzero exit or timeout fails, and every
+    process is ended before this returns."""
+    import os
+
+    procs, logs = [], []
+    for i, cmd in enumerate(cmds):
+        log = Path(log_dir) / f"proc{i}.log"
+        env = dict(os.environ, **(env_of(i) if env_of else {}))
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, env=env,
+                                          cwd=str(HERE)))
+        logs.append(log)
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            print(log.read_text()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"{log.name}: exit {p.returncode} (timeout {timeout} s)")
+
+
+def rank_dp_step(spec_dir, rank):
+    """(a), one rank: the flagship step on this rank's rows of the spec's
+    batch, one warm-up step and DP_STEPS timed ones with the spec's draws."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.models.factory import build_d_spec, build_specs, tree_to
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.parallel import dp, pod
+    from mggan_tpu_torch.parallel.mesh import make_mesh
+    from mggan_tpu_torch.training.state import init_train_state
+
+    spec_dir = Path(spec_dir)
+    spec = torch.load(spec_dir / "spec.pt", weights_only=False)
+    pod.init_distributed(f"file://{spec_dir / 'store'}", DP_RANKS, rank, device=DP_DEVICE,
+                         timeout_s=RANK_TIMEOUT_S)
+    grid = make_mesh(DP_RANKS, 1, 1, DP_DEVICE)
+    cfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
+    w = {k: tree_to(v, grid.device) for k, v in spec["weights"].items()}
+    g_pack = (w["g_params"], w["g_state"], build_specs(cfg))
+    d_pack = (w["d_params"], w["d_state"], build_d_spec(cfg))
+    state = init_train_state(cfg, g_pack, d_pack, seed=SEED)
+    step, state = dp.make_parallel_train_step(cfg, g_pack[2], d_pack[2], grid, state)
+    local = {k: torch.as_tensor(v, device=grid.device)
+             for k, v in dp.shard_batch(grid, spec["batch"]).items()}
+    sync = lambda: torch.cuda.synchronize() if grid.device.type == "cuda" else None
+    kernels.launches.clear()
+    state, metrics = step(state, local, spec["draws"][0])
+    sync()
+    first = {"state": _state_trees(state), "metrics": {k: float(v) for k, v in metrics.items()}}
+    before, times = dict(kernels.launches), []
+    for i in range(1, DP_STEPS + 1):
+        t0 = time.perf_counter()
+        state, metrics = step(state, local, spec["draws"][i])
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
+    per_step = {k: (v - before.get(k, 0)) / DP_STEPS for k, v in launches.items()}
+    torch.save({"first": first, "times_ms": times, "launches": launches,
+                "launches_per_step": per_step, "digest": _params_digest(state),
+                "finite": all(bool(np.isfinite(float(v))) for v in metrics.values()),
+                "rows": int(local["ped_mask"].shape[0]), "grid": grid.describe(),
+                "backend": grid.backend, "world": pod.world_size()},
+               spec_dir / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def rank_cli(out_dir, argv):
+    """(b), one rank under ``torch.distributed.run``: ``cli.train`` with
+    ``argv``, its launch counts and version dir written to ``out_dir``."""
+    import torch
+
+    from mggan_tpu_torch.cli import train as train_cli
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.parallel import pod
+
+    kernels.launches.clear()
+    model = train_cli.main(argv)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    (Path(out_dir) / f"rank{pod.rank()}.json").write_text(json.dumps({
+        "rank": pod.rank(), "world": pod.world_size(), "launches": dict(kernels.launches),
+        "dir": str(model.writer.dir), "steps": int(model.state.step),
+        "digest": _params_digest(model.state), "grid": model.grid.describe(),
+        "backend": model.grid.backend}))
+    pod.barrier()
+    torch.distributed.destroy_process_group()
+
+
+class FirstBatch:
+    """A loader that stops after its first batch: (c)'s one Trainer step."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        import itertools
+
+        return itertools.islice(iter(self.loader), 1)
+
+
+def rank_pod(out_dir, root):
+    """(c), one rank of 2 simulated nodes under ``torch.distributed.run``:
+    the node's window shard in lockstep, host assembly against the shard's
+    bank, ``allreduce_sums``, a ``Trainer`` epoch on zara1, then a fresh
+    ``Trainer``'s first step alone."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.data.loaders import get_dataloader
+    from mggan_tpu_torch.eval.metrics import allreduce_sums
+    from mggan_tpu_torch.ops import kernels
+    from mggan_tpu_torch.parallel import pod
+    from mggan_tpu_torch.parallel.mesh import make_mesh
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    pod.init_distributed(device=DP_DEVICE, timeout_s=RANK_TIMEOUT_S)
+    world = pod.world_size()
+    cfg = zara1_config(str(Path(out_dir) / "logs"), str(root), dp=world, name="pod_zara1")
+    grid = make_mesh(world, 1, 1, DP_DEVICE)
+    common = dict(batch_size=cfg.batch_size, data_root=str(root), shard_by_process=True,
+                  device=grid.device, grid=grid)
+    host = get_dataloader("zara1", "train", **common)
+    banked = get_dataloader("zara1", "train", patch_bank=True, **common)
+    check(banked.patch_bank is not None, "pod: the bank fell back to host assembly")
+    equal, batches = True, 0
+    for bh, bb in zip(host, banked):
+        equal &= torch.equal(bb["big_patches"].cpu(), torch.from_numpy(bh["big_patches"]))
+        batches += 1
+    reduced = allreduce_sums({"ADE k=3": (float(pod.rank() + 1), 2.0), "FDE k=3": (10.0, 1.0)})
+    kernels.launches.clear()
+    writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, config=cfg,
+                              tensorboard=False)
+    tr = Trainer(cfg, writer, device=DP_DEVICE).train()
+    # a fresh Trainer's first step, for the comparison on the joined batch
+    first = Trainer(cfg, writer, device=DP_DEVICE)
+    values, perf = first.train_epoch(FirstBatch(first._loaders()[0]), 0)
+    if grid.device.type == "cuda":
+        torch.cuda.synchronize(grid.device)
+    if pod.rank() == 0:
+        torch.save({"state": _state_trees(first.state), "agents": perf["agents"],
+                    "metrics": {k: float(v[0]) for k, v in values.items()}},
+                   Path(out_dir) / "first_step.pt")
+    (Path(out_dir) / f"rank{pod.rank()}.json").write_text(json.dumps({
+        "first_digest": _params_digest(first.state),
+        "rank": pod.rank(), "node": pod.process_index(), "nodes": pod.process_count(),
+        "num_batches": len(host), "batches": batches, "max_peds": int(host.max_peds),
+        "shard_windows": host.num_windows(), "rows": host.rows, "bank_equal": bool(equal),
+        "reduced": {k: list(v) for k, v in reduced.items()},
+        "launches": dict(kernels.launches), "steps": int(tr.state.step),
+        "best_val": float(tr.state.best_val), "dir": str(writer.dir),
+        "digest": _params_digest(tr.state), "grid": grid.describe(), "backend": grid.backend,
+        "finite": bool(np.isfinite(tr.state.best_val))}))
+    pod.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def rank_main(args):
+    """A child of phase 19: ``--rank dp_step <dir> <rank>``, ``--rank cli
+    <dir> -- <cli.train argv>`` or ``--rank pod <dir> <data root>``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets it here
+    torch.backends.cudnn.allow_tf32 = False
+    kind = args[0]
+    if kind == "dp_step":
+        rank_dp_step(args[1], int(args[2]))
+    elif kind == "cli":
+        rank_cli(args[1], args[args.index("--") + 1:])
+    elif kind == "pod":
+        rank_pod(args[1], args[2])
+    else:
+        raise SystemExit(f"unknown rank kind {kind}")
+    return 0
+
+
+def dp_step(tmp, single_p50_ms):
+    """(a): the flagship step on DP_RANKS ranks against the single-device
+    step on the same batch and draws, both run here."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.models.factory import construct_gan, tree_to
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step, make_draws
+
+    spec_dir = Path(tmp) / "dp_step"
+    spec_dir.mkdir()
+    cfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
+    g_pack, d_pack = construct_gan(cfg, seed=SEED, device=DP_DEVICE)
+    batch = train_batch(TRAIN_SCENES, SEED)
+    gen = torch.Generator(device=DP_DEVICE).manual_seed(SEED + 19)
+    draws = [make_draws(gen, cfg, TRAIN_SCENES, PEDS) for _ in range(DP_STEPS + 1)]
+    torch.save({"weights": {k: tree_to(v, "cpu") for k, v in zip(
+        ("g_params", "g_state", "d_params", "d_state"), (*g_pack[:2], *d_pack[:2]))},
+        "batch": batch, "draws": [{k: v.cpu() for k, v in d.items()} for d in draws]},
+        spec_dir / "spec.pt")
+    cmd = lambda r: [sys.executable, str(HERE / "chip_smoke.py"), "--rank", "dp_step",
+                     str(spec_dir), str(r)]
+    t0 = time.perf_counter()
+    # launched by hand: the ranks find their node (this host) from the store
+    run_ranks([cmd(r) for r in range(DP_RANKS)], spec_dir)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(spec_dir / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+
+    # the single-device step, same weights, batch and draws
+    state = init_train_state(cfg, g_pack, d_pack, seed=SEED)
+    step = build_train_step(cfg, g_pack[2], d_pack[2])
+    dev_batch = {k: torch.as_tensor(v, device=DP_DEVICE) for k, v in batch.items()}
+    state, metrics = step(state, dev_batch, draws[0])
+    torch.cuda.synchronize()
+    single_first = {"state": _state_trees(state),
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
+    times = []
+    for i in range(1, DP_STEPS + 1):
+        t0 = time.perf_counter()
+        state, metrics = step(state, dev_batch, draws[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    cmp = compare_steps(ranks[0]["first"], single_first, cfg)
+    metric_err, bad_metrics = cmp["metric_err"], cmp["bad_metrics"]
+    moment_err, moment_bad, diffs = cmp["moment_err"], cmp["moment_bad"], cmp["diffs"]
+    # the single-device step's own run-to-run difference (cuDNN's backward
+    # is not deterministic), printed beside
+    state2 = init_train_state(cfg, g_pack, d_pack, seed=SEED)
+    state2, _ = step(state2, dev_batch, draws[0])
+    torch.cuda.synchronize()
+    floor_err, floor_bad = _moment_diffs(_state_trees(state2), single_first["state"])
+    same = len({r["digest"] for r in ranks}) == 1
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    p50, dp_p50 = float(np.median(times)), float(np.median(ranks[0]["times_ms"]))
+    for r in ranks:
+        print(f"  dp_step {r['grid']}: {r['rows']} scene rows, p50 "
+              f"{float(np.median(r['times_ms'])):.3f} ms, launches a step "
+              f"{json.dumps(r['launches_per_step'])}")
+    print(f"  dp_step first step against the single-device step: metrics max rel diff "
+          f"{metric_err:.3e} (rtol {DP_METRIC_RTOL:g}), moments max abs diff "
+          f"{moment_err:.3e} (rtol {DP_MOMENT_RTOL:g} / atol {DP_MOMENT_ATOL:g}; beyond: "
+          f"{moment_bad[:4]}), parameters {diffs['param_max_abs_diff']:.3e} (atol "
+          f"{DP_PARAM_ATOL:g}), {diffs['noise_elements']} float-noise elements "
+          f"{diffs['noise_max_abs_diff']:.3e}; ranks bit for bit after {DP_STEPS + 1} steps: "
+          f"{same}")
+    print(f"  dp_step: the single-device first step run twice: moments max abs diff "
+          f"{floor_err:.3e}, beyond tolerance {floor_bad[:4]}")
+    print(f"  dp_step p50 over {DP_STEPS} steps, {DP_RANKS} ranks sharing one card (a record, "
+          f"not a speed-up): {dp_p50:.3f} ms (rank 0) against the single-device step's "
+          f"{p50:.3f} ms here (phase 5's {single_p50_ms:.3f} ms); ranks' wall {ranks_s:.1f} s")
+    due = {"decode_select": 1, "decode_all_fwd": 2, "decode_all_bwd": 1}
+    for i, r in enumerate(ranks):
+        check(f"node 0 of 1, local rank {i} of {DP_RANKS}" in r["grid"],
+              f"dp_step: rank {i} placed as {r['grid']}")
+        check(r["rows"] == TRAIN_SCENES // DP_RANKS, f"dp_step: {r['rows']} rows on a rank")
+        per = {k: r["launches_per_step"].get(k, 0) for k in due}
+        check(per == due, f"dp_step rank: launches a step {per}, {due} due")
+        check(r["finite"], "dp_step: non-finite metrics")
+    check(not bad_metrics, f"dp_step: metrics beyond rtol {DP_METRIC_RTOL:g}: {bad_metrics}")
+    check(not moment_bad, f"dp_step: Adam moments beyond tolerance: {moment_bad[:4]}")
+    check(not diffs["bad"], f"dp_step: parameters: {diffs['bad'][:4]}")
+    check(same, "dp_step: the ranks' states differ after the steps")
+    return {"ranks": DP_RANKS, "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+            "grids": [r["grid"] for r in ranks], "dp_p50_ms": dp_p50,
+            "dp_times_ms": ranks[0]["times_ms"], "single_p50_ms": p50, "single_times_ms": times,
+            "metric_max_rel_diff": metric_err, "moment_max_abs_diff": moment_err,
+            "single_rerun_moment_max_abs_diff": floor_err,
+            "param_max_abs_diff": diffs["param_max_abs_diff"],
+            "noise_max_abs_diff": diffs["noise_max_abs_diff"], "ranks_bit_identical": same,
+            "launches_per_step": ranks[0]["launches_per_step"], "launches": launches,
+            "seconds": ranks_s}
+
+
+def dp_cli(tmp):
+    """(b): ``mggan_dp_eth`` as configured (dp=8, batch 256) on DP_CLI_RANKS
+    ranks under ``torch.distributed.run`` on a BIWI eth split, 1 epoch; then
+    ``cli.evaluate`` of its version dir in this process on the card."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.cli import evaluate as evaluate_cli
+    from mggan_tpu_torch.configs import BENCHMARK_CONFIGS
+    from mggan_tpu_torch.ops import kernels
+
+    out = Path(tmp) / "dp_cli"
+    out.mkdir()
+    root = out / "data"
+    write_biwi(root, "eth", ETH_FRAMES, np.random.RandomState(SEED + 16))
+    flags = {**BENCHMARK_CONFIGS["mggan_dp_eth"], "epochs": 1, "val_every": 1, "seed": SEED}
+    argv = [x for k, v in flags.items() for x in (f"--{k}", str(v))]
+    argv += ["--name", "mggan_dp_eth", "--log_dir", str(out / "logs"), "--data_root", str(root),
+             "--device", DP_DEVICE]
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", str(DP_CLI_RANKS), str(HERE / "chip_smoke.py"), "--rank",
+              "cli", str(out), "--"]
+    print("  python -m torch.distributed.run --standalone --nproc_per_node "
+          f"{DP_CLI_RANKS} -m mggan_tpu_torch.cli.train " + " ".join(argv))
+    t0 = time.perf_counter()
+    run_ranks([launch + argv], out)
+    train_s = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(DP_CLI_RANKS)]
+    dirs = {r["dir"] for r in ranks}
+    check(len(dirs) == 1, f"dp_cli: {len(dirs)} version dirs named by the ranks")
+    vdir = Path(dirs.pop())
+    listed = sorted((out / "logs").glob("*/*/version_*"))
+    check(listed == [vdir], f"dp_cli: version dirs on disk {listed}")
+    check(len({r["digest"] for r in ranks}) == 1, "dp_cli: the ranks' states differ")
+    lines = [json.loads(line) for line in (vdir / "metrics.jsonl").read_text().splitlines()]
+    check(len(lines) == 1, f"dp_cli: {len(lines)} epochs logged")
+    bad = [k for k, v in lines[0].items() if not np.isfinite(v)]
+    check(not bad, f"dp_cli: non-finite epoch metrics {bad}")
+    check((vdir / "checkpoints" / "checkpoint_best").is_file(), "dp_cli: no checkpoint_best")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    csv_path = evaluate_cli.main(["--model_path", str(vdir.parent), "--output_folder",
+                                  str(out / "results"), "--phase", "test", "--data_root",
+                                  str(root), "--device", DP_DEVICE])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    for k, v in kernels.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    with open(csv_path, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    metrics = [c for c in rows[0] if c.startswith(("ADE k=", "FDE k="))]
+    bad = [(r["Prediction strategy"], c) for r in rows for c in metrics
+           if not np.isfinite(float(r[c]))]
+    check(rows and not bad, f"dp_cli evaluate: non-finite metrics {bad[:5]}")
+    for name in ("decode_select", "decode_all_fwd", "decode_all_bwd"):
+        check(launches.get(name, 0) > 0, f"dp_cli: {name} launched {launches.get(name, 0)} times")
+    for r in ranks:
+        print(f"  dp_cli {r['grid']}: {r['steps']} steps")
+    print(f"  dp_cli: {DP_CLI_RANKS} ranks, backend {ranks[0]['backend']}, world "
+          f"{ranks[0]['world']}, one version dir, {ranks[0]['steps']} steps of 256 scenes in "
+          f"{train_s:.1f} s (launch included); epoch metrics finite, val/ADE k=20 "
+          f"{lines[0].get('val/ADE k=20', float('nan')):.4f}; cli.evaluate on one device "
+          f"{eval_s:.1f} s, {len(rows)} strategies finite; launches {json.dumps(launches)}")
+    return {"ranks": DP_CLI_RANKS, "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+            "grids": [r["grid"] for r in ranks], "steps": ranks[0]["steps"], "train_s": train_s,
+            "eval_s": eval_s, "epoch": lines[0], "launches": launches,
+            "csv": {k: float(rows[0][k]) for k in ("ADE k=1", "ADE k=19", "FDE k=19")
+                    if k in rows[0]}}
+
+
+def dp_pod(tmp, root):
+    """(c): 2 simulated nodes x 2 ranks (two ``torch.distributed.run``
+    launchers on this machine, a static rendezvous on 127.0.0.1) on phase
+    15's zara1 files with ``shard_by_process`` and the bank; then their
+    first step against the single-device one (``pod_first_step``)."""
+    import socket
+
+    out = Path(tmp) / "dp_pod"
+    out.mkdir()
+    with socket.socket() as s:  # a free port on this machine for the rendezvous
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    launcher = lambda node: [
+        sys.executable, "-m", "torch.distributed.run", "--nnodes", str(POD_NODES),
+        "--node-rank", str(node), "--nproc-per-node", str(POD_LOCAL), "--rdzv-backend",
+        "static", "--master-addr", "127.0.0.1", "--master-port", str(port),
+        str(HERE / "chip_smoke.py"), "--rank", "pod", str(out), str(root)]
+    t0 = time.perf_counter()
+    run_ranks([launcher(n) for n in range(POD_NODES)], out)
+    secs = time.perf_counter() - t0
+    world = POD_NODES * POD_LOCAL
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    one = lambda key: {json.dumps(r[key]) for r in ranks}
+    check(len(one("num_batches")) == 1 and len(one("max_peds")) == 1,
+          f"pod: lockstep counts {one('num_batches')}, max_peds {one('max_peds')}")
+    check(all(r["batches"] == r["num_batches"] for r in ranks), "pod: a rank ran short")
+    check(all(r["bank_equal"] for r in ranks), "pod: bank gathers differ from host assembly")
+    check(len(one("reduced")) == 1, f"pod: allreduce_sums differ across ranks {one('reduced')}")
+    want = {"ADE k=3": [float(sum(range(1, world + 1))), 2.0 * world],
+            "FDE k=3": [10.0 * world, 1.0 * world]}
+    check(ranks[0]["reduced"] == want, f"pod: allreduce_sums {ranks[0]['reduced']} != {want}")
+    check(len(one("digest")) == 1, "pod: the ranks' states differ after the epoch")
+    check(len(one("first_digest")) == 1, "pod: the ranks' states differ after one step")
+    step = pod_first_step(out, root)
+    check(len(one("dir")) == 1, "pod: the ranks name different version dirs")
+    check(sorted(r["node"] for r in ranks) == [0, 0, 1, 1], "pod: nodes")
+    check(all(r["finite"] for r in ranks), "pod: non-finite best_val")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check_path_kernels("pod", launches)
+    for r in ranks:
+        print(f"  pod {r['grid']}: {r['shard_windows']} windows on its node, "
+              f"{r['num_batches']} lockstep batches of {r['rows']} rows, max_peds "
+              f"{r['max_peds']}, bank = host assembly {r['bank_equal']}, {r['steps']} steps")
+    print(f"  pod: backend {ranks[0]['backend']}, world {world}, allreduce_sums "
+          f"{json.dumps(ranks[0]['reduced'])} on every rank, states bit for bit, "
+          f"best_val {ranks[0]['best_val']:.4f}; {secs:.1f} s; launches {json.dumps(launches)}")
+    return {"first_step": step, "nodes": POD_NODES, "local": POD_LOCAL,
+            "backend": ranks[0]["backend"],
+            "grids": [r["grid"] for r in ranks], "num_batches": ranks[0]["num_batches"],
+            "max_peds": ranks[0]["max_peds"], "steps": ranks[0]["steps"],
+            "best_val": ranks[0]["best_val"], "seconds": secs, "launches": launches}
+
+
+def pod_first_step(out, root):
+    """(c)'s first step of the 4 ranks against the single-device step on
+    the nodes' first batches laid end to end (each node's window shard,
+    assembled on the host), each node's rows augmented with the same draws
+    (every node draws them for its own batch) and the step's draws at the
+    global shape, to (a)'s tolerances; the agents summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.data.loaders import get_dataloader
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    got = torch.load(out / "first_step.pt", weights_only=False)
+    cfg = zara1_config(str(out / "single_logs"), str(root), name="pod_zara1_single")
+    writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, config=cfg,
+                              tensorboard=False)
+    tr = Trainer(cfg, writer, device=DP_DEVICE)
+    nodes = []
+    for n in range(POD_NODES):
+        loader = get_dataloader("zara1", "train", batch_size=cfg.batch_size, shuffle=True,
+                                seed=cfg.seed, data_root=str(root), shard_by_process=True,
+                                process_index=n, process_count=POD_NODES, device=DP_DEVICE)
+        loader.set_epoch(0)
+        nodes.append(next(iter(loader)))
+    joined = {k: np.concatenate([b[k] for b in nodes]) for k in nodes[0]}
+    flip, alpha = tr.draws.aug(0, 0, cfg.batch_size)
+    model_batch = tr._device_batch(joined, train=True, aug=(torch.cat([flip] * POD_NODES),
+                                                            torch.cat([alpha] * POD_NODES)))
+    s, p = joined["ped_mask"].shape
+    state, metrics = tr.train_step(tr.state, model_batch, tr.draws.step(tr.state, s, p))
+    torch.cuda.synchronize()
+    want = {"state": _state_trees(state), "metrics": {k: float(v) for k, v in metrics.items()}}
+    cmp = compare_steps(got, want, cfg)
+    agents = int(joined["ped_mask"].sum())
+    diffs = cmp["diffs"]
+    print(f"  pod first step ({POD_NODES} x {POD_LOCAL} ranks, {s} scenes) against the "
+          f"single-device step on the nodes' batches end to end: metrics max rel diff "
+          f"{cmp['metric_err']:.3e}, moments max abs diff {cmp['moment_err']:.3e} (beyond: "
+          f"{cmp['moment_bad'][:4]}), parameters {diffs['param_max_abs_diff']:.3e}, "
+          f"{diffs['noise_elements']} float-noise elements {diffs['noise_max_abs_diff']:.3e}; "
+          f"agents {got['agents']} / {agents}")
+    check(got["agents"] == agents, f"pod: {got['agents']} agents counted, {agents} in the batch")
+    check(not cmp["bad_metrics"], f"pod first step: metrics {cmp['bad_metrics']}")
+    check(not cmp["moment_bad"], f"pod first step: Adam moments {cmp['moment_bad'][:4]}")
+    check(not diffs["bad"], f"pod first step: parameters {diffs['bad'][:4]}")
+    return {"scenes": s, "metric_max_rel_diff": cmp["metric_err"],
+            "moment_max_abs_diff": cmp["moment_err"],
+            "param_max_abs_diff": diffs["param_max_abs_diff"],
+            "noise_max_abs_diff": diffs["noise_max_abs_diff"], "agents": agents}
+
+
+def dp_row_slices():
+    """(d): K1 and K2 on each of DP_RANKS row slices of the train step's
+    shapes equal the full launch's rows bit for bit, K3's per-row input
+    grads too; K3's weight grads summed over the slices within
+    SLICE_WGRAD_REL of the full launch's (another summation order)."""
+    import torch
+
+    from mggan_tpu_torch.ops.kernels import decode_all as kda
+    from mggan_tpu_torch.ops.kernels import decoder as kdec
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    out = {}
+    # K1 at the D step's rows (one sample a ped: rows are agents)
+    c = decode_select_case(TRAIN_SCENES, gen, num=1)
+    args = [c["stacked"], c["xy"], c["dxdy"], c["soc"], c["h0"], c["idx"]]
+    on = lambda a: {k: on(v) for k, v in a.items()} if isinstance(a, dict) else a.cuda()
+    full = kdec.decode_select(*[on(a) for a in args], 12, "rel")
+    m = c["xy"].shape[0]
+    rows = m // DP_RANKS
+    same = True
+    for r in range(DP_RANKS):
+        sl = slice(r * rows, (r + 1) * rows)
+        part = kdec.decode_select(on(args[0]), *[on(a[sl]) for a in args[1:]], 12, "rel")
+        same &= all(torch.equal(p, f[sl]) for p, f in zip(part, full))
+    out["decode_select"] = {"rows": m, "slices": DP_RANKS, "bit_for_bit": bool(same)}
+    check(same, "row slices: K1 differs from the full launch")
+    # K2 / K3 at the G step's rows: K samples of every agent, rows sample-major
+    k = NUM
+    inputs = decode_all_case(TRAIN_SCENES * PEDS, k, gen)  # weights, socb, h0, xy, dxdy
+    m = inputs[6].shape[0]
+    rows = m // DP_RANKS
+
+    def run(ins):
+        prepared = kda.prepare(*ins, 12, "rel")
+        a, rel, hc = kda.launch_fwd(prepared, save_hc=True)
+        cot = torch.Generator(device="cuda").manual_seed(SEED)
+        ga = torch.randn(a.shape, generator=cot, device="cuda")
+        gr = torch.randn(rel.shape, generator=cot, device="cuda")
+        return a, rel, ga, gr, prepared, hc
+
+    a, rel, ga, gr, prepared, hc = run(inputs)
+    grads = kda.grads_from_raw(kda.launch_bwd(prepared, a, rel, hc, ga, gr), m)
+    g = a.shape[0]
+    per_agent = lambda x, sl: x.reshape((g, k, m) + tuple(x.shape[2:]))[:, :, sl]
+    fwd_same, row_same, wsum = True, True, None
+    for r in range(DP_RANKS):
+        sl = slice(r * rows, (r + 1) * rows)
+        h0 = inputs[7].reshape(k, m, -1)[:, sl].reshape(k * rows, -1).contiguous()
+        ins = inputs[:6] + [inputs[6][sl].contiguous(), h0, inputs[8][sl].contiguous(),
+                            inputs[9][sl].contiguous()]
+        prepared_r = kda.prepare(*ins, 12, "rel")
+        a_r, rel_r, hc_r = kda.launch_fwd(prepared_r, save_hc=True)
+        fwd_same &= torch.equal(a_r.reshape(g, k, rows, 12, 2), per_agent(a, sl)) and \
+            torch.equal(rel_r.reshape(g, k, rows, 12, 2), per_agent(rel, sl))
+        ga_r = per_agent(ga, sl).reshape(a_r.shape).contiguous()
+        gr_r = per_agent(gr, sl).reshape(rel_r.shape).contiguous()
+        g_r = kda.grads_from_raw(kda.launch_bwd(prepared_r, a_r, rel_r, hc_r, ga_r, gr_r), rows)
+        row_same &= torch.equal(g_r[6], grads[6][sl]) and torch.equal(g_r[8], grads[8][sl]) \
+            and torch.equal(g_r[9], grads[9][sl]) and torch.equal(
+                g_r[7].reshape(k, rows, -1), grads[7].reshape(k, m, -1)[:, sl])
+        wsum = list(g_r[:6]) if wsum is None else [s + x for s, x in zip(wsum, g_r[:6])]
+    torch.cuda.synchronize()
+    w_rel = max(float((s - f).abs().max() / f.abs().max().clamp_min(1e-30))
+                for s, f in zip(wsum, grads[:6]))
+    out["decode_all_fwd"] = {"rows": m * k, "slices": DP_RANKS, "bit_for_bit": bool(fwd_same)}
+    out["decode_all_bwd"] = {"rows": m * k, "slices": DP_RANKS, "row_grads_bit_for_bit":
+                             bool(row_same), "weight_grad_sum_rel_diff": w_rel}
+    print(f"  row slices ({DP_RANKS}): K1 at {out['decode_select']['rows']} rows bit for bit "
+          f"{same}; K2 at {m * k} rows bit for bit {fwd_same}; K3 per-row grads bit for bit "
+          f"{row_same}, weight grads summed over the slices {w_rel:.3e} x max|grad| of the "
+          f"full launch's (limit {SLICE_WGRAD_REL:g})")
+    check(fwd_same, "row slices: K2 differs from the full launch")
+    check(row_same, "row slices: K3's per-row grads differ from the full launch")
+    check(w_rel <= SLICE_WGRAD_REL, f"row slices: K3 weight grads {w_rel:.3e}")
+    return out
+
+
+def phase_data_parallel(tmp, root, single_p50_ms):
+    """Phase 19 (see the module note): (a) dp_step, (b) dp_cli, (c) pod,
+    (d) the row-slice kernel checks. Returns the summary and the paths'
+    launch counts."""
+    import torch
+
+    from mggan_tpu_torch.parallel import pod
+
+    t_phase = time.perf_counter()
+    card = smi_query("name,power.limit")
+    rule = pod.backend_for("cuda", DP_RANKS)
+    print(f"data parallelism ({card}): {torch.cuda.device_count()} card(s); backend rule: NCCL "
+          f"when every local rank has a card of its own, else gloo (gloo's all_reduce and "
+          f"broadcast take CUDA tensors), the host-side agreements on gloo always; here "
+          f"{DP_RANKS} ranks -> {rule}; the NCCL route is not run on one card")
+    step = dp_step(tmp, single_p50_ms)
+    cli = dp_cli(tmp)
+    pod_r = dp_pod(tmp, root)
+    slices = dp_row_slices()
+    secs = time.perf_counter() - t_phase
+    print(f"phase 19 (data parallelism): {secs:.1f} s")
+    launches = {"dp_step": step.pop("launches"), "dp_cli": cli.pop("launches"),
+                "pod": pod_r.pop("launches")}
+    return {"card": card, "dp_step": step, "dp_cli": cli, "pod": pod_r,
+            "row_slices": slices, "seconds": secs}, launches
+
+
 def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
     """The kernels line: one entry per ported kernel with its launches on
     each main path (``paths``: path -> launch counts) and the numbers
@@ -4531,6 +5235,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
+    if sys.argv[1:2] == ["--rank"]:  # a child of phase 19
+        return rank_main(sys.argv[2:])
     t_start = time.perf_counter()
     phase_card()
     build_s, host_build_s = phase_build()
@@ -4557,6 +5263,8 @@ def main():
         families = phase_families(train["p50_ms"])
         deployment = phase_deployment(Path(tmp), **real_handles)
         surface = phase_surface(Path(tmp), real_handles["root"], train["p50_ms"])
+        data_parallel, dp_launches = phase_data_parallel(tmp, real_handles["root"],
+                                                         train["p50_ms"])
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -4569,7 +5277,7 @@ def main():
              "ablation": abl_path["launches"], "train_loop": loop["launches"],
              "realdata_cli": real["launches"], "families": families["launches"],
              "single_gen_cli": families["single_gen_cli"]["launches"],
-             "deployment": deployment["launches"], **surface["launches"]}
+             "deployment": deployment["launches"], **surface["launches"], **dp_launches}
     by_path = lambda name: {path: c[name] for path, c in paths.items() if c.get(name)}
     entries = kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned)
     entries += ablation_entries(abl_checks, bwd16, abl_path, by_path, redesigned)
@@ -4602,6 +5310,7 @@ def main():
                                         if k != "launches"}},
         "deployment": {k: v for k, v in deployment.items() if k != "launches"},
         "surface": {k: v for k, v in surface.items() if k != "launches"},
+        "data_parallel": data_parallel,
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -16,5 +16,6 @@ datasets (``data/parsing.py``) and the ``cli.train`` -> ``cli.evaluate``
 pair; and deployment: reference-format checkpoints in and out
 (``cli.convert``, ``models/torch_export.py``), the serving artifact
 (``cli.export``), ``MicroBatcher``, the HTTP server (``serving/server.py``)
-and ``cli.serve``.
+and ``cli.serve``; and data-parallel training over ``torch.distributed``
+ranks (``parallel/``, ``data/elastic.py``).
 """

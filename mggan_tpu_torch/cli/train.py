@@ -7,6 +7,17 @@ Runs on ``--device`` (``cuda`` by default; ``cpu`` runs the plain PyTorch
 path). A new run prints its version dir. Resume: ``--checkpoint
 <version_dir>`` restores the full train state (epoch included) from the
 dir's ``best`` checkpoint and validates every epoch.
+
+Data-parallel training runs one process a rank under the launcher that
+ships with torch:
+
+    python -m torch.distributed.run --nproc_per_node N -m mggan_tpu_torch.cli.train --dp N ...
+
+(add ``--nnodes M --node_rank i --master_addr A --master_port P`` for M
+nodes, or pass ``--coordinator_address``, ``--num_processes`` and
+``--process_id`` per process). Each process joins the pod before it
+touches the device (``parallel/pod.py``); without a launcher ``--dp N > 1``
+raises naming the command.
 """
 
 from __future__ import annotations
@@ -15,12 +26,15 @@ import dataclasses
 from pathlib import Path
 
 from mggan_tpu_torch.config import config_from_args, get_parser
+from mggan_tpu_torch.parallel import pod
 from mggan_tpu_torch.training.loop import Trainer
 from mggan_tpu_torch.utils.logging import ExperimentWriter
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    # join the pod (if any) before any device touch
+    pod.maybe_init_from_args(args)
     config = config_from_args(args)
 
     if config.checkpoint:
@@ -32,7 +46,8 @@ def main(argv=None):
     else:
         writer = ExperimentWriter(config.log_dir, config.experiment, config.name,
                                   config=config)
-        print(str(writer.dir.resolve()))
+        if pod.is_primary():
+            print(str(writer.dir.resolve()))
         model = Trainer(config, writer, device=args.device)
         writer.save_config(config)  # num_gen_parameters filled by the factory
     model.train()

@@ -15,6 +15,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
+from mggan_tpu_torch.parallel.pod import add_pod_args
+
 # Architecture constants fixed by the reference factory (model_factory.py:18-19).
 PRED_LEN = 12
 OBS_LEN = 8
@@ -110,8 +112,8 @@ class Config:
     # Augmented-patch resampling: "nearest" (the reference's PIL resample
     # mode) or "bilinear".
     patch_interp: str = "nearest"
-    # Multi-device settings (the loop raises for any but these defaults:
-    # ROADMAP.md queue 1 item 13), the split step and the profiler capture.
+    # Data parallelism (parallel/: slices * dp ranks; gp > 1 raises, ROADMAP.md
+    # queue 1 item 13 (b)), the split step and the profiler capture.
     dp: int = 1
     gp: int = 1
     slices: int = 1
@@ -163,15 +165,10 @@ def flagship_config(**kw) -> Config:
 
 # Flags of the JAX parser that the port accepts so JAX command lines carry
 # over, but does not honour: away from these defaults they raise.
-_POD = "joining a multi-process pod is not ported yet (ROADMAP.md queue 1 item 13)"
 _UNREAD = "the JAX package parses it and reads it nowhere, so it would change nothing"
 UNPORTED_FLAGS = {
     "debug": (False, _UNREAD),
     "d_hist_loss_lambda": (1.0, _UNREAD),
-    "distributed": (0, _POD),
-    "coordinator_address": (None, _POD),
-    "num_processes": (None, _POD),
-    "process_id": (None, _POD),
     "pallas_decoder": (1, "the port always runs its CUDA decoder kernels; there is no "
                           "scan path to select with --pallas_decoder 0"),
 }
@@ -246,11 +243,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--patch_interp", type=str, choices=PATCH_INTERPS, default=d.patch_interp)
     p.add_argument("--wt_mgan_compat", type=int, default=d.wt_mgan_compat)
     p.add_argument("--compilation_cache_dir", type=str, default="")
-    # the pod flags of mggan_tpu/parallel/pod.py::add_pod_args
-    p.add_argument("--distributed", type=int, default=0)
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    # the launch-time pod flags (cli/train.py joins the pod from them)
+    add_pod_args(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu: where the model runs")
     return p

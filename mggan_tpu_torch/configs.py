@@ -2,9 +2,10 @@
 BASELINE.json "configs").
 
 Each entry maps to CLI flags for ``python -m mggan_tpu_torch.cli.train``;
-use ``get_benchmark_config(name)`` for a ready Config. Every name builds a
-``Config`` and all but one train: ``mggan_dp_eth`` (dp=8) raises when a
-``Trainer`` is built (multi-device training, ROADMAP.md queue 1 item 13).
+use ``get_benchmark_config(name)`` for a ready Config. Every name trains;
+``mggan_dp_eth`` (dp=8, a global batch of 256 scenes, 32 a rank) trains
+on 8 ranks: ``python -m torch.distributed.run --nproc_per_node 8 -m
+mggan_tpu_torch.cli.train --dp 8 --batch_size 256 ...`` (``parallel/``).
 """
 
 from __future__ import annotations

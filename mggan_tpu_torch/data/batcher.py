@@ -9,6 +9,12 @@ Scenes stay atomic (a scene never straddles a batch), mirroring
 scenes (the reference uses ``drop_last=False``). Batches are numpy arrays
 on the host, but for ``big_patches`` when a device patch bank
 (``data/patch_bank.py``) gathers them on the device instead.
+
+For data-parallel training (``parallel/``) a batcher runs a fixed number
+of batches an epoch (``num_batches``: the nodes' lockstep count,
+``data/elastic.py``; a short shard pads all-masked batches whose
+``window_idx`` is -1) and may keep one rank's rows of each batch
+(``shard``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ class PaddedBatcher:
         shuffle: bool = False,
         seed: int = 0,
         patch_bank=None,
+        num_batches: int | None = None,
         augment: bool = False,
+        shard: tuple[int, int] | None = None,
     ):
         self.ds = ds
         self.batch_size = batch_size
@@ -38,6 +46,14 @@ class PaddedBatcher:
         # standalone iteration advances the counter itself.
         self.seed = seed
         self._epoch = 0
+        # Lockstep across nodes (data/elastic.py): this many batches an
+        # epoch, trailing all-masked empty batches where the node's shard
+        # runs short.
+        self.num_batches = num_batches
+        # shard=(index, count): each batch padded with empty scenes to a
+        # multiple of count, and only the index-th of count equal row
+        # blocks assembled: a data-parallel rank's scenes (parallel/dp.py)
+        self.shard = shard
         # Whether the Trainer augments this loader's batches (on the device).
         self.augment = augment
         # With a bank the host assembles no patch array; make_batch attaches
@@ -64,7 +80,23 @@ class PaddedBatcher:
             self._wh_m[name] = (w / ds.px_per_meter, h / ds.px_per_meter)
 
     def __len__(self):
-        return (len(self.ds) + self.batch_size - 1) // self.batch_size
+        data_batches = (len(self.ds) + self.batch_size - 1) // self.batch_size
+        if self.num_batches is None:
+            return data_batches
+        if self.num_batches < data_batches:
+            raise ValueError(f"num_batches={self.num_batches} < the shard's {data_batches} "
+                             "batches: the lockstep count must cover the shard")
+        return self.num_batches
+
+    def num_windows(self):
+        return len(self.ds)
+
+    @property
+    def rows(self) -> int:
+        """Scene rows of each batch this loader yields."""
+        if self.shard is None:
+            return self.batch_size
+        return -(-self.batch_size // self.shard[1])
 
     def set_epoch(self, epoch: int):
         """Pin the shuffle order of the next ``__iter__`` to ``epoch`` (the
@@ -82,10 +114,16 @@ class PaddedBatcher:
         bs = self.batch_size
         for i in range(0, len(order), bs):
             yield self.make_batch(order[i : i + bs])
+        if self.num_batches is not None:
+            for _ in range(-(-len(order) // bs), len(self)):
+                yield self.make_batch(np.zeros((0,), np.int64))
 
     def make_batch(self, idxs):
         ds, p = self.ds, self.max_peds
-        s = self.batch_size  # the last batch is padded with empty scenes
+        if self.shard is not None:
+            lo = self.shard[0] * self.rows
+            idxs = idxs[lo : lo + self.rows]
+        s = self.rows  # the last batch is padded with empty scenes
         xy = np.zeros((s, p, SEQ_LEN, 2), np.float32)
         ped_mask = np.zeros((s, p), bool)
         wh_m = np.ones((s, 2), np.float32)

@@ -4,13 +4,14 @@
 Returns one ``PaddedBatcher`` over a ``SceneDataset``, with the split's
 patches in a device patch bank when asked and the budget allows. Datasets:
 the in-memory ``synthetic_memory`` and every dataset of the reference
-release layout (``data/parsing.py``). Per-process sharding raises
-``NotImplementedError`` naming its ROADMAP.md item.
+release layout (``data/parsing.py``). For data-parallel training a loader
+holds its node's windows (``shard_by_process``) and yields one rank's
+scene rows of each batch (``grid``).
 """
 
 from __future__ import annotations
 
-from mggan_tpu_torch.data import parsing
+from mggan_tpu_torch.data import elastic, parsing
 from mggan_tpu_torch.data.batcher import PaddedBatcher
 from mggan_tpu_torch.data.patch_bank import maybe_build_bank
 from mggan_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -49,30 +50,51 @@ def get_dataset(dataset: str, phase: str, data_root="./data/datasets", split=Non
 
 def get_dataloader(dataset: str, phase: str, augment=False, batch_size=8, workers=0,
                    shuffle=False, split=None, max_peds=None, data_root="./data/datasets",
-                   seed=0, patch_bank=False, shard_by_process=False, device="cuda"):
+                   seed=0, patch_bank=False, shard_by_process=False, process_index=None,
+                   process_count=None, device="cuda", grid=None):
     """A ``PaddedBatcher`` over ``get_dataset(dataset, phase, data_root,
-    split)``, with the JAX signature's single-process arguments.
-    ``workers`` is accepted for CLI parity and read by nothing, as in the
-    JAX package.
+    split)``, with the JAX signature's arguments. ``workers`` is accepted
+    for CLI parity and read by nothing, as in the JAX package.
 
     ``augment`` marks the loader's batches for augmentation
     (``loader.augment``), forced off for val and test
     (data_loaders.py:21-23); the augmentation itself runs on the device, in
     the Trainer. ``patch_bank`` keeps the split's patches on
-    ``device`` (``data/patch_bank.py``) when they fit the global budget;
-    ``device`` is read by nothing else.
+    ``device`` (``data/patch_bank.py``) when they fit the global budget.
+
+    ``shard_by_process``: this node loads only its window shard
+    (``elastic.shard_windows``) and runs the nodes' lockstep batch count,
+    with ``max_peds`` resolved from the whole split first, so every node
+    pads to one shape. ``process_index`` / ``process_count`` default to
+    the live pod's (``parallel/pod.py``). ``grid`` (a data-parallel rank's
+    ``parallel.mesh.Grid``): each batch yields this rank's scene rows, and
+    its bank lives on ``grid.device`` with the budget shared by the ranks
+    on that device.
     """
     if phase not in ("train", "val", "test"):
         raise ValueError(f"phase must be train, val or test, got {phase!r}")
-    if shard_by_process:
-        raise NotImplementedError(
-            "per-process window shards (data/elastic.py) are not ported yet "
-            "(ROADMAP.md queue 1 item 13)")
     ds = get_dataset(dataset, phase, data_root=data_root, split=split)
+    num_batches = None
+    if shard_by_process:
+        if process_index is None or process_count is None:
+            from mggan_tpu_torch.parallel import pod
+
+            process_index, process_count = pod.process_index(), pod.process_count()
+        global_windows = len(ds)
+        if max_peds is None:
+            # the padded ped axis from the whole split, before sharding:
+            # per-shard widths would give the nodes different shapes
+            max_peds = max((len(t) for t in ds.trajectories), default=1)
+        ds = elastic.shard_windows(ds, process_index, process_count)
+        num_batches = elastic.lockstep_batches(global_windows, process_count, batch_size)
+    shard, sharing = None, 1
+    if grid is not None:
+        device, sharing = grid.device, grid.ranks_per_device
+        shard = (grid.node_shard, grid.node_shards)
     bank = None
     if patch_bank:
         resolved_max = max_peds or max((len(t) for t in ds.trajectories), default=1)
-        bank = maybe_build_bank(ds, resolved_max, device=device)
+        bank = maybe_build_bank(ds, resolved_max, device=device, sharing=sharing)
     return PaddedBatcher(ds, batch_size=batch_size, max_peds=max_peds, shuffle=shuffle,
-                         seed=seed, patch_bank=bank,
-                         augment=bool(augment) and phase == "train")
+                         seed=seed, patch_bank=bank, num_batches=num_batches,
+                         augment=bool(augment) and phase == "train", shard=shard)

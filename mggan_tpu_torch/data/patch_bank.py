@@ -68,12 +68,20 @@ class DevicePatchBank:
 
 
 def maybe_build_bank(ds: SceneDataset, max_peds: int, max_bytes: int = DEFAULT_MAX_BYTES,
-                     device="cuda"):
+                     device="cuda", sharing: int = 1):
     """A bank when the split has patches and it fits the rest of the global
-    budget; otherwise None (the caller keeps host assembly)."""
+    budget; otherwise None (the caller keeps host assembly).
+
+    Data-parallel ranks each bank the windows their node holds (the whole
+    split on one node, the node's ``elastic.shard_windows`` shard on
+    several) on their own device, and gather only their own scene rows
+    (``PaddedBatcher(shard=...)``). ``sharing`` ranks hold such a bank on
+    one device, so the budget counts each byte ``sharing`` times.
+    """
     if ds.big_patches is None:
         return None
-    if bank_nbytes(len(ds.trajectories), max_peds) + live_bank_bytes() > max_bytes:
+    need = bank_nbytes(len(ds.trajectories), max_peds) + live_bank_bytes()
+    if need * sharing > max_bytes:
         return None
     bank = DevicePatchBank(ds, max_peds, device=device)
     _LIVE_BANKS.add(bank)

@@ -10,14 +10,19 @@ Reference semantics (metrics.py:6-141, evaluation.py:43-78):
   < 3 m (the intent of the reference's mode threshold).
 * For pixel datasets errors are rescaled per scene by 1/ratio.
 
-``allreduce_sums`` (the sum of these pairs across processes) waits for the
-multi-device port (ROADMAP.md queue 1 item 13).
+``allreduce_sums`` sums the host accumulators' pairs over the ranks of a
+data-parallel pod, so every rank reads the global metric.
 """
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from mggan_tpu_torch.parallel import pod
 
 MODE_THRESH = 3.0
 
@@ -79,6 +84,41 @@ class MetricAccumulator:
 
     def result(self):
         return {k: (s / n if n else float("nan")) for k, (s, n) in self.sums.items()}
+
+
+def allreduce_sums(sums: dict) -> dict:
+    """Per-rank ``{key: (sum, count)}`` pairs summed over every rank of the
+    pod (on its host group); the identity off a pod.
+
+    Ranks evaluate disjoint scene rows, so the global metric is the sum of
+    every rank's pairs. The sums are float64 and added in rank order on
+    every rank, so each rank gets the same result bit for bit and may
+    branch on it (the best-checkpoint save). Every rank must call this
+    with the same key set (an empty shard contributes zero counts); the
+    key sets' digests are gathered first, so a mismatch raises on every
+    rank instead of hanging the collective that would follow.
+    """
+    if not pod.is_initialized() or pod.world_size() == 1:
+        return dict(sums)
+    group = pod.host_group()
+    world = dist.get_world_size(group)
+    keys = sorted(sums)
+    digest = torch.tensor([zlib.crc32("\n".join(keys).encode()) & 0x7FFFFFFF, len(keys)],
+                          dtype=torch.int64)
+    digests = [torch.zeros_like(digest) for _ in range(world)]
+    dist.all_gather(digests, digest, group=group)
+    if any(not torch.equal(d, digests[0]) for d in digests):
+        raise ValueError(
+            "allreduce_sums key sets differ across ranks (crc32, count per rank: "
+            f"{[d.tolist() for d in digests]}); every rank must contribute the same "
+            "metric keys (zero counts for an empty shard)")
+    flat = torch.tensor([sums[k] for k in keys], dtype=torch.float64).reshape(-1, 2)
+    gathered = [torch.zeros_like(flat) for _ in range(world)]
+    dist.all_gather(gathered, flat, group=group)
+    total = gathered[0].clone()
+    for g in gathered[1:]:
+        total += g
+    return {k: (float(total[i, 0]), float(total[i, 1])) for i, k in enumerate(keys)}
 
 
 def pred_diversity(preds):

@@ -30,6 +30,13 @@ per family of strategies that shares them in the JAX package
 ``compute_dtype=torch.bfloat16`` is the JAX package's bf16 mode: the scene
 CNN's folded-BN conv stack and the rollout kernels in bf16, with the TPU
 kernels' numerics (``ops/kernels/decoder.py``).
+
+``shard_to(grid)`` makes a predictor one data-parallel rank's (JAX's
+``shard_to``, where GSPMD splits the batch over the mesh): it takes this
+rank's scene rows of the batch (``parallel/dp.py::shard_batch``) and the
+global batch's draws, keeps its rows of them (``parallel/dp.py::own_rows``
+along ``DRAW_SCENE_AXIS``), and returns its rows' predictions; the metric sums then go through
+``eval/metrics.py::allreduce_sums``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from mggan_tpu_torch.device import resolve_device
 from mggan_tpu_torch.models import generator as G_mod
 from mggan_tpu_torch.models.factory import tree_to
 from mggan_tpu_torch.ops import sampling
+from mggan_tpu_torch.parallel import dp
 from mggan_tpu_torch.training.steps import batch_views
 
 STRATEGIES = (
@@ -57,6 +65,8 @@ STRATEGIES = (
     "uniform_sampling",
 )
 EXPECTED_FAMILY = ("expected", "uniform_expected", "smart_expected")
+# The scene axis of each draw of a family (``Predictor.make_draws``)
+DRAW_SCENE_AXIS = {"z": 1, "uniforms": 1, "eps": 2}
 SAMPLING_FAMILY = ("smart_sampling", "uniform_sampling")
 
 
@@ -117,6 +127,12 @@ class Predictor:
         self.g_params = tree_to(g_params, self.device)
         self.g_state = tree_to(g_state, self.device)
         self.compute_dtype = compute_dtype
+        self.grid = None
+
+    def shard_to(self, grid):
+        """Predict one data-parallel rank's scene rows (see the module note)."""
+        self.grid = grid if grid is not None and grid.active else None
+        return self
 
     def new_generator(self, seed: int) -> torch.Generator:
         """A generator on this predictor's device seeded with ``seed``."""
@@ -151,6 +167,11 @@ class Predictor:
                                           for k, v in draws.items()}
         batch = {k: _as_tensor(v, self.device) for k, v in batch.items()
                  if v is not None}
+        if self.grid is not None:
+            if not draws:
+                raise ValueError("a sharded predictor takes the global batch's draws")
+            draws = dp.own_rows(self.grid, draws, batch["ped_mask"].shape[0],
+                                DRAW_SCENE_AXIS)
         return batch_views(batch), draws
 
     def _encode(self, bv):
@@ -204,8 +225,10 @@ class Predictor:
         over = probs > eps
         over = torch.where(~over.any(-1, keepdim=True), True, over)
         logits_u = torch.where(over, 0.0, -1e9)
+        uniforms = dp.own_rows(self.grid, {"uniforms": _as_tensor(uniforms, self.device)},
+                               probs.shape[0], DRAW_SCENE_AXIS)["uniforms"]
         gen_idxs = sampling.categorical(logits_u, num, generator=generator,
-                                        uniforms=_as_tensor(uniforms, self.device))
+                                        uniforms=uniforms)
         return (*self._gather(abs_all, rel_all, gen_idxs), probs, gen_idxs)
 
     # ---------------------------------------------------------- strategies
@@ -275,7 +298,8 @@ class Predictor:
             if generator is None:
                 raise ValueError("predict_multi needs a torch.Generator or injected draws")
             s, p = np.shape(batch["ped_mask"])
-            draws = self.make_draws(generator, strategies, s, p, num)
+            draws = self.make_draws(generator, strategies, dp.global_rows(self.grid, s), p,
+                                    num)
         n = self.config.num_gens
         out = {}
         exp_fam = [s for s in strategies if s in EXPECTED_FAMILY]

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from mggan_tpu_torch.ops.linear import mlp_apply_per_layer, mlp_init
+from mggan_tpu_torch.parallel import reduce
 
 BN_EPS = 1e-5
 
@@ -81,14 +82,17 @@ def bn_train_nchw(params, state, x, mask=None, momentum=0.1):
     batch statistics over the rows ``mask (B,)`` keeps, and return the
     running statistics moved by ``momentum`` towards them (the running
     variance unbiased by ``n / (n - 1)``, ``n`` the kept rows times H*W).
-    Returns ``(y, new_state)``."""
+    On a data-parallel rank the statistics are the global batch's, summed
+    over the data group differentiably (``parallel/reduce.py``), as
+    SyncBatchNorm's. Returns ``(y, new_state)``."""
     view = lambda v: v[None, :, None, None]
     if mask is None:
         mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     w = mask.to(x.dtype)[:, None, None, None]
-    n = torch.clamp(mask.sum().to(x.dtype) * (x.shape[2] * x.shape[3]), min=1.0)
-    mean = (x * w).sum((0, 2, 3)) / n
-    var = (w * (x - view(mean)) ** 2).sum((0, 2, 3)) / n
+    n = torch.clamp(reduce.count(mask.sum().to(x.dtype)) * (x.shape[2] * x.shape[3]),
+                    min=1.0)
+    mean = reduce.total((x * w).sum((0, 2, 3))) / n
+    var = reduce.total((w * (x - view(mean)) ** 2).sum((0, 2, 3))) / n
     unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
     new_state = {  # statistics, not parameters: no gradient flows into them
         "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),

@@ -1,7 +1,10 @@
 """GAN / L2 / PM losses over masked padded batches.
 
 Counterpart of ``mggan_tpu/ops/losses.py``: every mean over "the batch" is
-a masked mean over the valid agents of the padded ``(S, P)`` layout.
+a masked mean over the valid agents of the padded ``(S, P)`` layout. Each
+count over the batch goes through ``parallel/reduce.py::count``, so on a
+data-parallel rank a loss is its share of the global loss (its numerator
+over the global count); on one device that is the identity.
 """
 
 from __future__ import annotations
@@ -10,6 +13,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from mggan_tpu_torch.parallel import reduce
 
 EPS_D = 1e-7  # discriminator output squash (discriminators.py:110,204)
 
@@ -67,7 +72,7 @@ def phi_losses(gan_obj: str):
 def masked_mean(x, mask):
     """Mean of x over elements where mask is True (mask broadcastable to x)."""
     m = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (x * m).sum() / torch.clamp(reduce.count(m.sum()), min=1.0)
 
 
 def min_scene_l2(pred_abs, gt_xy, loss_mask, ped_mask, loss_type: str):
@@ -82,7 +87,7 @@ def min_scene_l2(pred_abs, gt_xy, loss_mask, ped_mask, loss_type: str):
         d = d ** 2
     per_agent = d.sum(-1) * loss_mask[None]
     min_per_scene = per_agent.sum(-1).min(0).values  # (S,)
-    b = torch.clamp(ped_mask.sum().to(pred_abs.dtype), min=1.0)
+    b = torch.clamp(reduce.count(ped_mask.sum().to(pred_abs.dtype)), min=1.0)
     return min_per_scene.sum() / b
 
 
@@ -92,10 +97,10 @@ def count_reweighted_mean(loss, gen_idxs, num_gens, valid):
     elements count neither in the counts nor in the mean."""
     v = torch.broadcast_to(valid, gen_idxs.shape).to(loss.dtype)
     onehot = F.one_hot(gen_idxs.long(), num_gens).to(loss.dtype) * v[..., None]
-    counts = onehot.reshape(-1, num_gens).sum(0)
+    counts = reduce.count(onehot.reshape(-1, num_gens).sum(0))
     w = 1.0 / torch.clamp(counts, min=1.0)
     elem_w = w[gen_idxs.long()] * v
-    return (loss * elem_w).sum() / torch.clamp(v.sum(), min=1.0)
+    return (loss * elem_w).sum() / torch.clamp(reduce.count(v.sum()), min=1.0)
 
 
 def softmax_cross_entropy(logits, labels_int):

@@ -16,6 +16,17 @@ behind JAX's split-step checks: the port compiles nothing to split), and
 one step into that directory: the second step of the run's first epoch,
 the step the JAX loop traces.
 
+With ``dp`` / ``slices`` the Trainer is one rank of a data-parallel pod
+(``parallel/``; launched by ``torch.distributed.run``): its device is the
+rank's, the step is ``parallel/dp.py``'s, its loaders yield its scene rows
+of each batch (of the node's window shard on several nodes), the draws are
+the global batch's, of which it keeps its rows, and validation sums its
+rows' metrics over the pod (``allreduce_sums``), so ``best_val`` and the
+checkpoint branch are the same on every rank; rank 0 writes the logs and
+checkpoints. On one node it equals the single-device Trainer step for
+step. A version dir trained on N ranks loads on one device
+(``load_from_path`` outside a pod).
+
 Random numbers come from one source with three methods (``SeededDraws``
 by default; a test injects another to replay the JAX Trainer's keys):
 ``aug(epoch, i, s)`` the augmentation of batch ``i`` of ``epoch``, a pure
@@ -40,12 +51,14 @@ from mggan_tpu_torch.config import Config
 from mggan_tpu_torch.data.augment import augment_batch, sample_aug_params
 from mggan_tpu_torch.data.loaders import get_dataloader
 from mggan_tpu_torch.data.prefetch import Prefetcher
-from mggan_tpu_torch.device import host_to_device, resolve_device
+from mggan_tpu_torch.device import host_to_device
 from mggan_tpu_torch.eval.evaluate import batch_seed
-from mggan_tpu_torch.eval.metrics import MetricAccumulator, batch_metric_sums
+from mggan_tpu_torch.eval.metrics import MetricAccumulator, allreduce_sums, batch_metric_sums
 from mggan_tpu_torch.eval.predict import Predictor
 from mggan_tpu_torch.models.factory import construct_gan
 from mggan_tpu_torch.ops import sampling
+from mggan_tpu_torch.parallel import dp, pod
+from mggan_tpu_torch.parallel.mesh import make_mesh
 from mggan_tpu_torch.training import checkpoints as ckpt
 from mggan_tpu_torch.training.state import init_train_state
 from mggan_tpu_torch.training.steps import (
@@ -88,13 +101,16 @@ class SeededDraws:
 
 
 def check_loop_scope(config: Config):
-    """Raise for the loop settings the port does not cover yet."""
-    if config.dp * config.gp * config.slices > 1:
-        pair = (" (with split_step, which the JAX Trainer refuses beside dp/gp too)"
-                if config.split_step else "")
+    """Raise for generator parallelism, which the port does not cover yet,
+    and for ``split_step`` beside data parallelism, which the JAX Trainer
+    refuses too (mggan_tpu/training/loop.py:63-66)."""
+    if config.gp > 1:
         raise NotImplementedError(
-            f"dp={config.dp}, gp={config.gp}, slices={config.slices}: multi-device "
-            f"training is not ported yet{pair} (ROADMAP.md queue 1 item 13)")
+            f"gp={config.gp}: generator parallelism is not ported yet (ROADMAP.md queue 1 "
+            "item 13 (b))")
+    if config.split_step and config.dp * config.slices > 1:
+        raise ValueError("--split_step and --dp/--slices are mutually exclusive, as in the "
+                         "JAX Trainer")
 
 
 class Trainer:
@@ -105,21 +121,29 @@ class Trainer:
     ``state.d_state`` and so in every checkpoint.
 
     ``draws`` replaces the random-number source (``SeededDraws``'s three
-    methods); the weights are random from ``config.seed``.
+    methods); the weights are random from ``config.seed``. ``grid`` (a
+    ``parallel.mesh.Grid``) overrides the one ``make_mesh`` makes from
+    ``config.dp`` / ``config.slices`` and the live pod (see the module note).
     """
 
     def __init__(self, config: Config, writer: ExperimentWriter, device="cuda",
-                 draws=None):
+                 draws=None, grid=None):
         check_loop_scope(config)
         self.config = config
         self.writer = writer
-        self.device = resolve_device(device)
+        self.grid = make_mesh(config.dp, config.gp, config.slices, device) if grid is None \
+            else grid
+        self.device = self.grid.device
         g_pack, d_pack = construct_gan(config, seed=config.seed, device=self.device)
         self.g_spec, self.d_spec = g_pack[2], d_pack[2]
-        build = build_split_train_step if config.split_step else build_train_step
-        self.train_step = build(config, self.g_spec, self.d_spec)
         self.state = init_train_state(config, g_pack, d_pack,
                                       seed=stream_seed(config.seed, 1))
+        if self.grid.active:
+            self.train_step, self.state = dp.make_parallel_train_step(
+                config, self.g_spec, self.d_spec, self.grid, self.state)
+        else:
+            build = build_split_train_step if config.split_step else build_train_step
+            self.train_step = build(config, self.g_spec, self.d_spec)
         self.draws = SeededDraws(config, self.device) if draws is None else draws
         self._predictor = None
         self._grad_logger = GradNormLogger()
@@ -128,7 +152,8 @@ class Trainer:
     def predictor(self) -> Predictor:
         if self._predictor is None:
             self._predictor = Predictor(self.config, self.g_spec, self.state.g_params,
-                                        self.state.g_state, device=self.device)
+                                        self.state.g_state,
+                                        device=self.device).shard_to(self.grid)
         self._predictor.g_params = self.state.g_params
         self._predictor.g_state = self.state.g_state
         return self._predictor
@@ -139,11 +164,18 @@ class Trainer:
                              device=self.device, interp=self.config.patch_interp, aug=aug)
         return {k: full[k] for k in ("xy", "ped_mask", "patches") if k in full}
 
+    def _loader_args(self):
+        """The loaders' common arguments; on a pod the rank's rows of the
+        node's windows."""
+        grid = self.grid
+        return dict(data_root=self.config.data_root, patch_bank=bool(self.config.patch_bank),
+                    device=self.device, shard_by_process=grid.nodes > 1,
+                    grid=grid if grid.active else None)
+
     def _loaders(self):
         cfg = self.config
         common = dict(batch_size=cfg.batch_size, max_peds=cfg.max_peds or None,
-                      data_root=cfg.data_root, patch_bank=bool(cfg.patch_bank),
-                      device=self.device)
+                      **self._loader_args())
         return (get_dataloader(cfg.dataset, "train", augment=bool(cfg.augment),
                                shuffle=True, seed=cfg.seed, **common),
                 get_dataloader(cfg.dataset, "val", **common))
@@ -173,9 +205,13 @@ class Trainer:
             for i, batch in enumerate(batches):
                 n_agents += int(np.asarray(batch["ped_mask"]).sum())
                 s, p = np.shape(batch["ped_mask"])
-                aug = self.draws.aug(epoch, i, s) if loader.augment else None
+                aug = None
+                if loader.augment:  # the node batch's draws, this rank's rows of them
+                    flip, alpha = self.draws.aug(epoch, i, loader.batch_size)
+                    rows = dp.shard_batch(self.grid, {"flip": flip, "alpha": alpha})
+                    aug = (rows["flip"], rows["alpha"])
                 model_batch = self._device_batch(batch, train=loader.augment, aug=aug)
-                draws = self.draws.step(self.state, s, p)
+                draws = self.draws.step(self.state, dp.global_rows(self.grid, s), p)
                 if profile and n_steps == 1:
                     with profiling.trace(self.config.profile_dir):
                         self.state, step_metrics = self.train_step(
@@ -190,6 +226,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
+        if self.grid.active:  # every rank counted its own rows
+            n_agents = int(pod.sum_over_ranks(n_agents))
         values = {k: torch.stack(vs).double().cpu().numpy() for k, vs in metrics.items()}
         return values, {"steps": n_steps, "agents": n_agents, "seconds": seconds}
 
@@ -207,21 +245,24 @@ class Trainer:
         start_epoch = int(self.state.epoch)
         for epoch in range(start_epoch, cfg.epochs):
             values, perf = self.train_epoch(
-                train_loader, epoch, profile=bool(cfg.profile_dir) and epoch == start_epoch)
+                train_loader, epoch, profile=bool(cfg.profile_dir) and epoch == start_epoch
+                and pod.is_primary())
             dt = max(perf["seconds"], 1e-9)
             metrics = {k: list(v) for k, v in values.items()}
             metrics["perf/steps_per_sec"] = [perf["steps"] / dt]
             metrics["perf/agents_per_sec"] = [perf["agents"] / dt]
             metrics["perf/padded_agents_per_sec"] = [
-                perf["steps"] * cfg.batch_size * train_loader.max_peds / dt]
+                perf["steps"] * dp.global_rows(self.grid, train_loader.rows)
+                * train_loader.max_peds / dt]
 
             if (epoch + 1) % cfg.val_every == 0:
                 for k, v in self.check_accuracy(val_loader, num_k=cfg.top_k_test).items():
                     metrics[f"val/{k}"] = [v]
                 cur = float(np.mean(metrics[track_metric]))
                 if cur < self.state.best_val:
-                    print(f"Saving best model... {track_metric}: "
-                          f"{self.state.best_val} -> {cur}")
+                    if pod.is_primary():
+                        print(f"Saving best model... {track_metric}: "
+                              f"{self.state.best_val} -> {cur}")
                     self.state = self.state.replace(best_val=cur)
                     self.save("checkpoint_best")
 
@@ -251,30 +292,37 @@ class Trainer:
         return self
 
     def check_accuracy(self, loader, num_k=20, predict_strategy="sampling"):
-        """Validation metrics (train.py:245-257)."""
+        """Validation metrics (train.py:245-257); on a pod each rank
+        predicts its rows with its rows of the global draws, and the sums go
+        through ``allreduce_sums``."""
         pred_func = self.predictor().get_predict_func(predict_strategy)
         acc = MetricAccumulator()
         for i, batch in enumerate(loader):
             model_batch = self._device_batch(batch, train=False)
             s, p = np.shape(batch["ped_mask"])
-            pred_abs = pred_func(model_batch, None, num=num_k,
-                                 draws=self.draws.val(i, s, p, num_k))[0]
+            draws = self.draws.val(i, dp.global_rows(self.grid, s), p, num_k)
+            pred_abs = pred_func(model_batch, None, num=num_k, draws=draws)[0]
             bv = batch_views(model_batch)
             scale = host_to_device(batch["scale"], self.device)
             acc.update(batch_metric_sums(pred_abs, bv.gt_xy, bv.loss_mask, scale, [num_k]))
+        if self.grid.active:
+            acc.sums = allreduce_sums(acc.sums)
         return acc.result()
 
     def test(self, num_k=20, batch_size=8, **kwargs):
         loader = get_dataloader(self.config.dataset, "test", batch_size=batch_size,
-                                data_root=self.config.data_root,
-                                patch_bank=bool(self.config.patch_bank), device=self.device)
+                                **self._loader_args())
         return self.check_accuracy(loader, num_k=num_k, **kwargs)
 
     # ---------------------------------------------------------- checkpoints
     def save(self, name=None):
+        """Rank 0 writes ``name``; on a pod the others wait for the file."""
         if name is None:
             name = f"checkpoint_{int(self.state.epoch)}"
-        ckpt.save_checkpoint(self.writer.checkpoint_dir, self.state, name)
+        if pod.is_primary():
+            ckpt.save_checkpoint(self.writer.checkpoint_dir, self.state, name)
+        if self.grid.active:
+            pod.barrier()
 
     @classmethod
     def load(cls, log_path, exp_name, version, checkpoint="best", device="cuda"):
@@ -285,7 +333,8 @@ class Trainer:
     @classmethod
     def load_from_path(cls, version_path, checkpoint="best", device="cuda"):
         """Rebuild a trainer from a version dir (abstract_train.py:250-296);
-        returns ``(trainer, config)``."""
+        returns ``(trainer, config)``. Outside a pod a dir trained on N ranks
+        loads on one device; in a pod every rank reads the same file."""
         version_path = Path(version_path)
         if "version" not in version_path.stem:
             raise ValueError(f"{version_path} is not a model version directory")
@@ -295,7 +344,8 @@ class Trainer:
             version_path.parent.name, version=int(version_path.stem.split("_")[1]),
             config=config,
         )
-        trainer = cls(config, writer, device=device)
+        grid = None if pod.is_initialized() else make_mesh(1, 1, 1, device)
+        trainer = cls(config, writer, device=device, grid=grid)
         name = ckpt.resolve_checkpoint_name(writer.checkpoint_dir, checkpoint)
         trainer.state = ckpt.restore_checkpoint(writer.checkpoint_dir, trainer.state, name)
         return trainer, config

@@ -47,6 +47,14 @@ Control flow, in eager Python where JAX uses ``lax.cond``
 BN running statistics thread as in JAX: the D step keeps the state of its
 real-score pass and the G step that of its generator forward; every other
 pass discards its own.
+
+On a data-parallel rank (``parallel/dp.py``) the same step runs on the
+rank's scene rows; the counts of the losses, the BatchNorm statistics and
+the gradients are summed over the ranks (``parallel/reduce.py``, the
+identity on one device), the SGHMC noise losses, which read only the
+replicated parameters, count on the first rank alone, and the loss metrics
+are each rank's share until ``dp.py`` sums them (``is_replicated_metric``
+names the rest).
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from mggan_tpu_torch.models import discriminator as D_mod
 from mggan_tpu_torch.models import generator as G_mod
 from mggan_tpu_torch.ops import losses as L
 from mggan_tpu_torch.ops import sampling
+from mggan_tpu_torch.parallel import reduce
 from mggan_tpu_torch.training.state import TrainState, optimizers, scheduled_lr
 from mggan_tpu_torch.utils import trajectory_tools
 from mggan_tpu_torch.utils.pytree import (
@@ -211,11 +220,12 @@ def _as_tensor(x, device, dtype=None):
 
 
 def _grads(loss, tree):
-    """d loss / d every leaf of ``tree`` (zeros for a leaf off the graph)."""
+    """d loss / d every leaf of ``tree`` (zeros for a leaf off the graph),
+    summed over the data group on a data-parallel rank."""
     leaves = tree_leaves(tree)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return tree_unflatten(tree, [torch.zeros_like(x) if gr is None else gr
-                                 for x, gr in zip(leaves, grads)])
+    return tree_unflatten(tree, reduce.sum_grads([
+        torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads)]))
 
 
 def _trainable(tree):
@@ -248,6 +258,18 @@ def _gradient_penalty(d_params, d_state, d_spec, bv: BatchViews, pred, alpha,
 # The metric of each gan_type's D loss term beside the adversarial loss
 D_TERM_METRIC = {"mgan": "train/info_mgan_disc_loss", "infogan": "train/disc_info_loss",
                  "probgan": "train/d_noise_loss"}
+
+
+# Metrics of replicated values (parameters, their summed gradients, the
+# learning rate): equal on every data-parallel rank. Every other metric is
+# a loss, a rank's share of the global value until summed over the ranks
+# (parallel/dp.py).
+REPLICATED_METRIC_PREFIXES = ("train/grad_norm_", "gradnorm/", "train/lr_",
+                              "train/d_noise_loss", "train/g_noise_loss")
+
+
+def is_replicated_metric(key: str) -> bool:
+    return key.startswith(REPLICATED_METRIC_PREFIXES)
 
 
 def _d_metric_names(config: Config, d_params):
@@ -308,7 +330,7 @@ def build_train_step(config: Config, g_spec, d_spec):
             # SGHMC: lambda * <theta, n> adds lambda * n to every D gradient
             nl = trajectory_tools.noise_loss(d_params, du["noise"], config.sghmc_alpha)
             metrics[D_TERM_METRIC[gan_type]] = nl.detach()
-            total = total + config.d_noise_loss_lambda * nl
+            total = total + reduce.on_first_rank(config.d_noise_loss_lambda * nl)
         grads = _grads(total, d_params)
         lr_d = scheduled_lr(config.d_lr, state.epoch, config.epochs)
         metrics.update({
@@ -360,7 +382,7 @@ def build_train_step(config: Config, g_spec, d_spec):
         if gan_type == "probgan":
             nl = trajectory_tools.noise_loss(g_params, dr["g_noise"], config.sghmc_alpha)
             metrics["train/g_noise_loss"] = nl.detach()
-            total = total + config.g_noise_loss_lambda * nl
+            total = total + reduce.on_first_rank(config.g_noise_loss_lambda * nl)
         grads = _grads(total, g_params)
         lr_g = scheduled_lr(config.g_lr, state.epoch, config.epochs)
         metrics.update({
@@ -384,7 +406,7 @@ def build_train_step(config: Config, g_spec, d_spec):
                 # the reference's literal computation (train.py:604-613;
                 # PARITY.md deviation 7): all-ones targets, a loss scaled by
                 # the valid count; the D branch cancels, so no D call
-                n_valid = valid.sum().to(out_probs.dtype)
+                n_valid = reduce.count(valid.sum().to(out_probs.dtype))
                 return n_valid * L.masked_mean(-log_probs.mean(-1), valid) - reg
             _, branch, _ = D_mod.apply(
                 state.d_params, state.d_state, d_spec, bv.in_xy, bv.in_dxdy,

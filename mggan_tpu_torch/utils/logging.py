@@ -3,6 +3,10 @@ version dirs, ``meta_tags.csv``, a per-epoch metric CSV and optional
 TensorBoard, covering the reference's test_tube Experiment usage
 (train.py:678-690, abstract_train.py:193-194). The files have the JAX
 package's layout, so either package's ``meta_tags.csv`` loads in the other.
+
+In a data-parallel pod (``parallel/pod.py``) rank 0 draws the random
+version and every rank takes it (the JAX package draws one per process,
+so each would write a dir of its own), and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import csv
 import json
 import random
 from pathlib import Path
+
+from mggan_tpu_torch.parallel import pod
 
 
 class ExperimentWriter:
@@ -25,16 +31,19 @@ class ExperimentWriter:
     def __init__(self, log_dir, experiment, name, version=None, config=None,
                  tensorboard=True):
         if version is None:
-            version = random.randint(10**10, 10**11 - 1)
+            version = pod.broadcast_object(random.randint(10**10, 10**11 - 1))
         self.version = version
         self.dir = Path(log_dir) / experiment / name / f"version_{version}"
         self.checkpoint_dir = self.dir / "checkpoints"
-        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        # rank 0 writes (every rank of a pod on its own but rank 0 reads)
+        self.writes = pod.is_primary()
+        if self.writes:
+            self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_path = self.dir / "metrics.csv"
         self._jsonl_path = self.dir / "metrics.jsonl"
         self._keys = None
         self._tb = None
-        if tensorboard:
+        if tensorboard and self.writes:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -45,6 +54,8 @@ class ExperimentWriter:
             self.save_config(config)
 
     def save_config(self, config):
+        if not self.writes:
+            return
         with open(self.dir / "meta_tags.csv", "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(["key", "value"])
@@ -52,6 +63,8 @@ class ExperimentWriter:
                 w.writerow([k, v])
 
     def log(self, metrics: dict, epoch: int):
+        if not self.writes:
+            return
         metrics = {k: float(v) for k, v in metrics.items()}
         with open(self._jsonl_path, "a") as f:
             f.write(json.dumps({"epoch": epoch, **metrics}) + "\n")

@@ -223,11 +223,13 @@ def test_parsers_match_jax(monkeypatch, tmp_path):
     base = ["--dataset", "synthetic_memory"]
     cfg = config.config_from_args(ours.parse_args(base + ["--compilation_cache_dir", "x"]))
     assert cfg.dataset == "synthetic_memory" and cfg.data_root == "./data/datasets"
-    for extra, match in ((["--distributed", "1"], "item 13"),
-                         (["--coordinator_address", "h:1"], "item 13"),
-                         (["--num_processes", "2"], "item 13"),
-                         (["--process_id", "0"], "item 13"),
-                         (["--pallas_decoder", "0"], "CUDA"),
+    # the pod flags are launch-time topology (parallel/pod.py): accepted,
+    # and no Config field, as in JAX
+    for extra in (["--distributed", "1"], ["--coordinator_address", "h:1"],
+                  ["--num_processes", "2"], ["--process_id", "0"]):
+        assert config.config_from_args(ours.parse_args(base + extra)) == \
+            config.config_from_args(ours.parse_args(base))
+    for extra, match in ((["--pallas_decoder", "0"], "CUDA"),
                          (["--d_hist_loss_lambda", "2"], "reads it nowhere"),
                          (["--debug"], "reads it nowhere")):
         with pytest.raises(NotImplementedError, match=match):
@@ -246,14 +248,14 @@ def test_benchmark_config_matches_jax(tmp_path, name):
     assert {k: theirs[k] for k in got} == got
     assert ours.use_pinet == theirs["use_pinet"]
     assert configs.BENCHMARK_CONFIGS == jax_configs.BENCHMARK_CONFIGS
-    # every config trains but the multi-device one (item 13), which raises
-    # when training starts
+    # every config trains; the data-parallel one needs a pod of 8 ranks, so
+    # outside one its Trainer raises naming the launch
     cfg = configs.get_benchmark_config(name, h_dim=8, decoder_h_dim=8,
                                        log_dir=str(tmp_path))
     writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, config=cfg,
                               tensorboard=False)
     if name == "mggan_dp_eth":
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(RuntimeError, match="torch.distributed.run --nproc_per_node 8"):
             Trainer(cfg, writer, device="cpu")
     else:
         assert Trainer(cfg, writer, device="cpu").state.step == 0

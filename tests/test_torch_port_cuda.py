@@ -916,3 +916,65 @@ def test_artifact_on_the_card_equals_live_serving(cuda, tmp_path, strategy):
         for a, b in zip(got, live.predict_batch(obs, pat, seed=3)):
             assert np.isfinite(a).all()
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dp_step_on_two_ranks_matches_one_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (``parallel/dp.py``; NCCL would need
+    a card each) run the mgan / ml step on 4 of the 8 scenes each and equal
+    the single-device step on the card from the same weights and draws,
+    to ``tests/test_parallel.py::assert_steps_match``'s tolerances:
+    metrics rtol 1e-5, Adam moments rtol 1e-4 / atol 1e-6, parameters
+    2e-3. Both ranks launch K1, K2 and K3 and end bit for bit alike."""
+    from _torch_dp_worker import launch
+    from mggan_tpu_torch.config import Config
+    from mggan_tpu_torch.models.factory import construct_gan
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step, make_draws
+    from mggan_tpu_torch.utils.pytree import tree_items
+
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(dataset="synthetic_memory", batch_size=8, num_gens=2, num_samples=4,
+              h_dim=16, decoder_h_dim=16, gan_type="mgan", weighting_target="ml")
+    cfg = Config(**kw)
+    g_pack, d_pack = construct_gan(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(5)
+    batch = {"xy": rng.randn(8, 5, 20, 2).astype(np.float32).cumsum(axis=2) * 0.1,
+             "ped_mask": np.ones((8, 5), bool),
+             "patches": rng.uniform(-1, 1, (8, 5, 33, 33, 4)).astype(np.float32)}
+    batch["ped_mask"][3, 2:] = False
+    draws = make_draws(torch.Generator().manual_seed(3), cfg, 8, 5)
+    weights = {"g_params": g_pack[0], "g_state": g_pack[1], "d_params": d_pack[0],
+               "d_state": d_pack[1]}
+    g = (_on(g_pack[0], cuda), _on(g_pack[1], cuda), g_pack[2])
+    d = (_on(d_pack[0], cuda), _on(d_pack[1], cuda), d_pack[2])
+    want, want_m = build_train_step(cfg, g[2], d[2])(init_train_state(cfg, g, d), batch, draws)
+    torch.cuda.synchronize()
+    ranks = launch(tmp_path, 2, [{"kind": "step", "config": {**kw, "dp": 2},
+                                  "weights": weights, "batch": batch, "draws": draws,
+                                  "device": "cuda"}],
+                   timeout_s=120, device="cuda")
+    results = [r[0] for r in ranks]
+    for res in results:
+        assert res["rows"] == 4
+        for name in (kdec.KERNEL, kda.KERNEL_FWD, kda.KERNEL_BWD):
+            assert res["launches"].get(name, 0) > 0, name
+    for name, tree in results[0]["state"].items():
+        if isinstance(tree, dict):
+            other = dict(tree_items(results[1]["state"][name]))
+            assert all(np.array_equal(x, other[p]) for p, x in tree_items(tree)), name
+    got, got_m = results[0]["state"], results[0]["metrics"]
+    assert set(got_m) == set(want_m)
+    for k, v in want_m.items():
+        np.testing.assert_allclose(got_m[k], float(v), rtol=1e-5, atol=1e-7, err_msg=k)
+    for name, tree in (("g_mu", want.g_opt.mu), ("g_nu", want.g_opt.nu),
+                       ("d_mu", want.d_opt.mu), ("d_nu", want.d_opt.nu)):
+        flat = dict(tree_items(got[name]))
+        for path, w in tree_items(tree):
+            np.testing.assert_allclose(flat[path], w.cpu().numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{name} {path}")
+    for name in ("g_params", "d_params"):
+        flat = dict(tree_items(got[name]))
+        worst = max(float(np.abs(flat[p] - w.cpu().numpy()).max())
+                    for p, w in tree_items(getattr(want, name)))
+        assert worst < 2e-3, (name, worst)

@@ -155,8 +155,11 @@ def test_loader_matches_jax_and_unported_parts_raise():
     # the files go
     with pytest.raises(FileNotFoundError, match="download the reference data release"):
         loaders.get_dataset("eth", "test", data_root="/nonexistent/datasets")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        loaders.get_dataloader("synthetic_memory", "test", shard_by_process=True)
+    # outside a pod the per-node shard is the whole split, in lockstep
+    # (tests/test_torch_port_elastic.py holds the shards against JAX's)
+    shard = loaders.get_dataloader("synthetic_memory", "test", shard_by_process=True,
+                                   device="cpu")
+    assert shard.num_windows() == 16 and len(shard) == len(list(shard)) == 2
 
 
 # --------------------------------------------------------------- metrics --

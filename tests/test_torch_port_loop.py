@@ -180,9 +180,11 @@ def test_resumed_run_keeps_the_better_best_checkpoint(tmp_path):
     assert resumed.state.best_val == 0.0
 
 
+# Data parallelism is ported (tests/test_torch_port_dp.py); generator
+# parallelism, with or beside it, is not
 @pytest.mark.parametrize("kw, item", [
-    ({"dp": 2}, "item 13"), ({"gp": 2}, "item 13"), ({"slices": 2}, "item 13"),
-    ({"split_step": 1, "dp": 2}, "item 13"), ({"profile_dir": "prof", "gp": 2}, "item 13"),
+    ({"dp": 2, "gp": 2}, "item 13"), ({"gp": 2}, "item 13"), ({"slices": 2, "gp": 2}, "item 13"),
+    ({"split_step": 1, "gp": 2}, "item 13"), ({"profile_dir": "prof", "gp": 2}, "item 13"),
     ({"weighting_target": "disc_scores"}, "train.py:602"),
 ])
 def test_unported_settings_raise_naming_their_item(tmp_path, kw, item):
