@@ -191,7 +191,7 @@ Phases, in order; any failure exits nonzero before the result line:
      on, the latter with noise_dim=0; discriminator: local and global),
      card vs CPU within 1e-4 on the same weights and noise, the p50 of 5
      calls each; it launches none of the repo's kernels;
- 19. data parallelism (``mggan_tpu_torch/parallel``): the ranks are child
+ 19. data and generator parallelism (``mggan_tpu_torch/parallel``): the ranks are child
      processes of this script on the one card, under gloo (the backend rule
      of ``parallel/pod.py``: NCCL only where every local rank has a card of
      its own, so the NCCL route is not run here); a rank that fails or
@@ -215,12 +215,22 @@ Phases, in order; any failure exits nonzero before the result line:
      zara1 files with ``shard_by_process`` and the bank: equal lockstep
      counts and ``max_peds`` on every rank, the bank's gathers equal host
      assembly bit for bit, ``allreduce_sums`` identical on every rank, then
-     a ``Trainer`` epoch whose state is bit for bit alike on all 4 ranks; (d)
-     the row-slice kernel checks: K1 (4,096 rows) and K2 (81,920 x 4) on
-     each of 2 row slices equal the full launch's rows bit for bit, and so
-     do K3's per-row input grads; K3's weight grads summed over the slices
-     within SLICE_WGRAD_REL of the full launch's (launch counts of the
-     paths ``dp_step``, ``dp_cli`` and ``pod`` summed over their ranks);
+     a ``Trainer`` epoch whose state is bit for bit alike on all 4 ranks;
+     (d) ``gp_step``: (a)'s step, batch and draws on dp=2 x gp=2 ranks
+     (128 scene rows and 2 of the 4 generators each, with their Adam
+     moments), its gathered first step against (a)'s single-device step to
+     (a)'s tolerances, the gathered states bit for bit after 6 steps, K1 1,
+     K2 2 and K3 1 launches a step on each rank and no kept yardstick, the
+     gp p50 beside the single-device p50 (a record, not a scaling figure);
+     (e) ``gp_cli``: (b) with ``--dp 1 --gp 2`` on 2 ranks (2 steps of 256
+     scenes, validation, ``checkpoint_best`` of the gathered state), then
+     ``cli.evaluate`` of its version dir on one device; (f) the row-slice
+     kernel checks: K1 (4,096 rows) and K2 (81,920 x 4) on each of 2 row
+     slices equal the full launch's rows bit for bit, and so do K3's
+     per-row input grads; K3's weight grads summed over the slices within
+     SLICE_WGRAD_REL of the full launch's (launch counts of the paths
+     ``dp_step``, ``dp_cli``, ``pod``, ``gp_step`` and ``gp_cli`` summed
+     over their ranks);
  20. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
@@ -4447,17 +4457,19 @@ def baseline_entry(name, source, replaces, shapes, main, by_path):
     }
 
 
-# Phase 19: data parallelism (mggan_tpu_torch/parallel). The ranks are child
-# processes of this script on the one card under gloo (pod.backend_for: more
-# ranks than cards), joined through a file:// store (a) or the launcher that
-# ships with torch (b, c); every child has a timeout, and a rank that fails
-# or times out fails the phase.
+# Phase 19: data and generator parallelism (mggan_tpu_torch/parallel). The
+# ranks are child processes of this script on the one card under gloo
+# (pod.backend_for: more ranks than cards), joined through a file:// store
+# (a, d) or the launcher that ships with torch (b, c, e); every child has a
+# timeout, and a rank that fails or times out fails the phase.
 DP_RANKS = 2  # (a): the flagship step on 2 ranks
 DP_STEPS = 5
 DP_CLI_RANKS = 8  # (b): mggan_dp_eth as configured, dp=8
 POD_NODES, POD_LOCAL = 2, 2  # (c): 2 simulated nodes x 2 ranks
+GP_DP, GP = 2, 2  # (d): the flagship step on dp=2 x gp=2 ranks, 2 generators each
+GP_CLI = 2  # (e): cli.train --dp 1 --gp 2
 RANK_TIMEOUT_S = 240
-# (d): K3's weight grads summed over row slices against the full launch's,
+# (f): K3's weight grads summed over row slices against the full launch's,
 # each leaf's max abs difference over its max |grad| (summation order only)
 SLICE_WGRAD_REL = 1e-5
 # (a): tests/test_parallel.py::assert_steps_match, on the first step
@@ -4573,9 +4585,12 @@ def run_ranks(cmds, log_dir, env_of=None, timeout=RANK_TIMEOUT_S):
         check(p.returncode == 0, f"{log.name}: exit {p.returncode} (timeout {timeout} s)")
 
 
-def rank_dp_step(spec_dir, rank):
-    """(a), one rank: the flagship step on this rank's rows of the spec's
-    batch, one warm-up step and DP_STEPS timed ones with the spec's draws."""
+def rank_dp_step(spec_dir, rank, n_dp=DP_RANKS, gp=1, out_dir=None):
+    """(a) and (d), one rank of ``n_dp * gp``: the flagship step on this
+    rank's rows of the spec's batch (and its ``num_gens / gp`` generators),
+    one warm-up step and DP_STEPS timed ones with the spec's draws, into
+    ``out_dir``; the states it reports are gathered (the single-device
+    layout)."""
     import numpy as np
     import torch
 
@@ -4585,12 +4600,14 @@ def rank_dp_step(spec_dir, rank):
     from mggan_tpu_torch.parallel import dp, pod
     from mggan_tpu_torch.parallel.mesh import make_mesh
     from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.utils.pytree import tree_leaves
 
     spec_dir = Path(spec_dir)
+    out_dir = spec_dir if out_dir is None else Path(out_dir)
     spec = torch.load(spec_dir / "spec.pt", weights_only=False)
-    pod.init_distributed(f"file://{spec_dir / 'store'}", DP_RANKS, rank, device=DP_DEVICE,
+    pod.init_distributed(f"file://{out_dir / 'store'}", n_dp * gp, rank, device=DP_DEVICE,
                          timeout_s=RANK_TIMEOUT_S)
-    grid = make_mesh(DP_RANKS, 1, 1, DP_DEVICE)
+    grid = make_mesh(n_dp, gp, 1, DP_DEVICE)
     cfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
     w = {k: tree_to(v, grid.device) for k, v in spec["weights"].items()}
     g_pack = (w["g_params"], w["g_state"], build_specs(cfg))
@@ -4603,7 +4620,8 @@ def rank_dp_step(spec_dir, rank):
     kernels.launches.clear()
     state, metrics = step(state, local, spec["draws"][0])
     sync()
-    first = {"state": _state_trees(state), "metrics": {k: float(v) for k, v in metrics.items()}}
+    first = {"state": _state_trees(dp.gather_generators(state, grid)),
+             "metrics": {k: float(v) for k, v in metrics.items()}}
     before, times = dict(kernels.launches), []
     for i in range(1, DP_STEPS + 1):
         t0 = time.perf_counter()
@@ -4612,12 +4630,14 @@ def rank_dp_step(spec_dir, rank):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.launches)
     per_step = {k: (v - before.get(k, 0)) / DP_STEPS for k, v in launches.items()}
+    gens = tree_leaves(state.g_params["decoders"])[0].shape[0]
+    digest = _params_digest(dp.gather_generators(state, grid))
     torch.save({"first": first, "times_ms": times, "launches": launches,
-                "launches_per_step": per_step, "digest": _params_digest(state),
+                "launches_per_step": per_step, "digest": digest, "gens": int(gens),
                 "finite": all(bool(np.isfinite(float(v))) for v in metrics.values()),
                 "rows": int(local["ped_mask"].shape[0]), "grid": grid.describe(),
                 "backend": grid.backend, "world": pod.world_size()},
-               spec_dir / f"rank{rank}.pt")
+               out_dir / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
 
@@ -4628,7 +4648,7 @@ def rank_cli(out_dir, argv):
 
     from mggan_tpu_torch.cli import train as train_cli
     from mggan_tpu_torch.ops import kernels
-    from mggan_tpu_torch.parallel import pod
+    from mggan_tpu_torch.parallel import dp, pod
 
     kernels.launches.clear()
     model = train_cli.main(argv)
@@ -4637,8 +4657,8 @@ def rank_cli(out_dir, argv):
     (Path(out_dir) / f"rank{pod.rank()}.json").write_text(json.dumps({
         "rank": pod.rank(), "world": pod.world_size(), "launches": dict(kernels.launches),
         "dir": str(model.writer.dir), "steps": int(model.state.step),
-        "digest": _params_digest(model.state), "grid": model.grid.describe(),
-        "backend": model.grid.backend}))
+        "digest": _params_digest(dp.gather_generators(model.state, model.grid)),
+        "grid": model.grid.describe(), "backend": model.grid.backend}))
     pod.barrier()
     torch.distributed.destroy_process_group()
 
@@ -4716,15 +4736,16 @@ def rank_pod(out_dir, root):
 
 
 def rank_main(args):
-    """A child of phase 19: ``--rank dp_step <dir> <rank>``, ``--rank cli
-    <dir> -- <cli.train argv>`` or ``--rank pod <dir> <data root>``."""
+    """A child of phase 19: ``--rank dp_step <dir> <rank> [<dp> <gp> <out
+    dir>]``, ``--rank cli <dir> -- <cli.train argv>`` or ``--rank pod <dir>
+    <data root>``."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets it here
     torch.backends.cudnn.allow_tf32 = False
     kind = args[0]
     if kind == "dp_step":
-        rank_dp_step(args[1], int(args[2]))
+        rank_dp_step(args[1], int(args[2]), *[int(a) for a in args[3:5]], *args[5:6])
     elif kind == "cli":
         rank_cli(args[1], args[args.index("--") + 1:])
     elif kind == "pod":
@@ -4830,13 +4851,83 @@ def dp_step(tmp, single_p50_ms):
             "param_max_abs_diff": diffs["param_max_abs_diff"],
             "noise_max_abs_diff": diffs["noise_max_abs_diff"], "ranks_bit_identical": same,
             "launches_per_step": ranks[0]["launches_per_step"], "launches": launches,
+            "seconds": ranks_s}, {"spec_dir": spec_dir, "first": single_first, "p50_ms": p50}
+
+
+def gp_step(tmp, ref):
+    """(d): the flagship step on GP_DP x GP ranks, each with its scene rows
+    and num_gens / GP generators, against (a)'s single-device step on the
+    same spec (``ref``: its spec dir, first step and p50), to (a)'s
+    tolerances."""
+    import numpy as np
+    import torch
+
+    from mggan_tpu_torch.config import flagship_config
+
+    out = Path(tmp) / "gp_step"
+    out.mkdir()
+    world = GP_DP * GP
+    cmd = lambda r: [sys.executable, str(HERE / "chip_smoke.py"), "--rank", "dp_step",
+                     str(ref["spec_dir"]), str(r), str(GP_DP), str(GP), str(out)]
+    t0 = time.perf_counter()
+    run_ranks([cmd(r) for r in range(world)], out)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    cfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
+    cmp = compare_steps(ranks[0]["first"], ref["first"], cfg)
+    diffs = cmp["diffs"]
+    same = len({r["digest"] for r in ranks}) == 1
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    gp_p50 = float(np.median(ranks[0]["times_ms"]))
+    for r in ranks:
+        print(f"  gp_step {r['grid']}: {r['rows']} scene rows, {r['gens']} generators, p50 "
+              f"{float(np.median(r['times_ms'])):.3f} ms, launches a step "
+              f"{json.dumps(r['launches_per_step'])}")
+    print(f"  gp_step first step (gathered) against the single-device step: metrics max rel "
+          f"diff {cmp['metric_err']:.3e} (rtol {DP_METRIC_RTOL:g}), moments max abs diff "
+          f"{cmp['moment_err']:.3e} (beyond: {cmp['moment_bad'][:4]}), parameters "
+          f"{diffs['param_max_abs_diff']:.3e} (atol {DP_PARAM_ATOL:g}), "
+          f"{diffs['noise_elements']} float-noise elements {diffs['noise_max_abs_diff']:.3e}; "
+          f"gathered states bit for bit after {DP_STEPS + 1} steps: {same}")
+    print(f"  gp_step p50 over {DP_STEPS} steps, {world} ranks (dp={GP_DP} x gp={GP}) sharing "
+          f"one card (a record, not a scaling figure): {gp_p50:.3f} ms (rank 0) against the "
+          f"single-device step's {ref['p50_ms']:.3f} ms in (a); ranks' wall {ranks_s:.1f} s")
+    due = {"decode_select": 1, "decode_all_fwd": 2, "decode_all_bwd": 1}
+    for i, r in enumerate(ranks):
+        check(f"model rank {i % GP} of {GP}, node 0 of 1, local rank {i} of {world}"
+              in r["grid"], f"gp_step: rank {i} placed as {r['grid']}")
+        check(r["rows"] == TRAIN_SCENES // GP_DP, f"gp_step: {r['rows']} rows on a rank")
+        check(r["gens"] == cfg.num_gens // GP, f"gp_step: {r['gens']} generators on a rank")
+        per = {k: r["launches_per_step"].get(k, 0) for k in due}
+        check(per == due, f"gp_step rank {i}: launches a step {per}, {due} due")
+        check(r["finite"], "gp_step: non-finite metrics")
+    check_path_kernels("gp_step", launches)
+    check(not cmp["bad_metrics"], f"gp_step: metrics beyond rtol {DP_METRIC_RTOL:g}: "
+                                  f"{cmp['bad_metrics']}")
+    check(not cmp["moment_bad"], f"gp_step: Adam moments beyond tolerance: "
+                                 f"{cmp['moment_bad'][:4]}")
+    check(not diffs["bad"], f"gp_step: parameters: {diffs['bad'][:4]}")
+    check(same, "gp_step: the ranks' gathered states differ after the steps")
+    return {"ranks": world, "dp": GP_DP, "gp": GP, "backend": ranks[0]["backend"],
+            "grids": [r["grid"] for r in ranks], "gens_per_rank": ranks[0]["gens"],
+            "gp_p50_ms": gp_p50, "gp_times_ms": ranks[0]["times_ms"],
+            "single_p50_ms": ref["p50_ms"], "metric_max_rel_diff": cmp["metric_err"],
+            "moment_max_abs_diff": cmp["moment_err"],
+            "param_max_abs_diff": diffs["param_max_abs_diff"],
+            "noise_max_abs_diff": diffs["noise_max_abs_diff"], "ranks_bit_identical": same,
+            "launches_per_step": ranks[0]["launches_per_step"], "launches": launches,
             "seconds": ranks_s}
 
 
-def dp_cli(tmp):
+def dp_cli(tmp, name="dp_cli", n_ranks=DP_CLI_RANKS, **flags_over):
     """(b): ``mggan_dp_eth`` as configured (dp=8, batch 256) on DP_CLI_RANKS
     ranks under ``torch.distributed.run`` on a BIWI eth split, 1 epoch; then
-    ``cli.evaluate`` of its version dir in this process on the card."""
+    ``cli.evaluate`` of its version dir in this process on the card. (e)
+    runs the same with ``flags_over`` (``dp=1, gp=2`` on GP_CLI ranks) as
+    path ``name``."""
     import csv
 
     import numpy as np
@@ -4846,34 +4937,35 @@ def dp_cli(tmp):
     from mggan_tpu_torch.configs import BENCHMARK_CONFIGS
     from mggan_tpu_torch.ops import kernels
 
-    out = Path(tmp) / "dp_cli"
+    out = Path(tmp) / name
     out.mkdir()
     root = out / "data"
     write_biwi(root, "eth", ETH_FRAMES, np.random.RandomState(SEED + 16))
-    flags = {**BENCHMARK_CONFIGS["mggan_dp_eth"], "epochs": 1, "val_every": 1, "seed": SEED}
+    flags = {**BENCHMARK_CONFIGS["mggan_dp_eth"], "epochs": 1, "val_every": 1, "seed": SEED,
+             **flags_over}
     argv = [x for k, v in flags.items() for x in (f"--{k}", str(v))]
     argv += ["--name", "mggan_dp_eth", "--log_dir", str(out / "logs"), "--data_root", str(root),
              "--device", DP_DEVICE]
     launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-              "--nproc_per_node", str(DP_CLI_RANKS), str(HERE / "chip_smoke.py"), "--rank",
+              "--nproc_per_node", str(n_ranks), str(HERE / "chip_smoke.py"), "--rank",
               "cli", str(out), "--"]
     print("  python -m torch.distributed.run --standalone --nproc_per_node "
-          f"{DP_CLI_RANKS} -m mggan_tpu_torch.cli.train " + " ".join(argv))
+          f"{n_ranks} -m mggan_tpu_torch.cli.train " + " ".join(argv))
     t0 = time.perf_counter()
     run_ranks([launch + argv], out)
     train_s = time.perf_counter() - t0
-    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(DP_CLI_RANKS)]
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(n_ranks)]
     dirs = {r["dir"] for r in ranks}
-    check(len(dirs) == 1, f"dp_cli: {len(dirs)} version dirs named by the ranks")
+    check(len(dirs) == 1, f"{name}: {len(dirs)} version dirs named by the ranks")
     vdir = Path(dirs.pop())
     listed = sorted((out / "logs").glob("*/*/version_*"))
-    check(listed == [vdir], f"dp_cli: version dirs on disk {listed}")
-    check(len({r["digest"] for r in ranks}) == 1, "dp_cli: the ranks' states differ")
+    check(listed == [vdir], f"{name}: version dirs on disk {listed}")
+    check(len({r["digest"] for r in ranks}) == 1, f"{name}: the ranks' states differ")
     lines = [json.loads(line) for line in (vdir / "metrics.jsonl").read_text().splitlines()]
-    check(len(lines) == 1, f"dp_cli: {len(lines)} epochs logged")
+    check(len(lines) == 1, f"{name}: {len(lines)} epochs logged")
     bad = [k for k, v in lines[0].items() if not np.isfinite(v)]
-    check(not bad, f"dp_cli: non-finite epoch metrics {bad}")
-    check((vdir / "checkpoints" / "checkpoint_best").is_file(), "dp_cli: no checkpoint_best")
+    check(not bad, f"{name}: non-finite epoch metrics {bad}")
+    check((vdir / "checkpoints" / "checkpoint_best").is_file(), f"{name}: no checkpoint_best")
     launches = {}
     for r in ranks:
         for k, v in r["launches"].items():
@@ -4892,17 +4984,19 @@ def dp_cli(tmp):
     metrics = [c for c in rows[0] if c.startswith(("ADE k=", "FDE k="))]
     bad = [(r["Prediction strategy"], c) for r in rows for c in metrics
            if not np.isfinite(float(r[c]))]
-    check(rows and not bad, f"dp_cli evaluate: non-finite metrics {bad[:5]}")
-    for name in ("decode_select", "decode_all_fwd", "decode_all_bwd"):
-        check(launches.get(name, 0) > 0, f"dp_cli: {name} launched {launches.get(name, 0)} times")
-    for r in ranks:
-        print(f"  dp_cli {r['grid']}: {r['steps']} steps")
-    print(f"  dp_cli: {DP_CLI_RANKS} ranks, backend {ranks[0]['backend']}, world "
+    check(rows and not bad, f"{name} evaluate: non-finite metrics {bad[:5]}")
+    check_path_kernels(name, launches)
+    gp = flags_over.get("gp", 1)
+    for i, r in enumerate(ranks):
+        print(f"  {name} {r['grid']}: {r['steps']} steps")
+        check(gp == 1 or f"model rank {i % gp} of {gp}" in r["grid"],
+              f"{name}: rank {i} placed as {r['grid']}")
+    print(f"  {name}: {n_ranks} ranks, backend {ranks[0]['backend']}, world "
           f"{ranks[0]['world']}, one version dir, {ranks[0]['steps']} steps of 256 scenes in "
           f"{train_s:.1f} s (launch included); epoch metrics finite, val/ADE k=20 "
           f"{lines[0].get('val/ADE k=20', float('nan')):.4f}; cli.evaluate on one device "
           f"{eval_s:.1f} s, {len(rows)} strategies finite; launches {json.dumps(launches)}")
-    return {"ranks": DP_CLI_RANKS, "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+    return {"ranks": n_ranks, "backend": ranks[0]["backend"], "world": ranks[0]["world"],
             "grids": [r["grid"] for r in ranks], "steps": ranks[0]["steps"], "train_s": train_s,
             "eval_s": eval_s, "epoch": lines[0], "launches": launches,
             "csv": {k: float(rows[0][k]) for k in ("ADE k=1", "ADE k=19", "FDE k=19")
@@ -5018,7 +5112,7 @@ def pod_first_step(out, root):
 
 
 def dp_row_slices():
-    """(d): K1 and K2 on each of DP_RANKS row slices of the train step's
+    """(f): K1 and K2 on each of DP_RANKS row slices of the train step's
     shapes equal the full launch's rows bit for bit, K3's per-row input
     grads too; K3's weight grads summed over the slices within
     SLICE_WGRAD_REL of the full launch's (another summation order)."""
@@ -5096,8 +5190,8 @@ def dp_row_slices():
 
 def phase_data_parallel(tmp, root, single_p50_ms):
     """Phase 19 (see the module note): (a) dp_step, (b) dp_cli, (c) pod,
-    (d) the row-slice kernel checks. Returns the summary and the paths'
-    launch counts."""
+    (d) gp_step, (e) gp_cli, (f) the row-slice kernel checks. Returns the
+    summary and the paths' launch counts."""
     import torch
 
     from mggan_tpu_torch.parallel import pod
@@ -5109,16 +5203,19 @@ def phase_data_parallel(tmp, root, single_p50_ms):
           f"when every local rank has a card of its own, else gloo (gloo's all_reduce and "
           f"broadcast take CUDA tensors), the host-side agreements on gloo always; here "
           f"{DP_RANKS} ranks -> {rule}; the NCCL route is not run on one card")
-    step = dp_step(tmp, single_p50_ms)
+    step, ref = dp_step(tmp, single_p50_ms)
     cli = dp_cli(tmp)
     pod_r = dp_pod(tmp, root)
+    gp_r = gp_step(tmp, ref)
+    gp_cli = dp_cli(tmp, "gp_cli", GP_CLI, dp=1, gp=GP_CLI)
     slices = dp_row_slices()
     secs = time.perf_counter() - t_phase
-    print(f"phase 19 (data parallelism): {secs:.1f} s")
+    print(f"phase 19 (data and generator parallelism): {secs:.1f} s")
     launches = {"dp_step": step.pop("launches"), "dp_cli": cli.pop("launches"),
-                "pod": pod_r.pop("launches")}
-    return {"card": card, "dp_step": step, "dp_cli": cli, "pod": pod_r,
-            "row_slices": slices, "seconds": secs}, launches
+                "pod": pod_r.pop("launches"), "gp_step": gp_r.pop("launches"),
+                "gp_cli": gp_cli.pop("launches")}
+    return {"card": card, "dp_step": step, "dp_cli": cli, "pod": pod_r, "gp_step": gp_r,
+            "gp_cli": gp_cli, "row_slices": slices, "seconds": secs}, launches
 
 
 def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):

@@ -8,15 +8,18 @@ path). A new run prints its version dir. Resume: ``--checkpoint
 <version_dir>`` restores the full train state (epoch included) from the
 dir's ``best`` checkpoint and validates every epoch.
 
-Data-parallel training runs one process a rank under the launcher that
-ships with torch:
+Data- and generator-parallel training runs one process a rank under the
+launcher that ships with torch, ``slices * dp * gp`` ranks in all:
 
     python -m torch.distributed.run --nproc_per_node N -m mggan_tpu_torch.cli.train --dp N ...
+    python -m torch.distributed.run --nproc_per_node 4 -m mggan_tpu_torch.cli.train --dp 2 --gp 2 ...
 
-(add ``--nnodes M --node_rank i --master_addr A --master_port P`` for M
-nodes, or pass ``--coordinator_address``, ``--num_processes`` and
-``--process_id`` per process). Each process joins the pod before it
-touches the device (``parallel/pod.py``); without a launcher ``--dp N > 1``
+(``--gp G`` splits the stacked generators over G ranks of each data
+shard, which must sit on one node; add ``--nnodes M --node_rank i
+--master_addr A --master_port P`` for M nodes, or pass
+``--coordinator_address``, ``--num_processes`` and ``--process_id`` per
+process). Each process joins the pod before it touches the device
+(``parallel/pod.py``); without a launcher ``--dp`` or ``--gp`` above 1
 raises naming the command.
 """
 

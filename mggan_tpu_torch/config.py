@@ -112,8 +112,9 @@ class Config:
     # Augmented-patch resampling: "nearest" (the reference's PIL resample
     # mode) or "bilinear".
     patch_interp: str = "nearest"
-    # Data parallelism (parallel/: slices * dp ranks; gp > 1 raises, ROADMAP.md
-    # queue 1 item 13 (b)), the split step and the profiler capture.
+    # Data and generator parallelism (parallel/: slices * dp * gp ranks, the
+    # stacked generators split over gp of them), the split step and the
+    # profiler capture.
     dp: int = 1
     gp: int = 1
     slices: int = 1

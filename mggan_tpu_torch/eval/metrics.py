@@ -10,8 +10,8 @@ Reference semantics (metrics.py:6-141, evaluation.py:43-78):
   < 3 m (the intent of the reference's mode threshold).
 * For pixel datasets errors are rescaled per scene by 1/ratio.
 
-``allreduce_sums`` sums the host accumulators' pairs over the ranks of a
-data-parallel pod, so every rank reads the global metric.
+``allreduce_sums`` sums the host accumulators' pairs over the data ranks
+of a pod, so every rank reads the global metric.
 """
 
 from __future__ import annotations
@@ -86,12 +86,14 @@ class MetricAccumulator:
         return {k: (s / n if n else float("nan")) for k, (s, n) in self.sums.items()}
 
 
-def allreduce_sums(sums: dict) -> dict:
-    """Per-rank ``{key: (sum, count)}`` pairs summed over every rank of the
-    pod (on its host group); the identity off a pod.
+def allreduce_sums(sums: dict, group=None) -> dict:
+    """Per-rank ``{key: (sum, count)}`` pairs summed over the ranks of the
+    gloo ``group``: a grid's data ranks (``parallel/mesh.py::Grid.host_group``),
+    every rank of the pod by default; the identity off a pod.
 
-    Ranks evaluate disjoint scene rows, so the global metric is the sum of
-    every rank's pairs. The sums are float64 and added in rank order on
+    Data ranks evaluate disjoint scene rows, so the global metric is the
+    sum of their pairs; the model ranks of one data rank evaluate the same
+    rows, so a sum over every rank would count them ``gp`` times. The sums are float64 and added in rank order on
     every rank, so each rank gets the same result bit for bit and may
     branch on it (the best-checkpoint save). Every rank must call this
     with the same key set (an empty shard contributes zero counts); the
@@ -100,7 +102,7 @@ def allreduce_sums(sums: dict) -> dict:
     """
     if not pod.is_initialized() or pod.world_size() == 1:
         return dict(sums)
-    group = pod.host_group()
+    group = pod.host_group() if group is None else group
     world = dist.get_world_size(group)
     keys = sorted(sums)
     digest = torch.tensor([zlib.crc32("\n".join(keys).encode()) & 0x7FFFFFFF, len(keys)],

@@ -36,7 +36,9 @@ kernels' numerics (``ops/kernels/decoder.py``).
 rank's scene rows of the batch (``parallel/dp.py::shard_batch``) and the
 global batch's draws, keeps its rows of them (``parallel/dp.py::own_rows``
 along ``DRAW_SCENE_AXIS``), and returns its rows' predictions; the metric sums then go through
-``eval/metrics.py::allreduce_sums``.
+``eval/metrics.py::allreduce_sums``. Its parameters are whole: under
+generator parallelism the caller hands it the gathered generators
+(``parallel/dp.py::gather_tree``), as JAX replicates them for prediction.
 """
 
 from __future__ import annotations

@@ -16,6 +16,15 @@ in the backward); ``decode_select`` computes each row's ``h0`` from its
 sampled identity and rolls out those rows alone through K1. Without a
 PM-net (``weighting_target="none"`` or ``unconditional``) the logits are
 the learnable prior ``net_prior``.
+
+Under generator parallelism (a model group active in
+``parallel/reduce.py``) the continuous G's ``decoders`` hold this rank's
+``num_gens / gp`` generators: ``decode_all`` rolls out those alone (K2,
+and K3 under autograd), behind ``to_model`` on its inputs, and
+``decode_select`` contracts the generator axis over the model group
+(``from_model``): each (sample, agent) row is non-zero on the one rank
+that holds its sampled generator, so the sum is exact. The discrete G's
+one decoder is replicated and needs no model-group operator.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from mggan_tpu_torch.ops.cnn import scene_cnn_apply, scene_cnn_apply_train, scen
 from mggan_tpu_torch.ops.kernels import decode_all as decode_all_kernel
 from mggan_tpu_torch.ops.kernels import decoder as decoder_kernel
 from mggan_tpu_torch.ops.linear import linear_init, mlp_apply, mlp_init
-from mggan_tpu_torch.utils.pytree import tree_map
+from mggan_tpu_torch.parallel import reduce
+from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -190,9 +200,21 @@ def _rows(x):
     return x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
 
 
+def _stacked_gens(stacked) -> int:
+    """Generators in a ``decoders`` stack (its leading axis)."""
+    return tree_leaves(stacked)[0].shape[0]
+
+
+def _split(spec: GeneratorSpec) -> bool:
+    """Whether this rank holds a slice of the generators (see the note)."""
+    return not spec.discrete and reduce.model_group() is not None
+
+
 def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
-               social_feats, noise, compute_dtype=None):
-    """Every generator on every noise sample (standard.py:227-265).
+               social_feats, noise, compute_dtype=None, gather: bool = False):
+    """Every generator on every noise sample (standard.py:227-265); under
+    generator parallelism, every generator this rank holds, or with
+    ``gather`` (no gradient) every generator, joined over the model group.
 
     On CUDA tensors this is the all-generator kernel K2 (and, under
     autograd, its reverse sweep K3), on CPU tensors their plain versions
@@ -201,12 +223,13 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     bf16 variant; its gradient is K3 in f32 from the bf16 forward's (h, c),
     as in JAX.
 
-    Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2).
+    Returns GeneratorOutput with abs/rel of shape (K, G, S, P, pred_len, 2),
+    G this rank's generators.
     """
     k, s, p, _ = noise.shape
     flat = _rows
-    g = spec.num_gens
     if spec.discrete:
+        g = spec.num_gens
         # the G identities' h0 stacked identity-major: (G*K*S*P, H), one
         # decoder; the per-agent inputs' rows repeat every S*P rows
         eye = torch.eye(g, dtype=enc_h.dtype, device=enc_h.device)
@@ -216,20 +239,26 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
             spec.pred_len, spec.inp_format, compute_dtype)
     else:
         # rows are (k, s, p)-major, the order _decoder_h0 produces
+        g = _stacked_gens(params["decoders"])
+        inputs = (flat(last_xy), flat(last_dxdy), flat(social_feats),
+                  _decoder_h0(params, enc_h, noise))
+        if _split(spec):
+            inputs = tuple(reduce.to_model(x) for x in inputs)
         abs_g, rel_g = decode_all_kernel.decode_all(
-            params["decoders"], flat(last_xy), flat(last_dxdy), flat(social_feats),
-            _decoder_h0(params, enc_h, noise), spec.pred_len, spec.inp_format,
-            compute_dtype,
-        )
+            params["decoders"], *inputs, spec.pred_len, spec.inp_format, compute_dtype)
     shape = (g, k, s, p, spec.pred_len, 2)
     reshape = lambda x: x.reshape(shape).transpose(0, 1)
+    if gather and _split(spec):
+        reshape = lambda x: reduce.gather_gens(x.reshape(shape), dim=0).transpose(0, 1)
     return GeneratorOutput(rel=reshape(rel_g), abs=reshape(abs_g))
 
 
 def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
                   social_feats, noise, gen_idxs, compute_dtype=None,
                   fuse_select: bool = True):
-    """Decode only the sampled generator per (sample, agent).
+    """Decode only the sampled generator per (sample, agent); under
+    generator parallelism each rank decodes the rows of its generators and
+    the rows are summed over the model group.
 
     With ``fuse_select`` (the default, for paths without a gradient) this is
     the fused-selection kernel K1 on CUDA tensors and its plain version on
@@ -245,14 +274,20 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     Returns:
         GeneratorOutput with abs/rel of shape (K, S, P, pred_len, 2).
     """
+    split = _split(spec)
     if not fuse_select:
         out = decode_all(params, spec, last_xy, last_dxdy, enc_h, social_feats,
                          noise, compute_dtype)
-        return GeneratorOutput(rel=sampling.gather_samples(out.rel, gen_idxs),
-                               abs=sampling.gather_samples(out.abs, gen_idxs))
+        first = reduce.model_rank() * out.rel.shape[1] if split else 0
+        pick = lambda x: sampling.gather_samples(x, gen_idxs, first, spec.num_gens)
+        both = torch.stack([pick(out.rel), pick(out.abs)])
+        if split:
+            both = reduce.from_model(both)
+        return GeneratorOutput(rel=both[0], abs=both[1])
     flat = lambda x: _rows(x).contiguous()
     # rows are (k, s, p)-major, the order _decoder_h0 produces
     idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
+    xy, dxdy, soc = flat(last_xy), flat(last_dxdy), flat(social_feats)
     if spec.discrete:
         # each row's h0 from its sampled identity, then the one decoder
         onehot = F.one_hot(gen_idxs.permute(2, 0, 1).long(), spec.num_gens).to(enc_h.dtype)
@@ -261,9 +296,24 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     else:
         h0 = _decoder_h0(params, enc_h, noise).contiguous()
         stacked = params["decoders"]
-    abs_sel, rel_sel = decoder_kernel.decode_select(
-        stacked, flat(last_xy), flat(last_dxdy), flat(social_feats),
-        h0, idx, spec.pred_len, spec.inp_format, compute_dtype,
-    )
-    return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
-                           abs=_reshape_samples(abs_sel, spec, noise))
+    if not split:
+        abs_sel, rel_sel = decoder_kernel.decode_select(
+            stacked, xy, dxdy, soc, h0, idx, spec.pred_len, spec.inp_format, compute_dtype)
+        return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
+                               abs=_reshape_samples(abs_sel, spec, noise))
+    # this rank's rows: those whose sampled generator it holds, each with
+    # its own per-agent inputs; a rank with none skips the launch
+    g = _stacked_gens(stacked)
+    first = reduce.model_rank() * g
+    rows = ((idx >= first) & (idx < first + g)).nonzero()[:, 0]
+    both = h0.new_zeros((2, idx.shape[0], spec.pred_len, 2))
+    if rows.numel():
+        agent = rows % xy.shape[0]
+        abs_sel, rel_sel = decoder_kernel.decode_select(
+            stacked, xy[agent].contiguous(), dxdy[agent].contiguous(),
+            soc[agent].contiguous(), h0[rows].contiguous(), (idx[rows] - first).contiguous(),
+            spec.pred_len, spec.inp_format, compute_dtype)
+        both[0, rows], both[1, rows] = rel_sel.to(both.dtype), abs_sel.to(both.dtype)
+    both = reduce.from_model(both)
+    return GeneratorOutput(rel=_reshape_samples(both[0], spec, noise),
+                           abs=_reshape_samples(both[1], spec, noise))

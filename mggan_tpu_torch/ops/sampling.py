@@ -66,14 +66,17 @@ def selection_indices(sampled_idxs):
     return (same & earlier).sum(-1).to(torch.int32)
 
 
-def gather_samples(decoded, gen_idxs):
+def gather_samples(decoded, gen_idxs, first: int = 0, num_gens: int | None = None):
     """Pick the sampled generator's rollout per (agent, sample).
 
     decoded: ``(K, G, S, P, ...)``; gen_idxs: ``(S, P, K)`` int.
-    Returns ``(K, S, P, ...)``, as a one-hot contraction like JAX.
+    Returns ``(K, S, P, ...)``, as a one-hot contraction like JAX. With
+    ``first`` and ``num_gens``, ``decoded`` holds generators ``first`` to
+    ``first + G`` of ``num_gens``, and a row whose sampled generator is not
+    among them is zero.
     """
     g = decoded.shape[1]
-    onehot = F.one_hot(gen_idxs.long(), g).to(decoded.dtype)  # (S, P, K, G)
-    onehot = onehot.permute(2, 3, 0, 1)  # (K, G, S, P)
+    onehot = F.one_hot(gen_idxs.long(), num_gens or g)[..., first : first + g]
+    onehot = onehot.to(decoded.dtype).permute(2, 3, 0, 1)  # (K, G, S, P)
     extra = decoded.dim() - onehot.dim()
     return (decoded * onehot.reshape(onehot.shape + (1,) * extra)).sum(1)

@@ -1,4 +1,5 @@
-"""The data-parallel train step (counterpart of ``mggan_tpu/parallel/dp.py``).
+"""The data- and generator-parallel train step (counterpart of
+``mggan_tpu/parallel/dp.py``).
 
 JAX runs the single-device program under GSPMD, which partitions it from
 the batch's sharding. Here every rank runs ``build_train_step``'s step on
@@ -14,9 +15,22 @@ the same on every rank.
 Every rank ends a step with the same state: the summed gradients, the
 global statistics and the summed loss metrics come out of one all-reduce
 each, which hands every rank the same result.
+
+With ``gp > 1`` (JAX's ``state_shardings`` on a ``model`` axis) each rank
+keeps ``num_gens / gp`` of the stacked generators (every leaf under a
+``decoders`` key of ``g_params``) and their Adam moments
+(``shard_generators``), and the step runs inside a model group as well
+(``reduce.py``'s note); probgan's decoder normals are drawn for every
+generator and sliced. Every other leaf is replicated, equal on every rank
+bit for bit. ``gather_generators`` joins the slices again, for a
+checkpoint or validation. The discrete G has one replicated decoder and
+no ``decoders`` stack, so, as in JAX, nothing is sharded; its model
+groups are replicas, kept equal bit for bit by ``reduce.sum_grads``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,7 +41,7 @@ from mggan_tpu_torch.parallel import pod, reduce
 from mggan_tpu_torch.parallel.mesh import Grid
 from mggan_tpu_torch.training.state import TrainState
 from mggan_tpu_torch.training.steps import build_train_step, is_replicated_metric, make_draws
-from mggan_tpu_torch.utils.pytree import tree_leaves
+from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 # The scene axis of each draw with one (training/steps.py::make_draws)
 DRAW_SCENE_AXIS = {"d_uniforms": 2, "d_z": 2, "d_alpha": 1, "g_uniforms": 1, "g_z": 1,
@@ -85,8 +99,9 @@ def own_rows(grid: Grid | None, draws: dict, rows: int, axes: dict) -> dict:
 
 
 def sum_metrics(metrics: dict, grid: Grid) -> dict:
-    """The loss metrics summed over the data group (one all-reduce); the
-    replicated ones (``steps.is_replicated_metric``) as they are."""
+    """The loss metrics summed over the data group (one all-reduce; the
+    model ranks of a data rank hold equal ones); the replicated ones
+    (``steps.is_replicated_metric``) as they are."""
     keys = [k for k in sorted(metrics) if not is_replicated_metric(k)]
     if not grid.active or not keys:
         return metrics
@@ -95,10 +110,66 @@ def sum_metrics(metrics: dict, grid: Grid) -> dict:
     return {**metrics, **dict(zip(keys, flat.unbind()))}
 
 
+def splits_generators(grid: Grid, g_params) -> bool:
+    """Whether ``g_params``' generators are split over ``grid``'s model
+    group: ``gp > 1`` and a ``decoders`` stack (not the discrete G)."""
+    return grid.gp > 1 and reduce.SHARDED_KEY in g_params
+
+
+def _map_decoders(tree, fn):
+    """``tree`` with ``fn`` applied to each leaf under its ``decoders`` key."""
+    if reduce.SHARDED_KEY not in tree:
+        return tree
+    return {**tree, reduce.SHARDED_KEY: tree_map(fn, tree[reduce.SHARDED_KEY])}
+
+
+def _own_slice(tree, grid: Grid):
+    """``tree`` with its ``decoders`` leaves (tensors or numpy arrays) cut
+    to this rank's generators."""
+    cut = grid.gen_slice(tree_leaves(tree[reduce.SHARDED_KEY])[0].shape[0])
+    return _map_decoders(tree, lambda x: x[cut])
+
+
+def _gen_trees(state: TrainState):
+    return state.g_params, state.g_opt.mu, state.g_opt.nu
+
+
+def _with_gen_trees(state: TrainState, trees) -> TrainState:
+    g_params, mu, nu = trees
+    opt = dataclasses.replace(state.g_opt, mu=mu, nu=nu)
+    return state.replace(g_params=g_params, g_opt=opt)
+
+
+def shard_generators(state: TrainState, grid: Grid) -> TrainState:
+    """``state`` with this rank's slice of the generators in ``g_params``
+    and the G optimizer's moments; the identity unless
+    ``splits_generators``. Raises ``ValueError`` if ``num_gens % gp``."""
+    if not splits_generators(grid, state.g_params):
+        return state
+    return _with_gen_trees(state, [_map_decoders(_own_slice(t, grid), torch.clone)
+                                   for t in _gen_trees(state)])
+
+
+def gather_tree(tree, grid: Grid):
+    """``tree``'s ``decoders`` slices joined over the model group (every
+    rank calls it); the identity unless ``splits_generators``."""
+    if not splits_generators(grid, tree):
+        return tree
+    with reduce.over(None, grid.model_group):
+        return _map_decoders(tree, lambda x: reduce.gather_gens(x, dim=0))
+
+
+def gather_generators(state: TrainState, grid: Grid) -> TrainState:
+    """``state`` with every generator in ``g_params`` and its moments, the
+    single-device layout (``shard_generators``' inverse)."""
+    return _with_gen_trees(state, [gather_tree(t, grid) for t in _gen_trees(state)])
+
+
 def broadcast_state(state: TrainState, grid: Grid) -> TrainState:
-    """Rank 0's state on every rank: the trees' tensors (one broadcast)
-    over the data group, the scalars and the generator's state over the
-    host group."""
+    """Global rank 0's whole state on every rank, then this rank's slice
+    of the generators (``shard_generators``): the trees' tensors in one
+    broadcast over the world, the scalars and the generator's state over
+    the host group."""
     if not grid.active:
         return state
     trees = (state.g_params, state.g_state, state.d_params, state.d_state, state.g_opt.mu,
@@ -106,7 +177,7 @@ def broadcast_state(state: TrainState, grid: Grid) -> TrainState:
     leaves = [x for t in trees for x in tree_leaves(t)]
     with torch.no_grad():
         flat = torch.cat([x.reshape(-1).float() for x in leaves])
-        dist.broadcast(flat, src=0, group=grid.group)
+        dist.broadcast(flat, src=0)
         i = 0
         for x in leaves:
             x.copy_(flat[i : i + x.numel()].view_as(x))
@@ -119,8 +190,19 @@ def broadcast_state(state: TrainState, grid: Grid) -> TrainState:
     if scalars["generator"] is not None:
         state.generator.set_state(scalars["generator"])
     state.g_opt.count, state.d_opt.count = scalars["g_count"], scalars["d_count"]
-    return state.replace(step=scalars["step"], epoch=scalars["epoch"],
-                         l2_weight=scalars["l2_weight"], best_val=scalars["best_val"])
+    state = state.replace(step=scalars["step"], epoch=scalars["epoch"],
+                          l2_weight=scalars["l2_weight"], best_val=scalars["best_val"])
+    return shard_generators(state, grid)
+
+
+def own_draws(grid: Grid, draws: dict, rows: int, g_params) -> dict:
+    """This rank's share of a global step's ``draws``: its ``rows`` scene
+    rows (``own_rows``) and, when the generators are split, its slice of
+    probgan's decoder normals ``g_noise``."""
+    draws = own_rows(grid, draws, rows, DRAW_SCENE_AXIS)
+    if draws.get("g_noise") is None or not splits_generators(grid, g_params):
+        return draws
+    return {**draws, "g_noise": _own_slice(draws["g_noise"], grid)}
 
 
 def build_kernels_once(grid: Grid):
@@ -138,13 +220,13 @@ def build_kernels_once(grid: Grid):
 
 
 def make_parallel_train_step(config, g_spec, d_spec, grid: Grid, state: TrainState):
-    """Returns ``(step, state)``: ``state`` broadcast from rank 0, and
-    ``step(state, batch, draws=None) -> (state, metrics)`` where ``batch``
-    is this rank's scene rows (``shard_batch``) and ``draws``, if given,
-    the global batch's (``make_draws``' layout); without them the global
-    draws come from ``state.generator``. The metrics are the global step's,
-    equal on every rank. On one device the step is the single-device
-    step."""
+    """Returns ``(step, state)``: ``state`` broadcast from rank 0 and
+    sharded (``broadcast_state``), and ``step(state, batch, draws=None) ->
+    (state, metrics)`` where ``batch`` is this rank's scene rows
+    (``shard_batch``) and ``draws``, if given, the global step's
+    (``make_draws``' layout); without them the global draws come from
+    ``state.generator``. The metrics are the global step's, equal on every
+    rank. On one device the step is the single-device step."""
     impl = build_train_step(config, g_spec, d_spec)
     if not grid.active:
         return impl, state
@@ -156,8 +238,8 @@ def make_parallel_train_step(config, g_spec, d_spec, grid: Grid, state: TrainSta
         if draws is None:
             draws = make_draws(state.generator, config, global_rows(grid, s), p,
                                state.g_params, state.d_params)
-        draws = own_rows(grid, draws, s, DRAW_SCENE_AXIS)
-        with reduce.over(grid.group):
+        draws = own_draws(grid, draws, s, state.g_params)
+        with reduce.over(grid.group, grid.model_group):
             state, metrics = impl(state, batch, draws)
         return state, sum_metrics(metrics, grid)
 

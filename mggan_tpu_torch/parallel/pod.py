@@ -41,9 +41,10 @@ import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 600
 LAUNCH = ("python -m torch.distributed.run --nproc_per_node {n} -m mggan_tpu_torch.cli.train "
-          "--dp {dp} ...")
+          "--dp {dp}{flags} ...")
 
 _HOST_GROUP = None
+_TIMEOUT = None  # every collective's, from init_distributed
 _PLACE = None  # (local rank, ranks on this node, node) while in a pod
 
 
@@ -142,13 +143,20 @@ def barrier():
         dist.barrier(group=_HOST_GROUP)
 
 
-def sum_over_ranks(x: float) -> float:
-    """A host number summed over every rank (itself off a pod)."""
+def sum_over_ranks(x: float, group=None) -> float:
+    """A host number summed over the ranks of the gloo ``group`` (every
+    rank by default; itself off a pod)."""
     if not is_initialized():
         return x
     t = torch.tensor([x], dtype=torch.float64)
-    dist.all_reduce(t, group=_HOST_GROUP)
+    dist.all_reduce(t, group=_HOST_GROUP if group is None else group)
     return float(t[0])
+
+
+def new_group(ranks: list, backend: str | None = None):
+    """``dist.new_group(ranks)`` with the pod's timeout. Every rank must
+    call it for every group, in the same order, members or not."""
+    return dist.new_group(ranks, timeout=_TIMEOUT, backend=backend)
 
 
 def broadcast_object(obj):
@@ -173,7 +181,7 @@ def init_distributed(coordinator_address: str | None = None,
     the rendezvous and every collective, so a rank that never arrives fails
     the others instead of hanging them.
     """
-    global _HOST_GROUP, _PLACE
+    global _HOST_GROUP, _PLACE, _TIMEOUT
     if is_initialized():
         return
     explicit = (coordinator_address, num_processes, process_id)
@@ -183,7 +191,7 @@ def init_distributed(coordinator_address: str | None = None,
     if all(x is None for x in explicit):
         if env is None:
             raise RuntimeError(
-                "no pod to join: launch with `" + LAUNCH.format(n="N", dp="N")
+                "no pod to join: launch with `" + LAUNCH.format(n="N", dp="N", flags="")
                 + "` or pass --coordinator_address, --num_processes and --process_id")
         world, rank_ = env["world"], env["rank"]
     else:
@@ -211,6 +219,7 @@ def init_distributed(coordinator_address: str | None = None,
     dist.init_process_group(backend, world_size=world, rank=rank_, timeout=timeout,
                             **rendezvous)
     _PLACE = (local, local_world, node)
+    _TIMEOUT = timeout
     _HOST_GROUP = (dist.group.WORLD if backend == "gloo"
                    else dist.new_group(backend="gloo", timeout=timeout))
 

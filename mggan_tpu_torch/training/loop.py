@@ -16,16 +16,20 @@ behind JAX's split-step checks: the port compiles nothing to split), and
 one step into that directory: the second step of the run's first epoch,
 the step the JAX loop traces.
 
-With ``dp`` / ``slices`` the Trainer is one rank of a data-parallel pod
+With ``dp`` / ``gp`` / ``slices`` the Trainer is one rank of a pod
 (``parallel/``; launched by ``torch.distributed.run``): its device is the
-rank's, the step is ``parallel/dp.py``'s, its loaders yield its scene rows
-of each batch (of the node's window shard on several nodes), the draws are
-the global batch's, of which it keeps its rows, and validation sums its
-rows' metrics over the pod (``allreduce_sums``), so ``best_val`` and the
-checkpoint branch are the same on every rank; rank 0 writes the logs and
-checkpoints. On one node it equals the single-device Trainer step for
-step. A version dir trained on N ranks loads on one device
-(``load_from_path`` outside a pod).
+rank's, the step is ``parallel/dp.py``'s, its loaders yield its data
+rank's scene rows of each batch (of the node's window shard on several
+nodes), the draws are the global batch's, of which it keeps its rows, and
+validation sums its rows' metrics over the data ranks (``allreduce_sums``
+on ``grid.host_group``), so ``best_val`` and the checkpoint branch are the
+same on every rank. With ``gp > 1`` the rank holds its slice of the
+generators; validation runs on them all, gathered (as JAX replicates the
+parameters for it), and a checkpoint holds the gathered state, which rank
+0 writes, as it writes the logs. On one node the Trainer equals the
+single-device Trainer step for step. A version dir trained on N ranks
+loads on one device (``load_from_path`` outside a pod), and in a pod each
+rank takes its slice of it again.
 
 Random numbers come from one source with three methods (``SeededDraws``
 by default; a test injects another to replay the JAX Trainer's keys):
@@ -101,16 +105,15 @@ class SeededDraws:
 
 
 def check_loop_scope(config: Config):
-    """Raise for generator parallelism, which the port does not cover yet,
-    and for ``split_step`` beside data parallelism, which the JAX Trainer
-    refuses too (mggan_tpu/training/loop.py:63-66)."""
-    if config.gp > 1:
-        raise NotImplementedError(
-            f"gp={config.gp}: generator parallelism is not ported yet (ROADMAP.md queue 1 "
-            "item 13 (b))")
-    if config.split_step and config.dp * config.slices > 1:
-        raise ValueError("--split_step and --dp/--slices are mutually exclusive, as in the "
-                         "JAX Trainer")
+    """Raise for ``split_step`` beside any of dp, gp and slices above 1,
+    which the JAX Trainer refuses too (mggan_tpu/training/loop.py:63-66),
+    and for a ``decoders`` stack that ``gp`` does not split evenly."""
+    if config.split_step and max(config.dp, config.gp, config.slices) > 1:
+        raise ValueError("--split_step and --dp/--gp/--slices are mutually exclusive, as in "
+                         "the JAX Trainer")
+    if config.experiment != "discrete" and config.num_gens % config.gp:
+        raise ValueError(f"num_gens={config.num_gens} does not split over gp={config.gp} "
+                         "ranks")
 
 
 class Trainer:
@@ -154,7 +157,7 @@ class Trainer:
             self._predictor = Predictor(self.config, self.g_spec, self.state.g_params,
                                         self.state.g_state,
                                         device=self.device).shard_to(self.grid)
-        self._predictor.g_params = self.state.g_params
+        self._predictor.g_params = dp.gather_tree(self.state.g_params, self.grid)
         self._predictor.g_state = self.state.g_state
         return self._predictor
 
@@ -226,8 +229,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
-        if self.grid.active:  # every rank counted its own rows
-            n_agents = int(pod.sum_over_ranks(n_agents))
+        if self.grid.active:  # every data rank counted its own rows
+            n_agents = int(pod.sum_over_ranks(n_agents, self.grid.host_group))
         values = {k: torch.stack(vs).double().cpu().numpy() for k, vs in metrics.items()}
         return values, {"steps": n_steps, "agents": n_agents, "seconds": seconds}
 
@@ -306,7 +309,7 @@ class Trainer:
             scale = host_to_device(batch["scale"], self.device)
             acc.update(batch_metric_sums(pred_abs, bv.gt_xy, bv.loss_mask, scale, [num_k]))
         if self.grid.active:
-            acc.sums = allreduce_sums(acc.sums)
+            acc.sums = allreduce_sums(acc.sums, self.grid.host_group)
         return acc.result()
 
     def test(self, num_k=20, batch_size=8, **kwargs):
@@ -316,11 +319,13 @@ class Trainer:
 
     # ---------------------------------------------------------- checkpoints
     def save(self, name=None):
-        """Rank 0 writes ``name``; on a pod the others wait for the file."""
+        """Rank 0 writes ``name``, the gathered state (the single-device
+        layout); on a pod the others wait for the file."""
         if name is None:
             name = f"checkpoint_{int(self.state.epoch)}"
+        state = dp.gather_generators(self.state, self.grid)
         if pod.is_primary():
-            ckpt.save_checkpoint(self.writer.checkpoint_dir, self.state, name)
+            ckpt.save_checkpoint(self.writer.checkpoint_dir, state, name)
         if self.grid.active:
             pod.barrier()
 
@@ -334,7 +339,8 @@ class Trainer:
     def load_from_path(cls, version_path, checkpoint="best", device="cuda"):
         """Rebuild a trainer from a version dir (abstract_train.py:250-296);
         returns ``(trainer, config)``. Outside a pod a dir trained on N ranks
-        loads on one device; in a pod every rank reads the same file."""
+        loads on one device; in a pod every rank reads the same file and
+        keeps its slice of the generators."""
         version_path = Path(version_path)
         if "version" not in version_path.stem:
             raise ValueError(f"{version_path} is not a model version directory")
@@ -347,5 +353,6 @@ class Trainer:
         grid = None if pod.is_initialized() else make_mesh(1, 1, 1, device)
         trainer = cls(config, writer, device=device, grid=grid)
         name = ckpt.resolve_checkpoint_name(writer.checkpoint_dir, checkpoint)
-        trainer.state = ckpt.restore_checkpoint(writer.checkpoint_dir, trainer.state, name)
+        state = ckpt.restore_checkpoint(writer.checkpoint_dir, trainer.state, name)
+        trainer.state = dp.shard_generators(state, trainer.grid)
         return trainer, config

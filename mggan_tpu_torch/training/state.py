@@ -12,6 +12,11 @@ b2=0.999, eps=1e-8, weight_decay=0.01))`` step for step:
   whose ``.grad`` is None;
 * the bias corrections count the chain's own updates: the G chain advances
   twice per train step, in the G step and in the PM step.
+
+Under generator parallelism the clip's norm adds the decoder slices'
+squares over the model group (``parallel/reduce.py::global_norm``), so
+every rank clips by the whole tree's norm; Adam itself is elementwise, on
+the rank's slice.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 from mggan_tpu_torch.config import Config
-from mggan_tpu_torch.utils.pytree import tree_global_norm, tree_leaves, tree_map
+from mggan_tpu_torch.parallel import reduce
+from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
 @dataclass
@@ -55,7 +61,7 @@ class Optimizer:
         """One step -> ``(new_params, new_state)``; inputs are not modified."""
         lr = self.lr if lr is None else lr
         if self.clip and self.clip > 0:
-            norm = tree_global_norm(grads)
+            norm = reduce.global_norm(grads)
             keep = norm < self.clip
             grads = tree_map(lambda g: torch.where(keep, g, (g / norm) * self.clip), grads)
         b1, b2 = self.beta1, self.beta2

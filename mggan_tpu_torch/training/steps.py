@@ -55,6 +55,16 @@ identity on one device), the SGHMC noise losses, which read only the
 replicated parameters, count on the first rank alone, and the loss metrics
 are each rank's share until ``dp.py`` sums them (``is_replicated_metric``
 names the rest).
+
+Under generator parallelism (a model group beside the data group) each
+rank holds ``num_gens / gp`` of the stacked decoders and their Adam
+moments and decodes with those alone (``models/generator.py``); the PM
+step gathers every generator's rollout before its targets
+(``decode_all(gather=True)``), and the sums over the parameters (the clip's
+and the metrics' global norms, probgan's G noise loss) add the decoder
+slices over the model group (``reduce.leaf_sum``). The draws are the
+global step's: probgan's decoder normals are drawn for every generator
+and each rank keeps its slice (``parallel/dp.py``).
 """
 
 from __future__ import annotations
@@ -72,9 +82,7 @@ from mggan_tpu_torch.ops import sampling
 from mggan_tpu_torch.parallel import reduce
 from mggan_tpu_torch.training.state import TrainState, optimizers, scheduled_lr
 from mggan_tpu_torch.utils import trajectory_tools
-from mggan_tpu_torch.utils.pytree import (
-    tree_global_norm, tree_leaves, tree_map, tree_unflatten,
-)
+from mggan_tpu_torch.utils.pytree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 
 class BatchViews(NamedTuple):
@@ -137,8 +145,9 @@ def _g_forward_sampled(g_params, g_state, g_spec, config: Config, bv: BatchViews
 def per_module_grad_norms(grads, prefix: str):
     """Per-module gradient norms (reference GradNormLogger, utils.py:168-199):
     the top-level keys of the param tree play the modules' part."""
-    return {f"gradnorm/{prefix}/{name}": tree_global_norm(sub)
+    return {f"gradnorm/{prefix}/{name}": reduce.global_norm({name: sub})
             for name, sub in grads.items()}
+
 
 
 def check_scope(config: Config):
@@ -164,13 +173,21 @@ def needed_draw_keys(config: Config):
     return DRAW_KEYS + extra
 
 
-def _normals_like(generator, tree, lead=()):
+def _normals_like(generator, tree, lead=(), num_gens=None):
     """A tree shaped like ``tree`` (with ``lead`` before every leaf's shape)
-    of standard normals, drawn leaf by leaf in ``tree_leaves`` order."""
+    of standard normals, drawn leaf by leaf in ``tree_leaves`` order; with
+    ``num_gens`` a ``decoders`` leaf has a leading axis of ``num_gens``
+    whatever slice of the generators ``tree`` holds."""
     dev = generator.device
+
+    def shape(path, x):
+        if num_gens is not None and path[0] == reduce.SHARDED_KEY:
+            return (num_gens,) + tuple(x.shape[1:])
+        return tuple(x.shape)
+
     return tree_unflatten(tree, [
-        torch.randn(lead + tuple(x.shape), generator=generator, device=dev)
-        for x in tree_leaves(tree)])
+        torch.randn(lead + shape(path, x), generator=generator, device=dev)
+        for path, x in tree_items(tree)])
 
 
 def make_draws(generator: torch.Generator, config: Config, s: int, p: int,
@@ -186,7 +203,8 @@ def make_draws(generator: torch.Generator, config: Config, s: int, p: int,
     standard normals shaped like ``d_params`` (each leaf with the leading
     U + 1 axis) and like ``g_params``, which the noise losses scale by
     ``sghmc_alpha`` (JAX draws them from ``fold_in(key, 1729)`` of each
-    update's key)."""
+    update's key); the ``decoders`` normals cover every generator, also
+    when ``g_params`` holds a rank's slice of them."""
     dev = generator.device
     g, zd = config.num_gens, config.noise_dim
     units = config.num_unrolling_steps + 1
@@ -209,7 +227,7 @@ def make_draws(generator: torch.Generator, config: Config, s: int, p: int,
         if g_params is None or d_params is None:
             raise ValueError("probgan's draws need the parameter trees' shapes")
         draws["d_noise"] = _normals_like(generator, d_params, (units,))
-        draws["g_noise"] = _normals_like(generator, g_params)
+        draws["g_noise"] = _normals_like(generator, g_params, num_gens=g)
     return draws
 
 
@@ -224,7 +242,7 @@ def _grads(loss, tree):
     summed over the data group on a data-parallel rank."""
     leaves = tree_leaves(tree)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return tree_unflatten(tree, reduce.sum_grads([
+    return reduce.sum_grads(tree_unflatten(tree, [
         torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads)]))
 
 
@@ -334,7 +352,7 @@ def build_train_step(config: Config, g_spec, d_spec):
         grads = _grads(total, d_params)
         lr_d = scheduled_lr(config.d_lr, state.epoch, config.epochs)
         metrics.update({
-            "train/grad_norm_D": tree_global_norm(grads),
+            "train/grad_norm_D": reduce.global_norm(grads),
             **per_module_grad_norms(grads, "D"),
             "train/lr_D": torch.tensor(lr_d, dtype=torch.float32),
         })
@@ -386,7 +404,7 @@ def build_train_step(config: Config, g_spec, d_spec):
         grads = _grads(total, g_params)
         lr_g = scheduled_lr(config.g_lr, state.epoch, config.epochs)
         metrics.update({
-            "train/grad_norm_G": tree_global_norm(grads),
+            "train/grad_norm_G": reduce.global_norm(grads),
             **per_module_grad_norms(grads, "G"),
             "train/lr_G": torch.tensor(lr_g, dtype=torch.float32),
         })
@@ -420,8 +438,8 @@ def build_train_step(config: Config, g_spec, d_spec):
         with torch.no_grad():  # the rollouts are targets only (steps.py:355)
             gen_abs = G_mod.decode_all(
                 g_params, g_spec, bv.in_xy[:, :, -1], bv.in_dxdy[:, :, -1],
-                enc_h, social_feats, noise,
-            ).abs  # (Ke,G,S,P,T,2)
+                enc_h, social_feats, noise, gather=True,
+            ).abs  # (Ke,G,S,P,T,2), every generator
         if wt in ("l2", "endpoint"):
             if wt == "l2":  # mean over T (train.py:617)
                 d = torch.linalg.vector_norm(gen_abs - bv.gt_xy[None, None], dim=-1).mean(-1)

@@ -45,14 +45,6 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def tree_global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    total = 0.0
-    for x in tree_leaves(tree):
-        total = total + (x.float() ** 2).sum()
-    return torch.sqrt(torch.as_tensor(total))
-
-
 def relative_to_abs(rel_traj, start_pos):
     """Cumulative-sum integration (utils.py:70-83): ``rel_traj (..., T, 2)``
     and ``start_pos (..., 2)`` -> absolute ``(..., T, 2)``."""

@@ -13,6 +13,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from mggan_tpu_torch.parallel import reduce
 from mggan_tpu_torch.utils.pytree import tree_items, tree_map
 
 
@@ -69,12 +70,11 @@ def noise_loss(params, normals, alpha: float):
     """SGHMC noise loss ``sum_p <p, n_p>``, ``n_p = alpha * normals_p``
     (utils.py:10-15). ``normals`` is a tree shaped like ``params`` of
     standard normals (JAX draws one per leaf from ``split(key, n_leaves)``
-    in leaf order); the leaves add in ``tree_items`` order, JAX's order."""
+    in leaf order); the leaves add in ``tree_items`` order, JAX's order.
+    Under generator parallelism the ``decoders`` slices' terms are summed
+    over the model group (``parallel/reduce.py::leaf_sum``)."""
     flat = dict(tree_items(normals))
-    total = 0.0
-    for path, p in tree_items(params):
-        total = total + (p * (flat[path] * alpha)).sum()
-    return total
+    return reduce.leaf_sum(params, lambda path, p: (p * (flat[path] * alpha)).sum())
 
 
 def pandas_to_latex(df_table, index=True, multicolumn=False, **kwargs) -> str:

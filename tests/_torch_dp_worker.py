@@ -10,15 +10,22 @@ None leaves the place to the manual launch, which puts every rank of this
 host on one node) and ``cases``, each a dict with ``kind``:
 
 * ``step``: ``make_parallel_train_step`` on ``weights`` (the port's trees)
-  for ``config``, this rank's rows of ``batch`` and the global ``draws``,
-  on ``device`` (the CPU unless the case names the card);
+  for ``config`` (its ``dp``, ``gp`` and ``slices``), this rank's rows of
+  ``batch`` and the global ``draws``, on ``device`` (the CPU unless the
+  case names the card); the state comes back gathered (``gathered``) and
+  as this rank holds it (``local``, with ``gp > 1``);
 * ``trainer``: a ``Trainer`` for ``config`` trained for its epochs, with
   the version dir agreed by the ranks;
 * ``epoch``: a ``Trainer`` for ``config`` and one ``train_epoch`` of its
   train loader, no validation;
 * ``pod``: the sharded loader's lockstep count and ``max_peds``, the
   shard-local bank against host assembly, ``allreduce_sums``;
-* ``mismatch``: ``allreduce_sums`` over key sets that differ by rank.
+* ``mismatch``: ``allreduce_sums`` over key sets that differ by rank;
+* ``sums``: ``allreduce_sums`` over the data ranks of the grid of
+  ``config``'s ``dp`` and ``gp``;
+* ``gp_trainer``: a ``Trainer`` for ``config`` trained for its epochs
+  (validation and ``save`` included), then ``load_from_path`` of its
+  version dir in the pod, each rank's slice of the restored state.
 
 Writes ``out_<rank>.pt`` beside the spec: one result per case. Imports
 neither JAX nor the JAX package.
@@ -60,7 +67,7 @@ def run_step(case):
     from mggan_tpu_torch.training.state import init_train_state
 
     cfg = Config(**case["config"])
-    grid = make_mesh(cfg.dp, 1, cfg.slices, device=case.get("device", "cpu"))
+    grid = make_mesh(cfg.dp, cfg.gp, cfg.slices, device=case.get("device", "cpu"))
     w = {k: tree_to(v, grid.device) for k, v in case["weights"].items()}
     g_pack = (w["g_params"], w["g_state"], factory.build_specs(cfg))
     d_pack = (w["d_params"], w["d_state"], factory.build_d_spec(cfg))
@@ -72,9 +79,12 @@ def run_step(case):
 
     kernels.launches.clear()
     state, metrics = step(state, local, case["draws"])
-    return {"state": _state(state), "metrics": {k: float(v) for k, v in metrics.items()},
-            "rows": int(np.shape(local["ped_mask"])[0]), "grid": grid.describe(),
-            "launches": dict(kernels.launches)}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "rows": int(np.shape(local["ped_mask"])[0]), "grid": grid.describe(),
+           "launches": dict(kernels.launches), "state": _state(state)}
+    if cfg.gp > 1:
+        out["local"], out["state"] = out["state"], _state(dp.gather_generators(state, grid))
+    return out
 
 
 def run_trainer(case):
@@ -138,6 +148,31 @@ def run_mismatch(case):
     return {"raised": None}
 
 
+def run_sums(case):
+    from mggan_tpu_torch.config import Config
+    from mggan_tpu_torch.eval.metrics import allreduce_sums
+    from mggan_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = Config(**case["config"])
+    grid = make_mesh(cfg.dp, cfg.gp, cfg.slices, device="cpu")
+    sums = {"ADE k=3": (float(grid.rank + 1), 2.0), "FDE k=3": (10.0, 1.0)}
+    return {"reduced": allreduce_sums(sums, grid.host_group), "grid": grid.describe()}
+
+
+def run_gp_trainer(case):
+    from mggan_tpu_torch.config import Config
+    from mggan_tpu_torch.training.loop import Trainer
+    from mggan_tpu_torch.utils.logging import ExperimentWriter
+
+    cfg = Config(**case["config"])
+    writer = ExperimentWriter(cfg.log_dir, cfg.experiment, cfg.name, config=cfg,
+                              tensorboard=False)
+    tr = Trainer(cfg, writer, device="cpu").train()
+    resumed, _ = Trainer.load_from_path(writer.dir, device="cpu")
+    return {"local": _state(tr.state), "resumed": _state(resumed.state), "dir": str(writer.dir),
+            "grid": tr.grid.describe(), "epoch": resumed.state.epoch}
+
+
 def launch(tmp_path, world: int, cases: list, local_world: int | None = None,
            timeout_s: float = 120, device="cpu"):
     """Run ``cases`` on ``world`` ranks of this worker; returns each rank's
@@ -187,7 +222,7 @@ def main():
     pod.init_distributed(spec["store"], world, rank, device=spec.get("device", "cpu"),
                          timeout_s=spec["timeout_s"])
     runners = {"step": run_step, "trainer": run_trainer, "epoch": run_epoch, "pod": run_pod,
-               "mismatch": run_mismatch}
+               "mismatch": run_mismatch, "sums": run_sums, "gp_trainer": run_gp_trainer}
     out = []
     for case in spec["cases"]:
         try:

@@ -266,20 +266,21 @@ def test_dp_trainer_epoch_matches_single_device(tmp_path):
 
 
 @pytest.mark.parametrize("kw, err, match", [
-    ({"gp": 2}, NotImplementedError, r"item 13 \(b\)"),
-    ({"dp": 2, "gp": 2}, NotImplementedError, r"item 13 \(b\)"),
+    ({"gp": 2}, RuntimeError, "--nproc_per_node 2 .*--gp 2"),
+    ({"dp": 2, "gp": 2}, RuntimeError, "--nproc_per_node 4 .*--gp 2"),
     ({"dp": 2, "split_step": 1}, ValueError, "mutually exclusive"),
     ({"dp": 2}, RuntimeError, "torch.distributed.run --nproc_per_node 2"),
     ({"dp": 2, "slices": 2}, RuntimeError, "--nproc_per_node 4"),
 ])
 def test_what_raises_outside_a_pod(tmp_path, kw, err, match):
-    """``gp > 1`` (ROADMAP item 13 (b)) and ``split_step`` beside dp (as in
-    JAX) raise; so does ``dp > 1`` without a pod, naming the launch."""
+    """``split_step`` beside dp raises (as in JAX); so does ``dp`` or ``gp``
+    above 1 without a pod, naming the launch (tests/test_torch_port_gp.py
+    runs gp in one)."""
     cfg = Config(num_gens=2, h_dim=8, decoder_h_dim=8, **kw)
     writer = ExperimentWriter(tmp_path, cfg.experiment, cfg.name, version=1,
                               tensorboard=False)
     with pytest.raises(err, match=match):
         Trainer(cfg, writer, device="cpu")
     if kw.get("gp"):
-        with pytest.raises(NotImplementedError, match=r"item 13 \(b\)"):
+        with pytest.raises(RuntimeError, match=f"--gp {kw['gp']}"):
             make_mesh(1, kw["gp"], device="cpu")

@@ -180,16 +180,19 @@ def test_resumed_run_keeps_the_better_best_checkpoint(tmp_path):
     assert resumed.state.best_val == 0.0
 
 
-# Data parallelism is ported (tests/test_torch_port_dp.py); generator
-# parallelism, with or beside it, is not
-@pytest.mark.parametrize("kw, item", [
-    ({"dp": 2, "gp": 2}, "item 13"), ({"gp": 2}, "item 13"), ({"slices": 2, "gp": 2}, "item 13"),
-    ({"split_step": 1, "gp": 2}, "item 13"), ({"profile_dir": "prof", "gp": 2}, "item 13"),
-    ({"weighting_target": "disc_scores"}, "train.py:602"),
+# Data and generator parallelism are ported (tests/test_torch_port_{dp,gp}.py):
+# outside a pod they ask for their launch; disc_scores raises, as in JAX
+@pytest.mark.parametrize("kw, err, item", [
+    ({"dp": 2, "gp": 2}, RuntimeError, "--nproc_per_node 4 .*--gp 2"),
+    ({"gp": 2}, RuntimeError, "--nproc_per_node 2 .*--gp 2"),
+    ({"slices": 2, "gp": 2}, RuntimeError, "--nproc_per_node 4 .*--gp 2 --slices 2"),
+    ({"split_step": 1, "gp": 2}, ValueError, "mutually exclusive"),
+    ({"profile_dir": "prof", "gp": 2}, RuntimeError, "--nproc_per_node 2 .*--gp 2"),
+    ({"weighting_target": "disc_scores"}, NotImplementedError, "train.py:602"),
 ])
-def test_unported_settings_raise_naming_their_item(tmp_path, kw, item):
+def test_unported_settings_raise_naming_their_item(tmp_path, kw, err, item):
     cfg = Config(num_gens=2, h_dim=8, decoder_h_dim=8, **kw)
     writer = ExperimentWriter(tmp_path, cfg.experiment, cfg.name, version=1,
                               tensorboard=False)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=item):
         Trainer(cfg, writer, device="cpu")
