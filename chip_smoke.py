@@ -155,9 +155,14 @@ Phases, in order; any failure exits nonzero before the result line:
      ``cli.convert --pth`` back into a port version dir, its parameters and
      BN statistics equal to the original's bit for bit; (b) ``cli.export``
      of ``sampling`` and ``expected`` at ``--scenes 1,8,64 --peds 16 --num
-     20``, ``from_artifact`` equal to ``from_version_dir`` bit for bit at
-     each bucket, one 8-scene request with injected draws on the artifact
-     loaded on the card and on the CPU (atol 1e-4); (c)
+     20`` as ``torch.export`` programs, one per bucket: each program's
+     graph holds one ``mggan.decode_select`` (K1) or
+     ``mggan.decode_all_fwd`` (K2) node and each call of the loaded
+     artifact launches that kernel once, ``from_artifact`` equal to
+     ``from_version_dir`` bit for bit at each bucket, one 8-scene request
+     with injected draws on the artifact loaded on the card and moved to
+     the CPU (atol 1e-4), export seconds per bucket, MB, and the artifact
+     call's p50 beside the live ``predict_batch``'s at each bucket; (c)
      ``serving.server.start_background`` over the ``sampling`` artifact:
      zara1's small image registered through ``POST /v1/scenes``, one request
      with ``scene_ids`` equal to ``predict_batch`` on ``crop_patches`` and
@@ -1927,6 +1932,7 @@ def phase_bf16_kernels():
 DEPLOY_CLIENTS = 64  # client threads against the HTTP server
 DEPLOY_REQUESTS = 4  # single-scene requests a client
 DEPLOY_SEQUENTIAL = 20  # one-scene requests, direct and over HTTP, for the overhead
+DEPLOY_TIMED = 20  # artifact and live calls a bucket, alternated, for their p50s
 DEPLOY_STATE = ("g_params", "g_state", "d_params", "d_state")
 
 
@@ -1973,36 +1979,65 @@ def deploy_convert(vdir, out):
 
 def deploy_artifacts(conv, out, rng):
     """Part (b): ``cli.export`` of ``sampling`` and ``expected`` at buckets
-    1, 8 and 64; ``from_artifact`` equal to ``from_version_dir`` bit for
-    bit; one 8-scene request with injected draws on the card and the CPU."""
+    1, 8 and 64 as ``torch.export`` programs; each program's graph holds
+    the kernel's operator (``mggan.decode_select``, K1, or
+    ``mggan.decode_all_fwd``, K2) and a call of the loaded artifact launches
+    it; ``from_artifact`` equal to ``from_version_dir`` bit for bit at each
+    bucket; one 8-scene request with injected draws on the artifact loaded
+    on the card and moved to the CPU; export seconds per bucket, MB, and the
+    artifact call's p50 beside the live ``predict_batch``'s at each
+    bucket."""
     import numpy as np
 
     from mggan_tpu_torch.cli import export as export_cli
+    from mggan_tpu_torch.ops import kernels
     from mggan_tpu_torch.serving.runtime import ServingModel
 
+    ops = {"sampling": ("mggan.decode_select.default", "decode_select"),
+           "expected": ("mggan.decode_all_fwd.default", "decode_all_fwd")}
     models, res = {}, {}
     for strat in ("sampling", "expected"):
         path = out / f"{strat}.mgtorch"
         t0 = time.perf_counter()
-        export_cli.main(["--model_dir", str(conv), "--out", str(path), "--strategy", strat,
-                         "--scenes", ",".join(map(str, BUCKETS)), "--peds", str(PEDS),
-                         "--num", str(NUM), "--device", "cuda"])
-        export_s = time.perf_counter() - t0
+        export_s = export_cli.main(["--model_dir", str(conv), "--out", str(path), "--strategy",
+                                    strat, "--scenes", ",".join(map(str, BUCKETS)), "--peds",
+                                    str(PEDS), "--num", str(NUM), "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
         header = export_cli.read_artifact(path)[0]
+        t0 = time.perf_counter()
         art = models[strat] = ServingModel.from_artifact(path, device="cuda")
+        load_s = time.perf_counter() - t0
         live = ServingModel.from_version_dir(conv, strat, scenes=BUCKETS[-1], peds=PEDS,
                                              num=NUM, scene_buckets=BUCKETS, device="cuda")
         check(art.buckets == BUCKETS and (art.peds, art.num) == (PEDS, NUM),
               f"{strat} artifact: buckets {art.buckets}, peds {art.peds}, num {art.num}")
+        op, kernel = ops[strat]
+        for b in BUCKETS:
+            targets = [str(n.target) for n in art._calls[b].program.graph.nodes]
+            check(targets.count(op) == 1, f"{strat} program at {b} scenes holds "
+                                          f"{targets.count(op)} {op} nodes")
+        p50, live_p50 = {}, {}
         for b in BUCKETS:
             obs, pat = make_request(rng, b)
             for seed in (0, 1):
+                before = kernels.launches[kernel]
                 got = art.predict_batch(obs, pat, seed=seed)
+                check(kernels.launches[kernel] == before + 1,
+                      f"{strat} artifact at {b} scenes launched {kernel} "
+                      f"{kernels.launches[kernel] - before} times")
                 want = live.predict_batch(obs, pat, seed=seed)
                 check(all(np.array_equal(x, y) for x, y in zip(got, want)),
                       f"{strat} artifact differs from the live model at {b} scenes")
                 check(all(np.isfinite(x).all() and x.shape == (NUM, len(o), 12, 2)
                           for x, o in zip(got, obs)), f"{strat} artifact: bad predictions")
+            times = {"artifact": [], "live": []}
+            for i in range(DEPLOY_TIMED + 2):  # two warm-up calls each, then alternate
+                for name, model in (("artifact", art), ("live", live)):
+                    t0 = time.perf_counter()
+                    model.predict_batch(obs, pat, seed=i)  # ends in the copy to the host
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            p50[b] = float(np.percentile(times["artifact"][2:], 50))
+            live_p50[b] = float(np.percentile(times["live"][2:], 50))
         cfg = header["config"]
         obs, pat = make_request(rng, 8)
         s = art.pad_request(obs, pat)[0].shape[0]
@@ -2014,12 +2049,18 @@ def deploy_artifacts(conv, out, rng):
         on_card = art.predict_batch(obs, pat, draws=draws)
         on_cpu = cpu.predict_batch(obs, pat, draws=draws)
         err = max(float(np.abs(x - y).max()) for x, y in zip(on_card, on_cpu))
-        res[strat] = {"export_s": export_s, "mb": path.stat().st_size / 1e6,
-                      "card_vs_cpu_max_abs_err": err}
-        print(f"  {strat}: cli.export {export_s:.2f} s, {res[strat]['mb']:.3f} MB, buckets "
-              f"{header['scene_buckets']}; from_artifact equal to from_version_dir bit for "
-              f"bit at 1, 8 and 64 scenes (2 seeds each); 8 scenes with injected draws, "
-              f"card vs CPU {err:.3e} (atol {E2E_ATOL:g})")
+        res[strat] = {"export_s": cli_s, "export_s_per_bucket": export_s, "load_s": load_s,
+                      "mb": path.stat().st_size / 1e6, "card_vs_cpu_max_abs_err": err,
+                      "artifact_p50_ms": p50, "live_p50_ms": live_p50, "operator": op}
+        print(f"  {strat}: cli.export {cli_s:.2f} s (torch.export + save per bucket "
+              + ", ".join(f"{b}: {export_s[b]:.2f} s" for b in BUCKETS)
+              + f"), {res[strat]['mb']:.3f} MB, loaded in {load_s:.2f} s; each bucket's "
+              f"program holds one {op} node and its call launches {kernel} once; "
+              f"from_artifact equal to from_version_dir bit for bit at 1, 8 and 64 scenes "
+              f"(2 seeds each); 8 scenes with injected draws, card vs CPU {err:.3e} (atol "
+              f"{E2E_ATOL:g})")
+        print(f"  {strat}: predict_batch p50 over {DEPLOY_TIMED} calls, artifact vs live: "
+              + ", ".join(f"{b} scenes {p50[b]:.3f} / {live_p50[b]:.3f} ms" for b in BUCKETS))
         check(err <= E2E_ATOL, f"{strat} artifact card vs CPU {err:.3e} > {E2E_ATOL}")
     return models, res
 

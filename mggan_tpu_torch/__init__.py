@@ -15,7 +15,8 @@ CUDA kernels of ``csrc/decode_all.cu``; evaluation, the train loop, real
 datasets (``data/parsing.py``) and the ``cli.train`` -> ``cli.evaluate``
 pair; and deployment: reference-format checkpoints in and out
 (``cli.convert``, ``models/torch_export.py``), the serving artifact
-(``cli.export``), ``MicroBatcher``, the HTTP server (``serving/server.py``)
-and ``cli.serve``; and data-parallel training over ``torch.distributed``
+(``cli.export``: ``torch.export`` programs over the kernel operators of
+``ops/kernels/library.py``), ``MicroBatcher``, the HTTP server
+(``serving/server.py``) and ``cli.serve``; and data-parallel training over ``torch.distributed``
 ranks (``parallel/``, ``data/elastic.py``).
 """

@@ -22,7 +22,9 @@ register scenes with POST /v1/scenes and name them per request in
 "scene_ids" (or send "patches").
 
 Runs on ``--device`` (``cuda`` by default; ``cpu`` asks for the CPU). An
-artifact needs this package at the endpoint (see ``cli/export.py``).
+artifact is served as its ``torch.export`` programs, one per scene bucket,
+without the model code: ``torch`` and the port's kernel operators
+(``ops/kernels/library.py``) run it (see ``cli/export.py``).
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from mggan_tpu_torch.ops.kernels.decoder import input_size  # noqa: F401  (re-exported)
 from mggan_tpu_torch.ops.linear import linear_apply, linear_init, mlp_init
 from mggan_tpu_torch.ops.lstm import lstm_init, lstm_scan
 
@@ -20,10 +21,6 @@ class GeneratorOutput(NamedTuple):
 
     rel: torch.Tensor
     abs: torch.Tensor
-
-
-def input_size(inp_format: str) -> int:
-    return 4 if inp_format == "abs_rel" else 2
 
 
 def get_input(in_xy, in_dxdy, inp_format: str):

@@ -17,8 +17,10 @@ out every generator on every row and returns ``(abs, rel)``, each
 On CUDA tensors the forward launches K2 and the backward K3
 (``csrc/decode_all.cu``), or they raise; on CPU tensors they run the plain
 versions ``decode_all_reference`` and ``decode_all_bwd_reference``. There
-is no other route. Without a gradient to take, ``decode_all`` runs the
-forward alone, without saving (h, c). K2 in f32 is the tiled kernel: a
+is no other route. The forward goes through the operator
+``mggan::decode_all_fwd`` (``library.py``), with or without (h, c), so a
+``torch.export`` trace holds one node for it. Without a gradient to take,
+``decode_all`` runs the forward alone, without saving (h, c). K2 in f32 is the tiled kernel: a
 block per (generator, slice of rows), R rows of one generator a warp (R
 and the blocks from ``fwd_launch``), bit-identical to the warp-per-row K2,
 which stays compiled as its yardstick (``launch_fwd_warp``, counted as
@@ -421,16 +423,17 @@ def weight_grads_from_image(dw, h: int, hid: int, in_dim: int):
 def decode_all_fwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
                    pred_len: int, inp_format: str, save_hc: bool,
                    compute_dtype=None):
-    """K2 on CUDA tensors, its plain version on CPU tensors."""
-    inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
-    if h0.device.type == "cuda":
-        args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format,
-                       compute_dtype)
-        return launch_fwd(args, save_hc)
-    if h0.device.type == "cpu":
-        return decode_all_reference(*inputs, pred_len, inp_format, save_hc,
-                                    compute_dtype)
-    raise ValueError(f"decode_all: unsupported device {h0.device}")
+    """K2 on CUDA tensors, its plain version on CPU tensors, through the
+    operator ``mggan::decode_all_fwd`` (``library.py``); any other device
+    raises. Returns ``(abs, rel, hc or None)``."""
+    from mggan_tpu_torch.ops.kernels import library
+
+    if h0.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"decode_all: unsupported device {h0.device}")
+    out_abs, out_rel, hc = library.decode_all_fwd(
+        w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy, pred_len, inp_format,
+        save_hc, kdec.is_bf16(compute_dtype))
+    return out_abs, out_rel, hc if save_hc else None
 
 
 def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,

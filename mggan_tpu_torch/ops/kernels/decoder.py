@@ -16,6 +16,11 @@ row's sampled generator and returns its ``(abs, rel)``:
   (``rollout_reference``, also K2's plain version) followed by
   ``gather_samples``.
 
+Both go through the operator ``mggan::decode_select`` (``library.py``):
+the weights are folded here, and the dispatcher hands the folded tensors to
+the kernel's route or to ``select_reference`` by their device, so a
+``torch.export`` trace holds one operator node.
+
 ``compute_dtype=torch.bfloat16`` is the TPU kernel's bf16 variant, with the
 kernels' numerics (not those of the JAX package's portable scan, which
 rounds at other places): the folded ``w_emb``, ``w_hh`` and ``w1h`` and the
@@ -63,7 +68,6 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mggan_tpu_torch.models import common
 from mggan_tpu_torch.ops import kernels, sampling
 from mggan_tpu_torch.ops.kernels import build
 from mggan_tpu_torch.utils.pytree import tree_leaves
@@ -100,6 +104,12 @@ PACKED = ("w_emb", "w_hh", "b", "w1h", "w2", "b2")  # the folded weights, in ord
 MAX_SHARED_BYTES = 232448  # per block on the H100, as dynamic shared memory
 
 
+def input_size(inp_format: str) -> int:
+    """The decoder's input width per format (here, not in
+    ``models/common.py``, so the operators need no model code)."""
+    return 4 if inp_format == "abs_rel" else 2
+
+
 def pack_decoder_params(stacked, inp_format: str):
     """Fold the stacked decoder params per generator (``_pack_all``'s fold,
     without its lane-packed block-diagonal layout).
@@ -111,7 +121,7 @@ def pack_decoder_params(stacked, inp_format: str):
     """
     emb, lstm, h2p = stacked["spatial_embedding"], stacked["lstm"], stacked["hidden2pos"]
     in_dim = emb["w"].shape[1]
-    if in_dim != common.input_size(inp_format):
+    if in_dim != input_size(inp_format):
         raise ValueError(f"decoder input width {in_dim} does not fit {inp_format!r}")
     h = lstm["w_hh"].shape[1]
     w1 = h2p["lin0"]["w"]
@@ -366,21 +376,31 @@ def rollout_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
     return torch.stack(abs_seq, 2), torch.stack(rel_seq, 2), hc
 
 
-def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
-                            gen_idx, pred_len: int, inp_format: str,
-                            compute_dtype=None, act: str = "f32"):
-    """Plain PyTorch version: all generators, then the per-row gather."""
+def select_reference(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
+                     gen_idx, pred_len: int, inp_format: str, compute_dtype=None,
+                     act: str = "f32"):
+    """Plain PyTorch version of K1 on the folded weights: all generators,
+    then the per-row gather."""
     n = h0.shape[0]
-    packed = pack_decoder_params(stacked, inp_format)
     abs_g, rel_g, _ = rollout_reference(
-        *(packed[k] for k in PACKED), social_bias(packed, social_feats), h0,
-        last_xy, last_dxdy, pred_len, inp_format, compute_dtype=compute_dtype,
-        act=act,
+        w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy, pred_len, inp_format,
+        compute_dtype=compute_dtype, act=act,
     )  # (G, N, T, 2)
     # as gather_samples' (K, G, S, P, T, 2) and (S, P, K) with K = S = 1
     idx = gen_idx.reshape(1, n, 1)
     pick = lambda x: sampling.gather_samples(x[None, :, None], idx).reshape(n, pred_len, 2)
     return pick(abs_g), pick(rel_g)
+
+
+def decode_select_reference(stacked, last_xy, last_dxdy, social_feats, h0,
+                            gen_idx, pred_len: int, inp_format: str,
+                            compute_dtype=None, act: str = "f32"):
+    """Plain PyTorch version on the stacked params: fold, then
+    ``select_reference``."""
+    packed = pack_decoder_params(stacked, inp_format)
+    return select_reference(*(packed[k] for k in PACKED), social_bias(packed, social_feats),
+                            h0, last_xy, last_dxdy, gen_idx, pred_len, inp_format,
+                            compute_dtype, act)
 
 
 @functools.cache
@@ -453,13 +473,10 @@ def check_all_images(args):
         raise ValueError(f"{g} generators' weights exceed one block's shared memory")
 
 
-def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
-                          gen_idx, pred_len: int, inp_format: str,
-                          compute_dtype=None):
-    """Fold the weights, hoist ``socb`` and check every kernel argument.
-    Returns the arguments of ``launch_decode_select``."""
-    packed = pack_decoder_params(stacked, inp_format)
-    socb = social_bias(packed, social_feats).contiguous()
+def prepare_select(packed, socb, h0, last_xy, last_dxdy, gen_idx, pred_len: int,
+                   inp_format: str, compute_dtype=None):
+    """The weight image and checked arguments of ``launch_decode_select``
+    from the folded weights and the hoisted ``socb``."""
     args = prepare_rollout(packed, socb, h0, last_xy, last_dxdy, pred_len,
                            inp_format, compute_dtype)
     check_arg("gen_idx", gen_idx, (h0.shape[0],), torch.int32, h0.device)
@@ -471,6 +488,17 @@ def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
                              "block's shared memory")
         args["mma_wpack"] = image.reshape(-1)
     return args
+
+
+def prepare_decode_select(stacked, last_xy, last_dxdy, social_feats, h0,
+                          gen_idx, pred_len: int, inp_format: str,
+                          compute_dtype=None):
+    """Fold the weights, hoist ``socb`` and check every kernel argument.
+    Returns the arguments of ``launch_decode_select``."""
+    packed = pack_decoder_params(stacked, inp_format)
+    socb = social_bias(packed, social_feats).contiguous()
+    return prepare_select(packed, socb, h0, last_xy, last_dxdy, gen_idx, pred_len,
+                          inp_format, compute_dtype)
 
 
 def launch_decode_select(args, ilp: bool = False, shape=None):
@@ -655,19 +683,23 @@ def decode_select(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
                   pred_len: int, inp_format: str, compute_dtype=None,
                   ilp: bool = False):
     """Rollout of each row's sampled generator -> ``(abs, rel)``, each
-    ``(N, pred_len, 2)``. CUDA tensors go to the kernel (K5 with ``ilp``),
-    CPU tensors to the plain version; there is no other route.
+    ``(N, pred_len, 2)``, through the operator ``mggan::decode_select``
+    (``library.py``): CUDA tensors go to the kernel, CPU tensors to the
+    plain version; any other device raises. With ``ilp`` CUDA tensors go to
+    K5 directly (an ablation, outside the operator).
 
     The kernel has no backward, so a call that autograd would differentiate
     raises on every device: a gradient path decodes all generators and
     gathers (``generator.decode_select(fuse_select=False)``)."""
+    from mggan_tpu_torch.ops.kernels import library
+
     refuse_autograd("decode_select", stacked, last_xy, last_dxdy, social_feats, h0)
-    if h0.device.type == "cuda":
-        return decode_select_cuda(stacked, last_xy, last_dxdy, social_feats,
-                                  h0, gen_idx, pred_len, inp_format,
-                                  compute_dtype, ilp)
-    if h0.device.type == "cpu":
-        return decode_select_reference(stacked, last_xy, last_dxdy,
-                                       social_feats, h0, gen_idx, pred_len,
-                                       inp_format, compute_dtype)
-    raise ValueError(f"decode_select: unsupported device {h0.device}")
+    if h0.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"decode_select: unsupported device {h0.device}")
+    if ilp and h0.device.type == "cuda":
+        return decode_select_cuda(stacked, last_xy, last_dxdy, social_feats, h0, gen_idx,
+                                  pred_len, inp_format, compute_dtype, ilp)
+    packed = pack_decoder_params(stacked, inp_format)
+    socb = social_bias(packed, social_feats).contiguous()
+    return library.decode_select(*(packed[k] for k in PACKED), socb, h0, last_xy, last_dxdy,
+                                 gen_idx, pred_len, inp_format, is_bf16(compute_dtype))

@@ -53,13 +53,17 @@ def finish_patches_center(big_patches: np.ndarray) -> np.ndarray:
     return identity_patches(torch.from_numpy(big_patches[None]))[0].numpy()
 
 
+def check_exportable(strategy: str):
+    if strategy not in EXPORTABLE:
+        raise ValueError(f"strategy {strategy!r} is not exportable as one serving "
+                         f"function (choose from {EXPORTABLE})")
+
+
 def build_serving_fn(predictor, strategy: str, num: int):
     """``(xy, ped_mask, patches, seed, draws=None) -> pred_abs`` over
     ``predictor`` for any scene count; raises for a strategy outside
     ``EXPORTABLE``."""
-    if strategy not in EXPORTABLE:
-        raise ValueError(f"strategy {strategy!r} is not exportable as one serving "
-                         f"function (choose from {EXPORTABLE})")
+    check_exportable(strategy)
     pred_func = predictor.get_predict_func(strategy)
 
     def serve(xy, ped_mask, patches, seed, draws=None):
@@ -68,6 +72,48 @@ def build_serving_fn(predictor, strategy: str, num: int):
         return pred_func(batch, gen, num=num, draws=draws)[0]
 
     return serve
+
+
+def draw_names(strategy: str):
+    """The draws a serving call of ``strategy`` takes, in the order the live
+    call draws them from its ``torch.Generator``, named as
+    ``Predictor.make_draws`` names them: ``sampling`` draws its categorical
+    uniforms before the noise, ``smart_sampling`` and ``uniform_sampling``
+    after it, the expected family the noise alone."""
+    if strategy == "sampling":
+        return ("uniforms", "z")
+    if strategy in ("smart_sampling", "uniform_sampling"):
+        return ("z", "uniforms")
+    return ("z",)
+
+
+def draw_specs(strategy: str, config, scenes: int, peds: int, num: int):
+    """``[(name, dist, shape)]`` of ``draw_names(strategy)`` at a bucket:
+    ``dist`` is ``"normal"`` (``torch.randn``) or ``"gumbel_uniform"``
+    (``torch.rand`` mapped into ``[GUMBEL_U_MIN, 1)``, as
+    ``ops/sampling.py::categorical`` maps it)."""
+    specs = {"z": ("z", "normal", (num, scenes, 1, config.noise_dim)),
+             "uniforms": ("uniforms", "gumbel_uniform", (num, scenes, peds, config.num_gens))}
+    return [specs[name] for name in draw_names(strategy)]
+
+
+class ServingProgram(torch.nn.Module):
+    """The serving function in a form ``torch.export`` traces:
+    ``forward(xy, ped_mask, patches, *draws) -> pred_abs``, the draws
+    positional in ``draw_names`` order. It holds no generator: randomness
+    comes in as tensors (``cli/export.py`` turns a seed into them)."""
+
+    def __init__(self, predictor, strategy: str, num: int):
+        super().__init__()
+        check_exportable(strategy)
+        self.pred_func = predictor.get_predict_func(strategy)
+        self.names = draw_names(strategy)
+        self.num = num
+
+    def forward(self, xy, ped_mask, patches, *draws):
+        batch = {"xy": xy, "ped_mask": ped_mask, "patches": patches}
+        return self.pred_func(batch, None, num=self.num,
+                              draws=dict(zip(self.names, draws)))[0]
 
 
 class ServingModel:
@@ -146,19 +192,16 @@ class ServingModel:
     @classmethod
     def from_artifact(cls, path, allow_missing_scene: bool = False,
                       device="cuda") -> "ServingModel":
-        """Serve an artifact of ``cli/export.py`` on ``device``: every scene
-        bucket it records, its ``peds``, ``num``, ``strategy`` and
-        ``wants_scene``."""
-        from mggan_tpu_torch.cli.export import load_artifact_predictor
+        """Serve an artifact of ``cli/export.py`` on ``device``: its
+        programs, one per scene bucket, with its ``peds``, ``num``,
+        ``strategy`` and ``wants_scene``. No model is rebuilt."""
+        from mggan_tpu_torch.cli.export import load_artifact_all
 
         dev = resolve_device(device)
-        predictor, meta = load_artifact_predictor(path, device=dev)
-        buckets = meta["scene_buckets"]
-        m = cls.from_predictor(predictor, meta["strategy"], max(buckets), meta["peds"],
-                               meta["num"], allow_missing_scene=allow_missing_scene,
-                               scene_buckets=buckets, device=dev)
-        m.source = str(Path(path))
-        return m
+        calls, meta = load_artifact_all(path, device=dev)
+        return cls(calls, max(calls), meta["peds"], meta["num"], strategy=meta["strategy"],
+                   source=str(Path(path)), wants_scene=meta["wants_scene"],
+                   allow_missing_scene=allow_missing_scene, device=dev)
 
     # -------------------------------------------------------- scene context
     def register_scene(self, name: str, image, px_per_meter: float):

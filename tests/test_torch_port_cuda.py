@@ -905,6 +905,10 @@ def test_artifact_on_the_card_equals_live_serving(cuda, tmp_path, strategy):
     art = ServingModel.from_artifact(tmp_path / "m.mgtorch", device=cuda)
     assert art.buckets == (1, 8) and art.device == cuda
     name = kdec.KERNEL if strategy == "sampling" else kda.KERNEL_FWD
+    op = ("mggan.decode_select.default" if strategy == "sampling"
+          else "mggan.decode_all_fwd.default")
+    for b in art.buckets:  # each bucket program calls the kernel's operator
+        assert op in {str(n.target) for n in art._calls[b].program.graph.nodes}
     rng = np.random.RandomState(1)
     for n in (1, 5):
         obs = [(rng.randn(p, 8, 2).cumsum(1) * 0.4).astype(np.float32)

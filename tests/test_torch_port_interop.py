@@ -15,6 +15,8 @@
 """
 
 import csv
+import json
+import re
 import types
 
 import jax
@@ -227,6 +229,11 @@ def test_artifact_round_trip(tmp_path, strategy):
                       {"wants_scene": True, "strategy": strategy})
     with pytest.raises(ValueError, match="JAX package artifact"):
         ServingModel.from_artifact(jax_art, device="cpu")
+    head = json.dumps({"format": "mggan_tpu_torch.artifact/1", "strategy": strategy,
+                       "model_dir": str(vdir), "scene_buckets": [1, 4]}).encode()
+    (tmp_path / "old").write_bytes(b"MGTORCH1\n" + len(head).to_bytes(4, "big") + head)
+    with pytest.raises(ValueError, match=f"re-export it: .* --model_dir {re.escape(str(vdir))} "):
+        ServingModel.from_artifact(tmp_path / "old", device="cpu")
     (tmp_path / "junk").write_bytes(b"not an artifact")
     with pytest.raises(ValueError, match="not a"):
         export_cli.load_artifact_all(tmp_path / "junk", device="cpu")

@@ -39,7 +39,7 @@ from mggan_tpu.serving.runtime import finish_patches_center as jax_finish_patche
 from mggan_tpu.serving.server import start_background as jax_start_background
 
 from mggan_tpu_torch.cli import serve as serve_cli
-from mggan_tpu_torch.cli.export import build_serving_fn, save_artifact
+from mggan_tpu_torch.cli.export import save_artifact
 from mggan_tpu_torch.config import Config
 from mggan_tpu_torch.eval.predict import Predictor
 from mggan_tpu_torch.models import factory
@@ -47,6 +47,7 @@ from mggan_tpu_torch.models.weights import generator_from_jax
 from mggan_tpu_torch.serving import MicroBatcher, ServingModel
 from mggan_tpu_torch.serving.runtime import (
     MissingSceneInputError,
+    build_serving_fn,
     finish_patches_center,
     fold_seeds,
 )
@@ -448,3 +449,11 @@ def test_offline_cli_matches_jax_windows(sampler, tmp_path):
             np.testing.assert_array_equal(z[f"window_{i + j:05d}"], d)
             np.testing.assert_array_equal(z[f"ped_ids_{i + j:05d}"], want_ids[i + j])
             assert np.isfinite(d).all()
+    # a weights-and-header artifact of the earlier format is refused, naming
+    # the command that re-exports it
+    old = tmp_path / "old.mgtorch"
+    head = json.dumps({"format": "mggan_tpu_torch.artifact/1", "strategy": "sampling"}).encode()
+    old.write_bytes(b"MGTORCH1\n" + len(head).to_bytes(4, "big") + head + b"weights")
+    with pytest.raises(ValueError, match="re-export it: python -m mggan_tpu_torch.cli.export"):
+        serve_cli.main(["--artifact", str(old), "--input", str(txt), "--device", "cpu",
+                        "--output", str(tmp_path / "o.npz"), "--allow_missing_scene"])

@@ -7,6 +7,7 @@ split as ``Predictor._decode_sampled`` and injects them into the port.
 Tolerance: atol 1e-4 over the 12-step rollout (PARITY.md).
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -189,7 +190,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          'tools.state_compare', 'serving.server', 'cli.serve', 'cli.export',\n"
         "          'cli.convert', 'models.torch_export', 'cli.sweep', 'viz',\n"
         "          'models.social_gan_legacy', 'utils.profiling', 'data.elastic',\n"
-        "          'parallel.pod', 'parallel.mesh', 'parallel.dp', 'parallel.reduce'):\n"
+        "          'parallel.pod', 'parallel.mesh', 'parallel.dp', 'parallel.reduce',\n"
+        "          'ops.kernels.library'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )
@@ -197,6 +199,21 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25  # the data and eval modules included
+    # the kernel operators and the artifact loader stand free of the model code
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['mggan_tpu_torch.models'] = None\n"
+        "import torch\n"
+        "import mggan_tpu_torch.ops.kernels.library\n"
+        "from mggan_tpu_torch.cli.export import load_artifact_all\n"
+        "assert torch.ops.mggan.decode_select.default and torch.ops.mggan.decode_all_fwd.default\n"
+        "bad = [m for m in sys.modules if m.startswith(('mggan_tpu.', 'mggan_tpu_torch.models.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagship, tmp_path):
@@ -245,6 +262,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, flagsh
             call()
     assert not (tmp_path / "c").exists() and not (tmp_path / "r").exists()
     assert ServingModel.from_artifact(art, device="cpu").device.type == "cpu"
+    # an artifact of the earlier weights-and-header format is refused
+    head = json.dumps({"format": "mggan_tpu_torch.artifact/1", "strategy": "sampling"}).encode()
+    (tmp_path / "old.mgtorch").write_bytes(b"MGTORCH1\n" + len(head).to_bytes(4, "big") + head)
+    with pytest.raises(ValueError, match="weights, not programs"):
+        ServingModel.from_artifact(tmp_path / "old.mgtorch", device="cpu")
     assert ServingModel.from_version_dir(vdir, scenes=2, peds=3, num=4,
                                          device="cpu").device.type == "cpu"
 
