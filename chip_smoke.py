@@ -236,7 +236,15 @@ Phases, in order; any failure exits nonzero before the result line:
      SLICE_WGRAD_REL of the full launch's (launch counts of the paths
      ``dp_step``, ``dp_cli``, ``pod``, ``gp_step`` and ``gp_cli`` summed
      over their ranks);
- 20. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
+ 20. the roofline: the flagship train step at 256 x 16 under
+     ``FlopCounterMode`` (``ops/kernels/library.py::count_flops``) on the
+     card and on the CPU's route under ``FakeTensorMode`` (shapes without
+     data), the same integer, its split between aten ops and the operators
+     ``mggan::decode_select``, ``decode_all_fwd`` and ``decode_all_bwd``
+     (each counted by its formula from ``mggan_tpu_torch/utils/roofline.py``),
+     its FLOPs over phase 5's p50 as a share of the f32 peak (a record), and
+     the bounds phases 3 and 7 read at their shapes equal to PERF.md's;
+ 21. a JSON line listing every ported kernel (the replaced f32 K1, K2, K4
      and K5, K2-bf16, B1, K5-bf16 and K4-bf16 under their successors'
      ``baseline``), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -259,14 +267,13 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-
-# H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores (the
-# f32 kernels' operands), bf16 on the tensor cores (the bf16 variants'
-# operands: their bound; the fp32-FMA figure is kept beside it, labelled)
-# and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+if (HERE / "mggan_tpu_torch" / "__init__.py").is_file():  # else main() refuses to run
+    sys.path.insert(0, str(HERE))
+    # the kernels' bounds at the H100's f32 peak, and at its bf16
+    # tensor-core peak for the bf16 variants (the fp32-FMA figure kept
+    # beside it, labelled), with the FLOPs of the operators' formulas
+    from mggan_tpu_torch.utils.roofline import (  # noqa: E402
+        H100_BF16_FLOPS, H100_FP32_FLOPS, H100_HBM_BPS, reverse_sweep_flops, rollout_flops)
 # Profiler sessions tried before a device-time reading gives up: a session
 # now and then comes back without its device records.
 PROFILE_TRIES = 3
@@ -465,23 +472,20 @@ def decode_select_case(n_scenes, gen, num=NUM):
     }
 
 
-def roofline_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
-    """Least time for the work on an H100: max(FLOPs / ``peak_flops``,
-    bytes / HBM rate) -> ``(ms, "operations" or "bytes", flops, bytes)``."""
-    by_ops, by_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def roofline_ms(flops, nbytes, peak_flops=None):
+    """Least time for the work on an H100: max(FLOPs / ``peak_flops`` (by
+    default the f32 peak), bytes / HBM rate) -> ``(ms, "operations" or
+    "bytes", flops, bytes)``."""
+    peak_flops = peak_flops or H100_FP32_FLOPS
+    by_ops, by_bytes = flops / peak_flops * 1e3, nbytes / H100_HBM_BPS * 1e3
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes"), flops, nbytes
-
-
-def rollout_flops(n, t, h, hid, in_dim):
-    """The products of ``n`` single-generator rollouts of ``t`` steps."""
-    return n * t * (2 * (in_dim + h) * 4 * h + 2 * h * hid + 2 * hid * 2)
 
 
 def nbytes_of(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
-def decode_select_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
+def decode_select_bound_ms(prepared, peak_flops=None):
     """K1's bound: each input read once and each output written once; the
     gate, hidden2pos and output products of the sampled generator."""
     tensors, dims = prepared["tensors"], prepared["dims"]
@@ -490,7 +494,7 @@ def decode_select_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
                        nbytes_of(*tensors) + 2 * n * t * 2 * 4, peak_flops)
 
 
-def decode_all_bound_ms(prepared, outputs, peak_flops=PEAK_FP32_FLOPS):
+def decode_all_bound_ms(prepared, outputs, peak_flops=None):
     """K2's bound: the inputs read once, ``outputs`` (abs, rel and, when
     saved, hc) written once; K1's products for every (row, generator)."""
     n, _, g, h, hid, in_dim, t = prepared["dims"][:7]
@@ -501,13 +505,11 @@ def decode_all_bound_ms(prepared, outputs, peak_flops=PEAK_FP32_FLOPS):
 def decode_all_bwd_bound_ms(prepared, inputs, outputs):
     """K3's bound: the inputs (K2's, its outputs and hc, the cotangents)
     read once, the per-(generator, row) grads and the weight grads written
-    once; per (row, generator, step) the gate recompute, dgates @ [Wemb;
-    Whh]^T and the weight-grad outer products (three products of the gate
-    width each), and three of hidden2pos's width."""
+    once; ``reverse_sweep_flops`` for every (row, generator) at the f32
+    peak."""
     n, _, g, h, hid, in_dim, t = prepared["dims"][:7]
-    per = 3 * 2 * (in_dim + h) * 4 * h + 3 * 2 * h * hid + 2 * 2 * hid * 2
-    return roofline_ms(g * n * t * per,
-                    nbytes_of(*prepared["tensors"], *inputs, *outputs))
+    return roofline_ms(reverse_sweep_flops(g * n, t, h, hid, in_dim),
+                       nbytes_of(*prepared["tensors"], *inputs, *outputs))
 
 
 def phase_kernels():
@@ -1869,7 +1871,7 @@ def phase_bf16_kernels():
                       "f32_kernel_vs_bf16_plain_max_abs": wrong, "ms": ms,
                       "f32_kernel_ms": ms32, "plain_ms": plain_ms,
                       "smem_bytes": nbytes_of(prepared["tensors"][0]),
-                      **bounds(decode_select_bound_ms(prepared, PEAK_BF16_FLOPS),
+                      **bounds(decode_select_bound_ms(prepared, H100_BF16_FLOPS),
                                decode_select_bound_ms(prepared))}
         r = sel[label]
         print(f"decode_select_bf16[{label}] N={n}: max_abs_err={err:.3e} (atol {BF16_ATOL:g}, "
@@ -1908,7 +1910,7 @@ def phase_bf16_kernels():
                             "f32_kernel_vs_bf16_plain_max_abs": wrong_all, "ms": ms_all,
                             "f32_kernel_ms": ms_all32, "plain_ms": plain_all,
                             "k1_equals_k2_on_selected_rows": identical,
-                            **bounds(decode_all_bound_ms(kprep, out, PEAK_BF16_FLOPS),
+                            **bounds(decode_all_bound_ms(kprep, out, H100_BF16_FLOPS),
                                      decode_all_bound_ms(kprep, out))}
             r = every[label]
             print(f"decode_all_fwd_bf16[{label}] N={n} x G=4: max_abs_err={err_all:.3e} "
@@ -2885,7 +2887,7 @@ def phase_bench_sampling(reps=3):
     return out
 
 
-def sorted_tiles_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
+def sorted_tiles_bound_ms(prepared, peak_flops=None):
     """K4's kernel (B2, or K4-bf16 alone): the buffer rows, tile generators
     and weights (K4-bf16's fragment image) read once, ``(n_buf, 2, T, 2)``
     written once; per buffer row K1's products and socb's."""
@@ -2897,7 +2899,7 @@ def sorted_tiles_bound_ms(prepared, peak_flops=PEAK_FP32_FLOPS):
     return roofline_ms(flops, nbytes_of(*tensors) + n_buf * 4 * t * 4, peak_flops)
 
 
-def sorted_route_bound_ms(args, compute_dtype=None, peak_flops=PEAK_FP32_FLOPS):
+def sorted_route_bound_ms(args, compute_dtype=None, peak_flops=None):
     """K4's route as a function: each row's h0, social features, xy, dxdy
     and generator and the weights read once, abs and rel written once; per
     row K1's products and socb's."""
@@ -2989,7 +2991,7 @@ def phase_ablation_kernels():
              "act_lin": lambda: kab.decode_select_act_reference(*args[:7], "lin")}
     plain_out = {k: f() for k, f in plain.items()}
     plain_ms = {k: cuda_time_ms(f, 4, warmup=1) for k, f in plain.items()}
-    b32, b16 = decode_select_bound_ms(p32), decode_select_bound_ms(p16, PEAK_BF16_FLOPS)
+    b32, b16 = decode_select_bound_ms(p32), decode_select_bound_ms(p16, H100_BF16_FLOPS)
     out = {}
 
     def record(name, call, want_key, atol, bound, equal_to=None, mean_atol=None, **extra):
@@ -3046,7 +3048,7 @@ def phase_ablation_kernels():
         plain_out[name] = want
         plain_ms[name] = cuda_time_ms(
             lambda cd=cd: ks.decode_select_sorted_reference(*args, compute_dtype=cd), 4, warmup=1)
-        bound = (sorted_route_bound_ms(args, cd, PEAK_BF16_FLOPS) if cd
+        bound = (sorted_route_bound_ms(args, cd, H100_BF16_FLOPS) if cd
                  else sorted_route_bound_ms(args))
         extra = ({"bound_ms_fp32_fma": sorted_route_bound_ms(args, cd)[0],
                   "mean_atol": BF16_MEAN_ATOL} if cd else {})
@@ -3119,7 +3121,7 @@ def phase_bf16_backward():
     g_abs = torch.randn(out16[0].shape, generator=cot, device="cuda")
     g_rel = torch.randn(out16[1].shape, generator=cot, device="cuda")
     after = kda.KERNEL_BWD_AFTER_BF16
-    got = kda.decode_all_bwd(*inputs, *out16, g_abs, g_rel, 12, "rel", after)
+    got = kda.decode_all_bwd(*inputs, *out16, g_abs, g_rel, 12, "rel", after_bf16=True)
     wrong = kda.decode_all_bwd(*inputs, *out32, g_abs, g_rel, 12, "rel")
     torch.cuda.synchronize()
     want = kda.decode_all_bwd_reference(*inputs, *plain16, g_abs, g_rel, 12, "rel")
@@ -3286,11 +3288,11 @@ def phase_ablation_path(reps=5):
                                             for a, b in zip(k1, want))
         del got, want
     bounds = {"kernel_select": decode_select_bound_ms(p32),
-              "kernel_select_bf16": decode_select_bound_ms(p16, PEAK_BF16_FLOPS),
+              "kernel_select_bf16": decode_select_bound_ms(p16, H100_BF16_FLOPS),
               "kernel_only": sorted_tiles_bound_ms(tiles),
-              "kernel_only_bf16": sorted_tiles_bound_ms(tiles16, PEAK_BF16_FLOPS),
+              "kernel_only_bf16": sorted_tiles_bound_ms(tiles16, H100_BF16_FLOPS),
               "route": sorted_route_bound_ms(args),
-              "route_bf16": sorted_route_bound_ms(args, torch.bfloat16, PEAK_BF16_FLOPS)}
+              "route_bf16": sorted_route_bound_ms(args, torch.bfloat16, H100_BF16_FLOPS)}
     bounds = {k: {"bound_ms": v[0], "bound_by": v[1]} for k, v in bounds.items()}
     share = {act: 1.0 - dec_ms[f"kernel_{act}"] / dec_ms["kernel_select"]
              for act in ("lin", "bf16")}
@@ -3464,7 +3466,7 @@ def phase_redesigned():
         old_ms, new_ms = alternate_ms(lambda: kdec.launch_decode_select_bf16_warp(p16),
                                       lambda: kdec.launch_decode_select(p16), reps)
         n = p16["dims"][0]
-        b16, b32 = decode_select_bound_ms(p16, PEAK_BF16_FLOPS), decode_select_bound_ms(p16)
+        b16, b32 = decode_select_bound_ms(p16, H100_BF16_FLOPS), decode_select_bound_ms(p16)
         sel["shapes"][label] = {"n_rows": n, "max_abs_err": mx, "mean_abs_err": mean,
                                 "f32_kernel_max_abs": mx32, "f32_kernel_mean_abs": mean32,
                                 "vs_warp_baseline_max_abs": vs_warp, "ms": new_ms,
@@ -3933,7 +3935,7 @@ def redesigned_k2_bf16(gen):
                                    "decode_all_fwd_mma_kernel")
         dev_old = kernel_device_ms(lambda: kda.launch_fwd_warp(kp, save_hc),
                                    "decode_all_fwd_kernel<__nv_bfloat16>")
-        b16 = decode_all_bound_ms(kp, got if save_hc else got[:2], PEAK_BF16_FLOPS)
+        b16 = decode_all_bound_ms(kp, got if save_hc else got[:2], H100_BF16_FLOPS)
         b32 = decode_all_bound_ms(kp, got if save_hc else got[:2])
         variant, per_gen = kda.mma_launch(n, 4, sms)
         res["shapes"][label] = {
@@ -4286,7 +4288,7 @@ def redesigned_ablation_bf16():
                                   "decode_select_mma_kernel")
         plain_ms = cuda_time_ms(lambda: kdec.decode_select_reference(
             *args, compute_dtype=bf16), 2, warmup=1)
-        b16, b32 = decode_select_bound_ms(p16, PEAK_BF16_FLOPS), decode_select_bound_ms(p16)
+        b16, b32 = decode_select_bound_ms(p16, H100_BF16_FLOPS), decode_select_bound_ms(p16)
         variant, tile = kdec.mma_ilp_launch(n, sms)
         per_sm = kdec.MMA_ILP_BLOCKS_PER_SM[variant]
         k5["shapes"][n] = {
@@ -4340,7 +4342,7 @@ def redesigned_ablation_bf16():
         dev_old = kernel_device_ms(kept, "decode_sorted_kernel<__nv_bfloat16>")
         plain_ms = cuda_time_ms(lambda: ks.sorted_tiles_reference(
             tile_gen, ks.TILE, packed, rows, 32, 32, 12, "rel", bf16), 2, warmup=1)
-        b16, b32 = sorted_tiles_bound_ms(pt, PEAK_BF16_FLOPS), sorted_tiles_bound_ms(pt)
+        b16, b32 = sorted_tiles_bound_ms(pt, H100_BF16_FLOPS), sorted_tiles_bound_ms(pt)
         k4["shapes"][n] = {
             "n_rows": n, "n_buf": pt["dims"][0], "max_abs_err": mx, "mean_abs_err": mean,
             "warp_baseline_max_abs_err": mx_kept, "warp_baseline_mean_abs_err": mean_kept,
@@ -5259,6 +5261,84 @@ def phase_data_parallel(tmp, root, single_p50_ms):
             "gp_cli": gp_cli, "row_slices": slices, "seconds": secs}, launches
 
 
+# Phase 20: the roofline. The flagship step's FLOP count on the CPU is
+# taken under FakeTensorMode: the CPU route's operators on fake tensors,
+# which carry shapes and no data, and a count reads shapes alone.
+OPERATORS = ("mggan.decode_select", "mggan.decode_all_fwd", "mggan.decode_all_bwd")
+# PERF.md section 6's bounds at the kernel phases' shapes
+PERF_BOUNDS = {("decode_select", "serving"): "0.0359", ("decode_select", "bench"): "2.299",
+               ("decode_all_fwd", "pm"): "0.0287", ("decode_all_fwd hc", "g"): "0.5747",
+               ("decode_all_bwd", "pm"): "0.0860", ("decode_all_bwd", "g"): "1.7203",
+               ("decode_select_bf16", "eval"): "0.00116"}
+
+
+def phase_roofline(train_p50_ms, kern, fwd, bwd, sel16):
+    """Phase 20: the flagship step's ``FlopCounterMode`` count
+    (``ops/kernels/library.py::count_flops``) at the flagship batch on the
+    card and on the CPU's route under FakeTensorMode, which must be the same
+    integer, its split and its share of the f32 peak at phase 5's p50; the
+    kernel phases' bounds against PERF.md's."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.models.factory import construct_gan
+    from mggan_tpu_torch.ops.kernels.library import count_flops
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step, make_draws
+
+    t0 = time.perf_counter()
+    tcfg = flagship_config(num_samples=NUM, num_expectation_samples=1)
+    batch = train_batch(TRAIN_SCENES, SEED)
+    draws = make_draws(torch.Generator().manual_seed(SEED), tcfg, TRAIN_SCENES, PEDS)
+    counts, secs = {}, {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        g, d = construct_gan(tcfg, seed=SEED, device=dev)
+        state = init_train_state(tcfg, g, d, seed=SEED)
+        step = build_train_step(tcfg, g[2], d[2])
+        t1 = time.perf_counter()
+        if dev == "cuda":
+            counts[where] = count_flops(step, state, batch, draws)
+        else:
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                counts[where] = count_flops(step, state, batch, draws)
+        secs[where] = time.perf_counter() - t1
+    (total, by_op), (cpu_total, cpu_by_op) = counts["card"], counts["cpu"]
+    kernels = {op: n for op, n in by_op.items() if op.startswith("mggan.")}
+    aten = total - sum(kernels.values())
+    share = total / (train_p50_ms / 1e3) / H100_FP32_FLOPS
+    print(f"roofline: flagship train step {TRAIN_SCENES} x {PEDS}, K={NUM}: {total} FLOP on "
+          f"the card, {cpu_total} on the CPU's route under FakeTensorMode (counted in "
+          f"{secs['card']:.1f} / {secs['cpu']:.1f} s); aten {aten}, "
+          + ", ".join(f"{k} {v}" for k, v in sorted(kernels.items())))
+    print(f"roofline: {total / 1e9:.3f} GFLOP over phase 5's p50 {train_p50_ms:.3f} ms = "
+          f"{total / (train_p50_ms / 1e3) / 1e12:.3f} TFLOP/s, {100 * share:.3f}% of the "
+          f"H100's f32 peak (a record)")
+    differ = {k: (by_op.get(k), cpu_by_op.get(k)) for k in set(by_op) | set(cpu_by_op)
+              if by_op.get(k) != cpu_by_op.get(k)}
+    check(total == cpu_total and not differ,
+          f"roofline: the card counts {total}, the CPU {cpu_total}: {differ}")
+    check(set(kernels) == set(OPERATORS), f"roofline: operators counted {sorted(kernels)}")
+    readings = {("decode_select", "serving"): kern["serving"]["bound_ms"],
+                ("decode_select", "bench"): kern["bench"]["bound_ms"],
+                ("decode_all_fwd", "pm"): fwd["pm"]["bound_ms"],
+                ("decode_all_fwd hc", "g"): fwd["g"]["bound_ms_save_hc"],
+                ("decode_all_bwd", "pm"): bwd["pm"]["bound_ms"],
+                ("decode_all_bwd", "g"): bwd["g"]["bound_ms"],
+                ("decode_select_bf16", "eval"): sel16["eval"]["bound_ms"]}
+    bounds = {}
+    for key, want in PERF_BOUNDS.items():
+        got = f"{readings[key]:.{len(want.split('.')[1])}f}"
+        bounds[" ".join(key)] = got
+        check(got == want, f"roofline: {key} bound {readings[key]} ms, PERF.md {want}")
+    print(f"roofline: the kernel phases' bounds (ms) are PERF.md's: {json.dumps(bounds)}")
+    out = {"flops": total, "cpu_flops": cpu_total, "aten": aten, "by_operator": kernels,
+           "f32_peak_share": share, "count_seconds": secs, "bounds_ms": bounds,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 20 (roofline): {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entries(kern, fwd, bwd, sel16, all16, paths, redesigned):
     """The kernels line: one entry per ported kernel with its launches on
     each main path (``paths``: path -> launch counts) and the numbers
@@ -5403,6 +5483,7 @@ def main():
         surface = phase_surface(Path(tmp), real_handles["root"], train["p50_ms"])
         data_parallel, dp_launches = phase_data_parallel(tmp, real_handles["root"],
                                                          train["p50_ms"])
+    roofline = phase_roofline(train["p50_ms"], kern, fwd, bwd, sel16)
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "mggan_tpu."))
               or m == "mggan_tpu"]
     if loaded:
@@ -5449,6 +5530,7 @@ def main():
         "deployment": {k: v for k, v in deployment.items() if k != "launches"},
         "surface": {k: v for k, v in surface.items() if k != "launches"},
         "data_parallel": data_parallel,
+        "roofline": roofline,
         "total_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": entries}))

@@ -1,8 +1,10 @@
 """Shared model components: trajectory encoder + relative decoder.
 
-Counterpart of ``mggan_tpu/models/common.py``. The decoder here is the plain
-PyTorch rollout: it is the CPU path of the fused-selection kernel and the
-reference the kernel is held against (``ops/kernels/decoder.py``).
+Counterpart of ``mggan_tpu/models/common.py``. The decoder here is JAX's
+XLA scan in plain PyTorch, in f32 or with JAX's bf16 rounding
+(``compute_dtype``): the reference the kernels and their plain versions
+(``ops/kernels/``) are held against. No entry point runs it; the port
+always decodes through the kernels.
 """
 
 from __future__ import annotations
@@ -71,16 +73,36 @@ def _decoder_input(xy, dxdy, inp_format):
     return torch.cat([xy, dxdy], dim=-1)
 
 
+# LeakyReLU's slope as a value of each dtype (JAX casts the scalar to the
+# array's dtype)
+_SLOPES = {dt: torch.tensor(0.01, dtype=dt).item()
+           for dt in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+def _leaky_relu(x):
+    """``jax.nn.leaky_relu(x, 0.01)``: the slope in ``x``'s dtype."""
+    return torch.where(x >= 0, x, x * _SLOPES.get(x.dtype, 0.01))
+
+
 def relative_decoder_apply(params, last_xy, last_dxdy, social_feats, h0,
-                           pred_len: int, inp_format: str):
-    """12-step autoregressive rollout of one generator.
+                           pred_len: int, inp_format: str, compute_dtype=None):
+    """12-step autoregressive rollout of one generator: JAX's ``lax.scan``
+    (``mggan_tpu/models/common.py::relative_decoder_apply``) step by step.
 
     last_xy/last_dxdy (N, 2), social_feats (N, F), h0 (N, H); c0 = 0.
-    Returns (abs, rel), each (N, pred_len, 2).
+    Returns (abs, rel), each (N, pred_len, 2), float32.
 
     As in JAX, the spatial embedding is folded into the gate matmul
     (``[te, h] @ [[We @ W_ih], [W_hh]] + (be @ W_ih + b_ih + b_hh)``) and the
     social contribution to hidden2pos is hoisted out of the loop.
+
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) rounds as JAX's scan does:
+    the folded gate weights, ``W1h``, the social term, h0, c0 and the output
+    layer are cast to it; the gates are the product in that dtype cast to
+    float32 plus the f32 bias; c and h go back to h's dtype each step; the
+    LeakyReLU and the output layer run in it; the position integrates in
+    float32. This is not the kernels' bf16 numerics, which round only the
+    products' operands.
     """
     emb, lstm, h2p = params["spatial_embedding"], params["lstm"], params["hidden2pos"]
     w_comb = torch.cat([emb["w"] @ lstm["w_ih"], lstm["w_hh"]], dim=0)
@@ -91,16 +113,24 @@ def relative_decoder_apply(params, last_xy, last_dxdy, social_feats, h0,
     soc_contrib = social_feats @ w1_soc + h2p["lin0"]["b"]
 
     h, c = h0, torch.zeros_like(h0)
+    lin1 = h2p["lin1"]
+    cd = compute_dtype
+    if cd is not None:
+        w_comb, w1_h, soc_contrib = w_comb.to(cd), w1_h.to(cd), soc_contrib.to(cd)
+        h, c = h.to(cd), c.to(cd)
+        lin1 = {"w": lin1["w"].to(cd), "b": lin1["b"].to(cd)}
     xy, dxdy = last_xy, last_dxdy
     abs_seq, rel_seq = [], []
     for _ in range(pred_len):
         te = _decoder_input(xy, dxdy, inp_format)
-        gates = torch.cat([te, h], dim=-1) @ w_comb + b_comb
+        if cd is not None:
+            te = te.to(cd)
+        gates = (torch.cat([te, h], dim=-1) @ w_comb).float() + b_comb
         i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        hid = torch.nn.functional.leaky_relu(h @ w1_h + soc_contrib, 0.01)
-        dxdy = linear_apply(h2p["lin1"], hid)
+        c = (torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)).to(h.dtype)
+        h = (torch.sigmoid(o) * torch.tanh(c.float())).to(h.dtype)
+        hid = _leaky_relu(h @ w1_h + soc_contrib)
+        dxdy = linear_apply(lin1, hid).float()
         xy = xy + dxdy
         abs_seq.append(xy)
         rel_seq.append(dxdy)
@@ -131,15 +161,16 @@ def unstack_tree(tree, i):
 
 
 def stacked_decoders_apply(stacked, last_xy, last_dxdy, social_feats, h0,
-                           pred_len: int, inp_format: str):
-    """Every generator's rollout on the same inputs (JAX: vmap over G).
+                           pred_len: int, inp_format: str, compute_dtype=None):
+    """Every generator's rollout on the same inputs (JAX: vmap over G), in
+    ``compute_dtype`` as ``relative_decoder_apply``.
 
     Returns (abs, rel), each (G, N, pred_len, 2).
     """
     num_gens = stacked["lstm"]["w_hh"].shape[0]
     outs = [
         relative_decoder_apply(unstack_tree(stacked, g), last_xy, last_dxdy,
-                               social_feats, h0, pred_len, inp_format)
+                               social_feats, h0, pred_len, inp_format, compute_dtype)
         for g in range(num_gens)
     ]
     return torch.stack([a for a, _ in outs]), torch.stack([r for _, r in outs])

@@ -19,7 +19,9 @@ On CUDA tensors the forward launches K2 and the backward K3
 versions ``decode_all_reference`` and ``decode_all_bwd_reference``. There
 is no other route. The forward goes through the operator
 ``mggan::decode_all_fwd`` (``library.py``), with or without (h, c), so a
-``torch.export`` trace holds one node for it. Without a gradient to take,
+``torch.export`` trace holds one node for it, and the backward through
+``mggan::decode_all_bwd``, so a FLOP count reads the same work on both
+devices. Without a gradient to take,
 ``decode_all`` runs the forward alone, without saving (h, c). K2 in f32 is the tiled kernel: a
 block per (generator, slice of rows), R rows of one generator a warp (R
 and the blocks from ``fwd_launch``), bit-identical to the warp-per-row K2,
@@ -419,6 +421,26 @@ def weight_grads_from_image(dw, h: int, hid: int, in_dim: int):
     )
 
 
+def weight_image(d_w_emb, d_w_hh, d_b, d_w1h, d_w2, d_b2):
+    """The inverse of ``weight_grads_from_image``: the six weight grads ->
+    K3's grad image ``(G, P)``."""
+    g, h = d_w_hh.shape[0], d_w_hh.shape[1]
+    in_dim, hid = d_w_emb.shape[1], d_w1h.shape[2]
+    return torch.cat([
+        d_w_hh.reshape(g, h, 4, h).permute(0, 3, 1, 2).reshape(g, -1),
+        d_w_emb.reshape(g, in_dim, 4, h).permute(0, 1, 3, 2).reshape(g, -1),
+        d_b.reshape(g, 4, h).permute(0, 2, 1).reshape(g, -1),
+        d_w1h.transpose(1, 2).reshape(g, -1),
+        d_w2.reshape(g, -1),
+        d_b2,
+    ], dim=1)
+
+
+def grad_image_floats(h: int, hid: int, in_dim: int) -> int:
+    """The width ``P`` of K3's per-generator grad image."""
+    return h * h * 4 + in_dim * h * 4 + h * 4 + hid * h + hid * 2 + 2
+
+
 # ------------------------------------------------------------------ routes --
 def decode_all_fwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
                    pred_len: int, inp_format: str, save_hc: bool,
@@ -438,32 +460,40 @@ def decode_all_fwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
 
 def decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy,
                    out_abs, out_rel, hc, g_abs, g_rel, pred_len: int,
-                   inp_format: str, count_as=KERNEL_BWD):
-    """K3 on CUDA tensors (counted under ``count_as``), its plain version on
-    CPU tensors; returns the grads of ``DecodeAll``'s tensor inputs. The
-    residuals may come from either forward; the sweep is f32."""
-    inputs = (w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy, last_dxdy)
-    if h0.device.type == "cpu":
-        return decode_all_bwd_reference(*inputs, out_abs, out_rel, hc, g_abs,
-                                        g_rel, pred_len, inp_format)
-    if h0.device.type != "cuda":
+                   inp_format: str, after_bf16: bool = False):
+    """K3 on CUDA tensors (counted as ``decode_all_bwd``, or with
+    ``after_bf16`` as ``decode_all_bwd_after_bf16``), its plain version on
+    CPU tensors, through the operator ``mggan::decode_all_bwd``
+    (``library.py``); any other device raises. Returns the grads of
+    ``DecodeAll``'s tensor inputs, the weights' read from the operator's
+    grad image. The residuals may come from either forward; the sweep is
+    f32."""
+    from mggan_tpu_torch.ops.kernels import library
+
+    if h0.device.type not in ("cuda", "cpu"):
         raise ValueError(f"decode_all: unsupported device {h0.device}")
-    args = prepare(*(x.contiguous() for x in inputs), pred_len, inp_format)
-    raw = launch_bwd(args, out_abs, out_rel, hc, g_abs.contiguous(), g_rel.contiguous(),
-                     count_as)
-    return grads_from_raw(raw, last_xy.shape[0])
+    dw, *rows = library.decode_all_bwd(w_emb, w_hh, b, w1h, w2, b2, socb, h0, last_xy,
+                                       last_dxdy, out_abs, out_rel, hc, g_abs, g_rel, pred_len,
+                                       inp_format, after_bf16)
+    return (*weight_grads_from_image(dw, w_hh.shape[1], w1h.shape[2], w_emb.shape[1]), *rows)
+
+
+def reduce_raw(raw, m: int):
+    """K3's raw outputs (``launch_bwd``) -> ``(grad image, d_socb, d_h0,
+    d_last_xy, d_last_dxdy)``, the per-row grads summed over generators and
+    over the copies of the ``m``-row inputs."""
+    d_h0, d_xy0, d_dxdy0, d_socb, dw = raw
+    return (dw, _untile(d_socb, m), d_h0.sum(0), _untile(d_xy0.sum(0), m),
+            _untile(d_dxdy0.sum(0), m))
 
 
 def grads_from_raw(raw, m: int):
-    """K3's raw outputs (``launch_bwd``) -> the grads of ``DecodeAll``'s
-    tensor inputs, the per-row ones summed over generators and over the
-    copies of the ``m``-row inputs."""
-    d_h0, d_xy0, d_dxdy0, d_socb, dw = raw
-    g, _, h = d_h0.shape
-    hid = d_socb.shape[2]
-    in_dim = (dw.shape[1] - (h * h * 4 + h * 4 + hid * h + hid * 2 + 2)) // (h * 4)
-    return (*weight_grads_from_image(dw, h, hid, in_dim), _untile(d_socb, m),
-            d_h0.sum(0), _untile(d_xy0.sum(0), m), _untile(d_dxdy0.sum(0), m))
+    """K3's raw outputs -> the grads of ``DecodeAll``'s tensor inputs."""
+    d_h0, _, _, d_socb, dw = raw
+    h, hid = d_h0.shape[2], d_socb.shape[2]
+    in_dim = (dw.shape[1] - grad_image_floats(h, hid, 0)) // (h * 4)
+    dw, *rows = reduce_raw(raw, m)
+    return (*weight_grads_from_image(dw, h, hid, in_dim), *rows)
 
 
 class DecodeAll(torch.autograd.Function):
@@ -478,13 +508,13 @@ class DecodeAll(torch.autograd.Function):
                                               save_hc=True, compute_dtype=compute_dtype)
         ctx.save_for_backward(*inputs, out_abs, out_rel, hc)
         ctx.pred_len, ctx.inp_format = pred_len, inp_format
-        ctx.count_as = KERNEL_BWD_AFTER_BF16 if kdec.is_bf16(compute_dtype) else KERNEL_BWD
+        ctx.after_bf16 = kdec.is_bf16(compute_dtype)
         return out_abs, out_rel
 
     @staticmethod
     def backward(ctx, g_abs, g_rel):
         grads = decode_all_bwd(*ctx.saved_tensors, g_abs, g_rel, ctx.pred_len,
-                               ctx.inp_format, ctx.count_as)
+                               ctx.inp_format, ctx.after_bf16)
         return (*grads, None, None, None)
 
 

@@ -444,7 +444,7 @@ def test_bf16_grads_match_plain_sweep(cuda, inp_format):
     g_abs, g_rel = torch.randn_like(out_abs), torch.randn_like(out_rel)
     saved = (*inputs, out_abs, out_rel, hc, g_abs, g_rel)
     before = dict(kernels.launches)
-    got = kda.decode_all_bwd(*saved, T, inp_format, kda.KERNEL_BWD_AFTER_BF16)
+    got = kda.decode_all_bwd(*saved, T, inp_format, after_bf16=True)
     torch.cuda.synchronize()
     assert kernels.launches[kda.KERNEL_BWD_AFTER_BF16] == \
         before.get(kda.KERNEL_BWD_AFTER_BF16, 0) + 1
@@ -982,3 +982,43 @@ def test_dp_step_on_two_ranks_matches_one_card(cuda, tmp_path):
         worst = max(float(np.abs(flat[p] - w.cpu().numpy()).max())
                     for p, w in tree_items(getattr(want, name)))
         assert worst < 2e-3, (name, worst)
+
+
+def _flagship_step_case(scenes=4, peds=3):
+    """The flagship-family step (mgan / ml, 2 generators, h = 16) on the
+    CPU's packs, a batch and its draws."""
+    from mggan_tpu_torch.config import Config
+    from mggan_tpu_torch.models.factory import construct_gan
+    from mggan_tpu_torch.training.steps import make_draws
+
+    cfg = Config(dataset="synthetic_memory", num_gens=2, h_dim=16, decoder_h_dim=16,
+                 num_samples=4)
+    g_pack, d_pack = construct_gan(cfg, seed=3, device="cpu")
+    rng = np.random.RandomState(7)
+    xy = rng.randn(scenes, peds, 20, 2).astype(np.float32).cumsum(axis=2)
+    batch = {"xy": xy, "ped_mask": np.ones((scenes, peds), bool),
+             "patches": rng.uniform(-1, 1, (scenes, peds, 33, 33, 4)).astype(np.float32)}
+    draws = make_draws(torch.Generator().manual_seed(5), cfg, scenes, peds, g_pack[0],
+                       d_pack[0])
+    return cfg, g_pack, d_pack, batch, draws
+
+
+@pytest.mark.cuda
+def test_train_step_flop_count_equals_the_cpu_count(cuda):
+    """The step's ``FlopCounterMode`` count on the card (K1, K2, K3 run)
+    equals the CPU's (their plain versions run), as the same integer, with
+    each operator counted by its formula."""
+    from mggan_tpu_torch.ops.kernels.library import count_flops
+    from mggan_tpu_torch.training.state import init_train_state
+    from mggan_tpu_torch.training.steps import build_train_step
+
+    counts = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, g_pack, d_pack, batch, draws = _flagship_step_case()
+        g = (_on(g_pack[0], dev), _on(g_pack[1], dev), g_pack[2])
+        d = (_on(d_pack[0], dev), _on(d_pack[1], dev), d_pack[2])
+        counts[dev.type] = count_flops(build_train_step(cfg, g[2], d[2]),
+                                       init_train_state(cfg, g, d), batch, draws)
+    assert counts["cuda"] == counts["cpu"]
+    assert {op for op in counts["cuda"][1] if op.startswith("mggan.")} == {
+        "mggan.decode_select", "mggan.decode_all_fwd", "mggan.decode_all_bwd"}

@@ -191,7 +191,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          'cli.convert', 'models.torch_export', 'cli.sweep', 'viz',\n"
         "          'models.social_gan_legacy', 'utils.profiling', 'data.elastic',\n"
         "          'parallel.pod', 'parallel.mesh', 'parallel.dp', 'parallel.reduce',\n"
-        "          'ops.kernels.library'):\n"
+        "          'ops.kernels.library', 'utils.roofline'):\n"
         "    assert 'mggan_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('mggan_tpu_torch') for m in sys.modules))\n"
     )
