@@ -56,6 +56,7 @@ from mggan_tpu_torch.models.factory import tree_to
 from mggan_tpu_torch.ops import sampling
 from mggan_tpu_torch.parallel import dp
 from mggan_tpu_torch.training.steps import batch_views
+from mggan_tpu_torch.utils.profiling import span
 
 STRATEGIES = (
     "uniform_expected",
@@ -165,16 +166,17 @@ class Predictor:
 
     # ------------------------------------------------------------- helpers
     def _inputs(self, batch, draws):
-        draws = {} if draws is None else {k: _as_tensor(v, self.device)
-                                          for k, v in draws.items()}
-        batch = {k: _as_tensor(v, self.device) for k, v in batch.items()
-                 if v is not None}
-        if self.grid is not None:
-            if not draws:
-                raise ValueError("a sharded predictor takes the global batch's draws")
-            draws = dp.own_rows(self.grid, draws, batch["ped_mask"].shape[0],
-                                DRAW_SCENE_AXIS)
-        return batch_views(batch), draws
+        with span("mggan.inputs"):
+            draws = {} if draws is None else {k: _as_tensor(v, self.device)
+                                              for k, v in draws.items()}
+            batch = {k: _as_tensor(v, self.device) for k, v in batch.items()
+                     if v is not None}
+            if self.grid is not None:
+                if not draws:
+                    raise ValueError("a sharded predictor takes the global batch's draws")
+                draws = dp.own_rows(self.grid, draws, batch["ped_mask"].shape[0],
+                                    DRAW_SCENE_AXIS)
+            return batch_views(batch), draws
 
     def _encode(self, bv):
         enc_h, social_feats, _ = G_mod.encode(
@@ -250,16 +252,22 @@ class Predictor:
         """
         if generator is None and draws is None:
             raise ValueError("predict needs a torch.Generator or injected draws")
-        bv, draws = self._inputs(batch, draws)
-        enc_h, social_feats, logits = self._encode(bv)
-        gen_idxs = sampling.categorical(logits, num, generator=generator,
-                                        uniforms=draws.get("uniforms"))
-        noise = self._noise(bv, num, generator, draws.get("z"))
-        out = G_mod.decode_select(
-            self.g_params, self.g_spec, bv.in_xy[:, :, -1], bv.in_dxdy[:, :, -1],
-            enc_h, social_feats, noise, gen_idxs, self.compute_dtype,
-        )
-        return out.abs, out.rel, torch.softmax(logits, -1), gen_idxs
+        with span("mggan.predict"):
+            bv, draws = self._inputs(batch, draws)
+            enc_h, social_feats, logits = self._encode(bv)
+            with span("mggan.pm"):
+                gen_idxs = sampling.categorical(logits, num, generator=generator,
+                                                uniforms=draws.get("uniforms"))
+            with span("mggan.decoder_h0"):  # the decoder's start: noise, last step
+                noise = self._noise(bv, num, generator, draws.get("z"))
+                last_xy, last_dxdy = bv.in_xy[:, :, -1], bv.in_dxdy[:, :, -1]
+            out = G_mod.decode_select(
+                self.g_params, self.g_spec, last_xy, last_dxdy,
+                enc_h, social_feats, noise, gen_idxs, self.compute_dtype,
+            )
+            with span("mggan.pm"):
+                probs = torch.softmax(logits, -1)
+            return out.abs, out.rel, probs, gen_idxs
 
     @torch.inference_mode()
     def predict_expected(self, batch, generator=None, num=20, draws=None):

@@ -45,6 +45,7 @@ from mggan_tpu_torch.ops.kernels import decode_all as decode_all_kernel
 from mggan_tpu_torch.ops.kernels import decoder as decoder_kernel
 from mggan_tpu_torch.ops.linear import linear_init, mlp_apply, mlp_init
 from mggan_tpu_torch.parallel import reduce
+from mggan_tpu_torch.utils.profiling import span
 from mggan_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -131,42 +132,46 @@ def encode(params, state, spec: GeneratorSpec, in_xy, in_dxdy, ped_mask,
 
     Returns ``(enc_h (S, P, E_total), social_feats (S, P, F), new_state)``.
     """
-    enc_h = common.trajectory_encoder_apply(
-        params["encoder"], common.get_input(in_xy, in_dxdy, spec.inp_format)
-    )
+    with span("mggan.traj_encoder"):
+        enc_h = common.trajectory_encoder_apply(
+            params["encoder"], common.get_input(in_xy, in_dxdy, spec.inp_format)
+        )
     feats = [enc_h]
     new_state = dict(state)
     if spec.scene_dim > 0 and patches is not None:
-        s, p = patches.shape[:2]
-        flat = patches.reshape((s * p,) + tuple(patches.shape[2:]))
-        if train:
-            scene_enc, new_state["scene"] = scene_cnn_apply_train(
-                params["scene"], state["scene"], flat, mask=ped_mask.reshape(s * p))
+        with span("mggan.scene_cnn"):
+            s, p = patches.shape[:2]
+            flat = patches.reshape((s * p,) + tuple(patches.shape[2:]))
+            if train:
+                scene_enc, new_state["scene"] = scene_cnn_apply_train(
+                    params["scene"], state["scene"], flat, mask=ped_mask.reshape(s * p))
+            else:
+                scene_enc = scene_cnn_apply(params["scene"], state["scene"], flat,
+                                            compute_dtype)
+            feats.append(scene_enc.reshape(s, p, -1))
+    with span("mggan.social"):
+        if spec.social_feat_size > 0 and spec.pool_type == "sways":
+            social_feats = social_ops.social_attention_apply(
+                params["social"], in_xy[..., -1, :], in_dxdy[..., -1, :], enc_h,
+                ped_mask,
+            )
+            feats.append(social_feats)
+        elif spec.social_feat_size > 0:
+            social_feats = social_ops.pool_hidden_net_apply(
+                params["social"], in_xy[..., -1, :], enc_h, ped_mask)
+            feats.append(social_feats)
         else:
-            scene_enc = scene_cnn_apply(params["scene"], state["scene"], flat,
-                                        compute_dtype)
-        feats.append(scene_enc.reshape(s, p, -1))
-    if spec.social_feat_size > 0 and spec.pool_type == "sways":
-        social_feats = social_ops.social_attention_apply(
-            params["social"], in_xy[..., -1, :], in_dxdy[..., -1, :], enc_h,
-            ped_mask,
-        )
-        feats.append(social_feats)
-    elif spec.social_feat_size > 0:
-        social_feats = social_ops.pool_hidden_net_apply(
-            params["social"], in_xy[..., -1, :], enc_h, ped_mask)
-        feats.append(social_feats)
-    else:
-        social_feats = enc_h.new_zeros(enc_h.shape[:-1] + (0,))
+            social_feats = enc_h.new_zeros(enc_h.shape[:-1] + (0,))
     return torch.cat(feats, dim=-1), social_feats, new_state
 
 
 def pm_logits(params, spec: GeneratorSpec, enc_h):
     """PM-network logits or the (learnable) prior (standard.py:217-225)."""
-    if spec.use_pinet:
-        return mlp_apply(params["net_chooser"], enc_h, activation="relu")
-    prior = params["net_prior"][0]
-    return prior.expand(enc_h.shape[:-1] + (spec.num_gens,))
+    with span("mggan.pm"):
+        if spec.use_pinet:
+            return mlp_apply(params["net_chooser"], enc_h, activation="relu")
+        prior = params["net_prior"][0]
+        return prior.expand(enc_h.shape[:-1] + (spec.num_gens,))
 
 
 def _decoder_h0(params, enc_h, noise, onehot=None):
@@ -174,14 +179,15 @@ def _decoder_h0(params, enc_h, noise, onehot=None):
     ``(k, s, p)``-major order. For the discrete G, ``onehot`` (broadcastable
     to ``(K, S, P, G)``) is the generator identity, embedded between the two
     (``enc_to_dec([enc_h, embed(onehot), z])``, standard_discrete.py:168-223)."""
-    k = noise.shape[0]
-    enc_b = enc_h[None].expand((k,) + tuple(enc_h.shape))
-    parts = [enc_b, noise]
-    if onehot is not None:
-        emb = mlp_apply(params["one_hot_sample_encoder"], onehot)
-        parts.insert(1, emb.expand(tuple(noise.shape[:-1]) + (emb.shape[-1],)))
-    h0 = mlp_apply(params["enc_to_dec"], torch.cat(parts, dim=-1))
-    return h0.reshape(-1, h0.shape[-1])
+    with span("mggan.decoder_h0"):
+        k = noise.shape[0]
+        enc_b = enc_h[None].expand((k,) + tuple(enc_h.shape))
+        parts = [enc_b, noise]
+        if onehot is not None:
+            emb = mlp_apply(params["one_hot_sample_encoder"], onehot)
+            parts.insert(1, emb.expand(tuple(noise.shape[:-1]) + (emb.shape[-1],)))
+        h0 = mlp_apply(params["enc_to_dec"], torch.cat(parts, dim=-1))
+        return h0.reshape(-1, h0.shape[-1])
 
 
 def _one_decoder(params):
@@ -234,23 +240,23 @@ def decode_all(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
         # decoder; the per-agent inputs' rows repeat every S*P rows
         eye = torch.eye(g, dtype=enc_h.dtype, device=enc_h.device)
         h0 = torch.cat([_decoder_h0(params, enc_h, noise, eye[i]) for i in range(g)])
-        abs_g, rel_g = decode_all_kernel.decode_all(
-            _one_decoder(params), flat(last_xy), flat(last_dxdy), flat(social_feats), h0,
-            spec.pred_len, spec.inp_format, compute_dtype)
+        stacked = _one_decoder(params)
     else:
         # rows are (k, s, p)-major, the order _decoder_h0 produces
         g = _stacked_gens(params["decoders"])
-        inputs = (flat(last_xy), flat(last_dxdy), flat(social_feats),
-                  _decoder_h0(params, enc_h, noise))
+        h0 = _decoder_h0(params, enc_h, noise)
+        stacked = params["decoders"]
+    with span("mggan.rollout"):
+        inputs = (flat(last_xy), flat(last_dxdy), flat(social_feats), h0)
         if _split(spec):
             inputs = tuple(reduce.to_model(x) for x in inputs)
         abs_g, rel_g = decode_all_kernel.decode_all(
-            params["decoders"], *inputs, spec.pred_len, spec.inp_format, compute_dtype)
-    shape = (g, k, s, p, spec.pred_len, 2)
-    reshape = lambda x: x.reshape(shape).transpose(0, 1)
-    if gather and _split(spec):
-        reshape = lambda x: reduce.gather_gens(x.reshape(shape), dim=0).transpose(0, 1)
-    return GeneratorOutput(rel=reshape(rel_g), abs=reshape(abs_g))
+            stacked, *inputs, spec.pred_len, spec.inp_format, compute_dtype)
+        shape = (g, k, s, p, spec.pred_len, 2)
+        reshape = lambda x: x.reshape(shape).transpose(0, 1)
+        if gather and _split(spec):
+            reshape = lambda x: reduce.gather_gens(x.reshape(shape), dim=0).transpose(0, 1)
+        return GeneratorOutput(rel=reshape(rel_g), abs=reshape(abs_g))
 
 
 def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
@@ -278,42 +284,46 @@ def decode_select(params, spec: GeneratorSpec, last_xy, last_dxdy, enc_h,
     if not fuse_select:
         out = decode_all(params, spec, last_xy, last_dxdy, enc_h, social_feats,
                          noise, compute_dtype)
-        first = reduce.model_rank() * out.rel.shape[1] if split else 0
-        pick = lambda x: sampling.gather_samples(x, gen_idxs, first, spec.num_gens)
-        both = torch.stack([pick(out.rel), pick(out.abs)])
-        if split:
-            both = reduce.from_model(both)
-        return GeneratorOutput(rel=both[0], abs=both[1])
-    flat = lambda x: _rows(x).contiguous()
-    # rows are (k, s, p)-major, the order _decoder_h0 produces
-    idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
-    xy, dxdy, soc = flat(last_xy), flat(last_dxdy), flat(social_feats)
+        with span("mggan.rollout"):
+            first = reduce.model_rank() * out.rel.shape[1] if split else 0
+            pick = lambda x: sampling.gather_samples(x, gen_idxs, first, spec.num_gens)
+            both = torch.stack([pick(out.rel), pick(out.abs)])
+            if split:
+                both = reduce.from_model(both)
+            return GeneratorOutput(rel=both[0], abs=both[1])
     if spec.discrete:
         # each row's h0 from its sampled identity, then the one decoder
         onehot = F.one_hot(gen_idxs.permute(2, 0, 1).long(), spec.num_gens).to(enc_h.dtype)
-        h0 = _decoder_h0(params, enc_h, noise, onehot).contiguous()
-        stacked, idx = _one_decoder(params), torch.zeros_like(idx)
+        h0, stacked = _decoder_h0(params, enc_h, noise, onehot), _one_decoder(params)
     else:
-        h0 = _decoder_h0(params, enc_h, noise).contiguous()
-        stacked = params["decoders"]
-    if not split:
-        abs_sel, rel_sel = decoder_kernel.decode_select(
-            stacked, xy, dxdy, soc, h0, idx, spec.pred_len, spec.inp_format, compute_dtype)
-        return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
-                               abs=_reshape_samples(abs_sel, spec, noise))
-    # this rank's rows: those whose sampled generator it holds, each with
-    # its own per-agent inputs; a rank with none skips the launch
-    g = _stacked_gens(stacked)
-    first = reduce.model_rank() * g
-    rows = ((idx >= first) & (idx < first + g)).nonzero()[:, 0]
-    both = h0.new_zeros((2, idx.shape[0], spec.pred_len, 2))
-    if rows.numel():
-        agent = rows % xy.shape[0]
-        abs_sel, rel_sel = decoder_kernel.decode_select(
-            stacked, xy[agent].contiguous(), dxdy[agent].contiguous(),
-            soc[agent].contiguous(), h0[rows].contiguous(), (idx[rows] - first).contiguous(),
-            spec.pred_len, spec.inp_format, compute_dtype)
-        both[0, rows], both[1, rows] = rel_sel.to(both.dtype), abs_sel.to(both.dtype)
-    both = reduce.from_model(both)
-    return GeneratorOutput(rel=_reshape_samples(both[0], spec, noise),
-                           abs=_reshape_samples(both[1], spec, noise))
+        h0, stacked = _decoder_h0(params, enc_h, noise), params["decoders"]
+    with span("mggan.rollout"):
+        flat = lambda x: _rows(x).contiguous()
+        # rows are (k, s, p)-major, the order _decoder_h0 produces
+        idx = gen_idxs.permute(2, 0, 1).reshape(-1).to(torch.int32).contiguous()
+        if spec.discrete:
+            idx = torch.zeros_like(idx)
+        xy, dxdy, soc, h0 = flat(last_xy), flat(last_dxdy), flat(social_feats), h0.contiguous()
+        if not split:
+            abs_sel, rel_sel = decoder_kernel.decode_select(
+                stacked, xy, dxdy, soc, h0, idx, spec.pred_len, spec.inp_format,
+                compute_dtype)
+            return GeneratorOutput(rel=_reshape_samples(rel_sel, spec, noise),
+                                   abs=_reshape_samples(abs_sel, spec, noise))
+        # this rank's rows: those whose sampled generator it holds, each with
+        # its own per-agent inputs; a rank with none skips the launch
+        g = _stacked_gens(stacked)
+        first = reduce.model_rank() * g
+        rows = ((idx >= first) & (idx < first + g)).nonzero()[:, 0]
+        both = h0.new_zeros((2, idx.shape[0], spec.pred_len, 2))
+        if rows.numel():
+            agent = rows % xy.shape[0]
+            abs_sel, rel_sel = decoder_kernel.decode_select(
+                stacked, xy[agent].contiguous(), dxdy[agent].contiguous(),
+                soc[agent].contiguous(), h0[rows].contiguous(),
+                (idx[rows] - first).contiguous(), spec.pred_len, spec.inp_format,
+                compute_dtype)
+            both[0, rows], both[1, rows] = rel_sel.to(both.dtype), abs_sel.to(both.dtype)
+        both = reduce.from_model(both)
+        return GeneratorOutput(rel=_reshape_samples(both[0], spec, noise),
+                               abs=_reshape_samples(both[1], spec, noise))

@@ -14,7 +14,8 @@ a checkpoint every ``save_every`` epochs and the l2 weight's decay.
 behind JAX's split-step checks: the port compiles nothing to split), and
 ``profile_dir`` writes a ``torch.profiler`` trace of
 one step into that directory: the second step of the run's first epoch,
-the step the JAX loop traces.
+the step the JAX loop traces, with the wait for its batch and the batch's
+move to the device.
 
 With ``dp`` / ``gp`` / ``slices`` the Trainer is one rank of a pod
 (``parallel/``; launched by ``torch.distributed.run``): its device is the
@@ -44,6 +45,8 @@ in every ``check_accuracy`` as JAX uses ``PRNGKey(0)`` there.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -183,12 +186,25 @@ class Trainer:
                                shuffle=True, seed=cfg.seed, **common),
                 get_dataloader(cfg.dataset, "val", **common))
 
+    @contextlib.contextmanager
+    def _traced(self, on: bool):
+        """With ``on``, the block traced into ``config.profile_dir``
+        (``utils/profiling.py::trace``), ended by a synchronize."""
+        if not on:
+            yield
+            return
+        with profiling.trace(self.config.profile_dir):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
     def train_epoch(self, loader, epoch: int, profile: bool = False):
         """One epoch of train steps over ``loader`` (pinned to ``epoch``,
         through a ``Prefetcher``, augmented when ``loader.augment``);
-        ``profile`` traces the epoch's second step into
-        ``config.profile_dir`` (``utils/profiling.py::trace``, stopped after
-        a synchronize).
+        ``profile`` traces the epoch's second iteration into
+        ``config.profile_dir``, from the wait for its batch
+        (``mggan.train.feed``) through the batch's move to the device
+        (``mggan.train.device_batch``) and the step to a synchronize.
 
         Returns ``(metrics, perf)``: each step metric's per-step values (a
         float64 array per key), and ``steps``, ``agents`` (real,
@@ -205,23 +221,23 @@ class Trainer:
         n_steps = n_agents = 0
         loader.set_epoch(epoch)
         with Prefetcher(loader) as batches:
-            for i, batch in enumerate(batches):
-                n_agents += int(np.asarray(batch["ped_mask"]).sum())
-                s, p = np.shape(batch["ped_mask"])
-                aug = None
-                if loader.augment:  # the node batch's draws, this rank's rows of them
-                    flip, alpha = self.draws.aug(epoch, i, loader.batch_size)
-                    rows = dp.shard_batch(self.grid, {"flip": flip, "alpha": alpha})
-                    aug = (rows["flip"], rows["alpha"])
-                model_batch = self._device_batch(batch, train=loader.augment, aug=aug)
-                draws = self.draws.step(self.state, dp.global_rows(self.grid, s), p)
-                if profile and n_steps == 1:
-                    with profiling.trace(self.config.profile_dir):
-                        self.state, step_metrics = self.train_step(
-                            self.state, model_batch, draws)
-                        if self.device.type == "cuda":
-                            torch.cuda.synchronize(self.device)
-                else:
+            batches = iter(batches)
+            for i in itertools.count():
+                with self._traced(profile and i == 1):
+                    with profiling.span("mggan.train.feed"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    n_agents += int(np.asarray(batch["ped_mask"]).sum())
+                    s, p = np.shape(batch["ped_mask"])
+                    aug = None
+                    if loader.augment:  # the node batch's draws, this rank's rows of them
+                        flip, alpha = self.draws.aug(epoch, i, loader.batch_size)
+                        rows = dp.shard_batch(self.grid, {"flip": flip, "alpha": alpha})
+                        aug = (rows["flip"], rows["alpha"])
+                    with profiling.span("mggan.train.device_batch"):
+                        model_batch = self._device_batch(batch, train=loader.augment, aug=aug)
+                    draws = self.draws.step(self.state, dp.global_rows(self.grid, s), p)
                     self.state, step_metrics = self.train_step(self.state, model_batch, draws)
                 for k, v in step_metrics.items():
                     metrics[k].append(v)

@@ -82,6 +82,7 @@ from mggan_tpu_torch.ops import sampling
 from mggan_tpu_torch.parallel import reduce
 from mggan_tpu_torch.training.state import TrainState, optimizers, scheduled_lr
 from mggan_tpu_torch.utils import trajectory_tools
+from mggan_tpu_torch.utils.profiling import span
 from mggan_tpu_torch.utils.pytree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 
@@ -523,16 +524,19 @@ def build_train_step(config: Config, g_spec, d_spec):
         d_backup = state.d_params
         if do_d:
             for u, du in enumerate(d_units):
-                state, m = d_step(state, bv, du)
+                with span("mggan.train.d_step"):
+                    state, m = d_step(state, bv, du)
                 if u == 0:  # the unrolled D's rollback point and metrics
                     metrics.update(m)
                     d_backup = state.d_params
         else:
             metrics.update(skipped_d_metrics(state, dev))
-        state, m = g_step(state, bv, dr)
+        with span("mggan.train.g_step"):
+            state, m = g_step(state, bv, dr)
         metrics.update(m)
         if config.weighting_target != "none":
-            state, m = pm_step(state, bv, dr)
+            with span("mggan.train.pm_step"):
+                state, m = pm_step(state, bv, dr)
             metrics.update(m)
         if units > 1:  # unrolled GAN: D back to its first update (abstract_train.py:151-162)
             state = state.replace(d_params=d_backup)

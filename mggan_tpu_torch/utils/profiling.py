@@ -1,12 +1,22 @@
-"""Profiler capture (counterpart of ``mggan_tpu/utils/profiling.py``; the
-reference has none, only tqdm bars).
+"""Profiler capture and named spans (counterpart of
+``mggan_tpu/utils/profiling.py``; the reference has none, only tqdm bars).
 
 ``trace`` runs ``torch.profiler`` and writes a Chrome trace (open it in
-Perfetto or ``chrome://tracing``); name a region in it with
-``torch.profiler.record_function``. JAX's ``StepTimer`` and ``annotate``
-have no counterpart, as nothing in either package calls them, and
-neither has ``enable_compilation_cache``: the port compiles no programs
-(its kernels are built once by nvcc into ``mggan_tpu_torch/_build``), so
+Perfetto or ``chrome://tracing``). ``span`` names a stage of the program
+in such a trace, JAX's ``annotate``: the inference path's stages
+(``mggan.predict`` and, under it, ``mggan.inputs``,
+``mggan.traj_encoder``, ``mggan.scene_cnn``, ``mggan.social``,
+``mggan.pm``, ``mggan.decoder_h0``, ``mggan.rollout``) and the train
+loop's (``mggan.train.feed``, ``mggan.train.device_batch``,
+``mggan.train.d_step``, ``mggan.train.g_step``, ``mggan.train.pm_step``).
+A span is a host range only: the device operations the ops under it
+launch are tied to it through the profiler's correlation of each launch
+with its op, so the trace's device rows hold device work alone. Without
+a profiler a span costs one flag test and calls no dispatcher op, so
+nothing of it enters a ``torch.export`` program. JAX's ``StepTimer`` has
+no counterpart, as nothing in either package calls it, and neither has
+``enable_compilation_cache``: the port compiles no programs (its kernels
+are built once by nvcc into ``mggan_tpu_torch/_build``), so
 ``--compilation_cache_dir`` is dropped by the port's parser
 (``config.py``).
 """
@@ -18,7 +28,23 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager naming the block ``name`` in a running profiler's
+    trace; with no profiler running, a shared null context.
+
+    The range is a host record function of ``RecordScope::FUNCTION``
+    (``torch.profiler.record_function``'s user scope would add a device
+    annotation row, which a reader of the device rows would take for
+    device work)."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager

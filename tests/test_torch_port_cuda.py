@@ -1022,3 +1022,48 @@ def test_train_step_flop_count_equals_the_cpu_count(cuda):
     assert counts["cuda"] == counts["cpu"]
     assert {op for op in counts["cuda"][1] if op.startswith("mggan.")} == {
         "mggan.decode_select", "mggan.decode_all_fwd", "mggan.decode_all_bwd"}
+
+
+@pytest.mark.cuda
+def test_k1_is_attributed_to_the_rollout_span(cuda):
+    """Under ``torch.profiler`` on the card, each K1 kernel of a predictor
+    call is linked (the profiler's raw results: its correlation to the host
+    operation's) to the host operation that launched it, and the innermost
+    ``mggan.*`` span above that operation is ``mggan.rollout``; the spans
+    add no device row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mggan_tpu_torch.config import flagship_config
+    from mggan_tpu_torch.eval.predict import Predictor
+    from mggan_tpu_torch.models.factory import construct_model
+
+    cfg = flagship_config()
+    params, state, spec = construct_model(cfg, seed=0, device=cuda)
+    pred = Predictor(cfg, spec, params, state, device=cuda)
+    rng = np.random.RandomState(2)
+    s, p = 8, 16
+    batch = {"xy": (rng.randn(s, p, 20, 2).cumsum(2) * 0.4).astype(np.float32),
+             "ped_mask": np.ones((s, p), bool),
+             "patches": rng.uniform(-1, 1, (s, p, 33, 33, 4)).astype(np.float32)}
+    pred.predict(batch, pred.new_generator(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.predict(batch, pred.new_generator(0))
+        torch.cuda.synchronize()
+    events = prof.events()
+    linked = {k.correlation_id(): k.linked_correlation_id()
+              for k in prof.profiler.kineto_results.events()
+              if k.device_type() == DeviceType.CUDA}
+    ops = {e.id: e for e in events if e.device_type == DeviceType.CPU
+           and not e.name.startswith("cu")}
+
+    def span_of(e):
+        while e is not None and not e.name.startswith("mggan."):
+            e = e.cpu_parent
+        return None if e is None else e.name
+
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    k1 = [e for e in device if "decode_select" in e.name]
+    assert k1 and all(span_of(ops.get(linked.get(e.id))) == "mggan.rollout" for e in k1)
+    assert not [e.name for e in device if e.is_user_annotation or e.name.startswith("mggan.")]
